@@ -29,11 +29,25 @@ result):
   7. torch.profiler over a few WORKING frames: device time per frame,
      kernels and launches per frame, host and device time per phase of the
      step (its `step.*` spans), the top operators (table written to
-     chiprun_out/profile.txt); informational, it cannot fail the run.
+     chiprun_out/profile.txt);
+  8. mono relocalization: the mono step on the same sequence, then three
+     black frames (the state must be LOST), then the last keyframe's image
+     again: WORKING within three frames with the camera centre within 0.15
+     of that keyframe's centre, and the patch kernel launched meanwhile;
+  9. the VIP step (IMU preintegration, pressure-scale VIO init, the VI
+     solves and window BA) at bench.py's VIP settings (512x640, 400
+     tracks, 120 frames, kf_cap 64, pt_cap 8192), three runs that must be
+     bitwise equal: VIO initializes, >= 80% of frames WORKING, metric ATE
+     (no scale alignment) over the WORKING frames from VIO init + 3 on
+     below 5% of the trajectory span; the VIO-init frame's own ms, host
+     reads, kernel launches, peak memory, a sync audit over the first 30
+     frames and a profile split by phase over six VI frames after VIO
+     init (table in chiprun_out/profile_vip.txt).
 
-The last three lines of standard output are the step's JSON record, the
-per-kernel JSON record and {"ok": true, "device": {...}}. The script
-imports neither jax nor the reference package uvipslam_tpu.
+The last three lines of standard output are the steps' JSON record, the
+per-kernel JSON record (launches per path) and {"ok": true, "device":
+{...}}. The script imports neither jax nor the reference package
+uvipslam_tpu.
 """
 
 from __future__ import annotations
@@ -48,12 +62,23 @@ import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_FRAMES = 60
-REPEATS = 2      # timing repeats of the mono step after the gated run
+REPEATS = 2      # timing repeats of each step after the gated run
 BATCH = 50
+VIP_FRAMES = 120
+VIP_AUDIT_FRAMES = 30
+RELOC_WARMUP = 30     # mono frames before the blackout
+
+
+T0 = time.perf_counter()
+MARKS = {}      # phase -> seconds since start at its end
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def mark(phase):
+    MARKS[phase] = round(time.perf_counter() - T0, 1)
 
 
 def nvidia_smi_line() -> str:
@@ -151,22 +176,47 @@ def kernel_phase(torch, tklt, dev):
     return max_err, rows
 
 
-def drive(torch, new_tracker, imgs):
-    """A fresh tracker from `new_tracker()` passed once over the sequence: the
-    step, per-frame states, poses and ms (host clock around a step that
-    ends in a synchronize). No reference to the initial state outlives
-    its first frame, so peak memory is the step's own."""
+def drive(torch, new_tracker, feeds):
+    """A fresh tracker from `new_tracker()` passed once over the sequence's
+    per-frame inputs: the step, per-frame states, poses, VIO flags (VIP)
+    and ms (host clock around a step that ends in a synchronize). No
+    reference to the initial state outlives its first frame, so peak
+    memory is the step's own."""
     st, step = new_tracker()
-    states, Rs, ts, frame_ms = [], [], [], []
-    for img in imgs:
+    states, Rs, ts, vios, frame_ms = [], [], [], [], []
+    for x in feeds:
         t1 = time.perf_counter()
-        st, out = step(st, img)
+        st, out = step(st, x)
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t1) * 1e3)
         states.append(int(out.state))
+        vios.append(bool(getattr(out, "vio_ok", False)))
         Rs.append(out.Rcw)
         ts.append(out.tcw)
-    return step, states, Rs, ts, frame_ms
+    return step, states, Rs, ts, vios, frame_ms
+
+
+def timed_runs(torch, new_tracker, feeds, first):
+    """REPEATS more runs after `first` (a drive() result); each must give
+    the same states and poses bit for bit. Returns the run medians of the
+    per-frame ms over frames 3 on."""
+    _, states, Rs, ts, _, frame_ms = first
+    meds = [statistics.median(frame_ms[2:])]
+    for _ in range(REPEATS):
+        _, states_r, Rs_r, ts_r, _, ms_r = drive(torch, new_tracker, feeds)
+        meds.append(statistics.median(ms_r[2:]))
+        if states_r != states or not all(
+                torch.equal(a, b) for a, b in zip(Rs_r + ts_r, Rs + ts)):
+            raise AssertionError("a repeat run of the step differs from the main run")
+    return meds
+
+
+def centres(torch, np, Rs, ts):
+    R = torch.stack(Rs).double().cpu().numpy()
+    t = torch.stack(ts).double().cpu().numpy()
+    if not (np.isfinite(R).all() and np.isfinite(t).all()):
+        raise AssertionError("non-finite pose")
+    return -np.einsum("nji,nj->ni", R, t)
 
 
 def expected_launches(states, n_orb_levels):
@@ -188,17 +238,18 @@ def expected_launches(states, n_orb_levels):
     return total
 
 
-def profile_phase(torch, step, st, imgs, start, n=6):
-    """torch.profiler over n WORKING frames: device busy share and the
-    top operators by device and by host time (full table to
-    chiprun_out/profile.txt)."""
+def profile_phase(torch, step, st, feeds, start, n, out_name):
+    """torch.profiler over frames start..start+n-1: device busy time and
+    the top operators by device and by host time (full table to
+    chiprun_out/<out_name>), host and device time per `step.*` span. Fails
+    when the profiler sees no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for f in range(start, start + n):
-            st, _ = step(st, imgs[f])
+            st, _ = step(st, feeds[f])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3   # the profiler's teardown excluded
     ev = prof.key_averages()
@@ -224,16 +275,15 @@ def profile_phase(torch, step, st, imgs, start, n=6):
     launches = sum(e.count for e in ev if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                                     "cudaLaunchKernelExC"))
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(HERE, "chiprun_out", "profile.txt"), "w") as fh:
+    with open(os.path.join(HERE, "chiprun_out", out_name), "w") as fh:
         fh.write(ev.table(sort_by="self_cuda_time_total", row_limit=60))
         fh.write("\n\n")
         fh.write(ev.table(sort_by="self_cpu_time_total", row_limit=40))
     if device_ms <= 0:
-        log("phase profile: the profiler saw no device time (not measured)")
-        return None
+        raise AssertionError("the profiler saw no device time")
     top_dev = sorted(gpu, key=dev_us, reverse=True)[:8]
     top_cpu = sorted(ev, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
-    log(f"phase profile ({n} WORKING frames under torch.profiler, which slows the host): "
+    log(f"  frames {start}-{start + n - 1} under torch.profiler, which slows the host: "
         f"wall {wall_ms / n:.1f} ms/frame, device busy {device_ms / n:.2f} ms/frame, "
         f"{kernels / n:.0f} device kernels and {launches / n:.0f} kernel launches/frame")
     log("  top device: " + "; ".join(f"{e.key[:60]} {dev_us(e) / 1e3 / n:.3f} ms x{e.count // n}"
@@ -246,6 +296,193 @@ def profile_phase(torch, step, st, imgs, start, n=6):
     return dict(wall_ms_per_frame_profiled=wall_ms / n, device_ms_per_frame=device_ms / n,
                 device_kernels_per_frame=kernels / n, launches_per_frame=launches / n,
                 phases=spans)
+
+
+def sync_audit(torch, step, st, feeds, n):
+    """Runs frames 0..n-1 under torch.cuda sync-debug mode. Returns (the
+    synchronizing calls seen, by call site, the state after frame n-1)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for f in range(n):
+                st, _ = step(st, feeds[f])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    real = [w for w in caught if "synchroniz" in str(w.message).lower()]
+    where = {}
+    for w in real:
+        key = f"{os.path.basename(w.filename)}:{w.lineno}"
+        where[key] = where.get(key, 0) + 1
+    return real, where, st
+
+
+def reloc_phase(torch, np, tklt, new_tracker, imgs):
+    """The mono step WORKING on the sequence, three black frames (LOST),
+    then the last keyframe's image again until WORKING (three frames at
+    most). Returns (frames to recover, centre error, kernel launches from
+    the first black frame on)."""
+    from uvipslam_torch.frontend.tracker import LOST, WORKING
+
+    st, step = new_tracker()
+    for f in range(RELOC_WARMUP):
+        st, out = step(st, imgs[f])
+    if int(out.state) != WORKING:
+        raise AssertionError(f"mono step not WORKING after {RELOC_WARMUP} frames")
+    torch.cuda.synchronize()
+    tklt.launches = 0
+    black = torch.zeros_like(imgs[0])
+    for _ in range(3):
+        st, out = step(st, black)
+    if int(out.state) != LOST:
+        raise AssertionError(f"state {int(out.state)} after three black frames, not LOST")
+    k = int(st.map.n_kf) - 1
+    kf_frame = int(st.map.kf_frame_id[k])
+    C_kf = st.map.kf_ns.p[k].double().cpu().numpy()
+    for n in range(1, 4):
+        st, out = step(st, imgs[kf_frame])
+        if int(out.state) == WORKING:
+            break
+    else:
+        raise AssertionError("no relocalization within three frames")
+    torch.cuda.synchronize()
+    launches = tklt.launches
+    C = centres(torch, np, [out.Rcw], [out.tcw])[0]
+    err = float(np.linalg.norm(C - C_kf))
+    if not err < 0.15:
+        raise AssertionError(f"relocalized centre {C} is {err} from keyframe centre {C_kf}")
+    if launches <= 0:
+        raise AssertionError("the patch kernel did not launch on the relocalization path")
+    return n, err, launches, kf_frame
+
+
+def orb_levels(h, w, n=8, scale=1.2):
+    """The ORB pyramid levels `extract_orb` keeps at an image size."""
+    while n > 1 and min(h, w) / scale ** (n - 1) < 40:
+        n -= 1
+    return n
+
+
+def expected_launches_vip(states, n_orb_levels):
+    """Patch pulls per frame of the VIP step when no frame is LOST or in
+    IMU recovery: the shared detection (template pulls, ORB levels and
+    the descriptor refresh) runs in NOT_INITIALIZED and WORKING, the two
+    anchor refinements in INITIALIZING and WORKING."""
+    from uvipslam_torch.frontend.tracker import INITIALIZING, NOT_INITIALIZED, WORKING
+
+    detect = 2 + n_orb_levels + 1
+    total, prev = 0, NOT_INITIALIZED
+    for s in states:
+        total += {NOT_INITIALIZED: detect, INITIALIZING: 2, WORKING: 2 + detect}[prev]
+        prev = s
+    return total
+
+
+def vip_phase(torch, np, tklt, dev, smi):
+    """Phase 9. Returns (the step record, launches on the VIP path)."""
+    from uvipslam_torch.frontend.device_vip import build_vip_tracker, make_bundles
+    from uvipslam_torch.frontend.tracker import IMU_RELOC, LOST, WORKING
+    from uvipslam_torch.frontend.vip_tracker import VipConfig
+    from uvipslam_torch.io.synthetic import ate_rmse, make_sequence
+    from uvipslam_torch.models.camera import CameraModel
+
+    t0 = time.time()
+    seq = make_sequence(n_frames=VIP_FRAMES, H=512, W=640, n_points=6000, seed=7, speed=1.2,
+                        gyr_noise=0.005, acc_noise=0.05, gyr_bias=(0.004, -0.006, 0.003),
+                        depth_noise=0.02, z_amp=0.5)
+    mark("vip_sequence")
+    log(f"sequence {VIP_FRAMES}x512x640 with IMU and pressure generated in "
+        f"{time.time() - t0:.1f} s")
+    cam = CameraModel.create(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2],
+                             width=640, height=512)
+    cfg = VipConfig(n_tracks=400, min_init_tracks=100, local_window=8, gyr_noise_sd=0.01,
+                    acc_noise_sd=0.1, depth_noise_sd=0.05, vio_init_min_kfs=6,
+                    vio_init_min_time=1.0)
+    bundles = make_bundles(seq, device=dev)     # the whole sequence uploaded once
+
+    def new_tracker():
+        return build_vip_tracker(cam, cfg, kf_cap=64, pt_cap=8192, device=dev)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tklt.launches = 0
+    first = drive(torch, new_tracker, bundles)
+    launches = tklt.launches
+    step, states, Rs, ts, vios, frame_ms = first
+    syncs = step.host_syncs
+    peak = torch.cuda.max_memory_allocated()
+    run_meds = timed_runs(torch, new_tracker, bundles, first)
+    med = statistics.median(run_meds)
+
+    states = np.asarray(states)
+    vios = np.asarray(vios)
+    working = states == WORKING
+    C = centres(torch, np, Rs, ts)
+    span = float(np.linalg.norm(seq.positions_w[-1] - seq.positions_w[0]))
+    init_f = int(np.argmax(vios)) if vios.any() else -1
+    sel = np.asarray([i for i in range(VIP_FRAMES) if init_f >= 0 and i >= init_f + 3
+                      and working[i]], dtype=np.int64)
+    ate = float("inf")
+    if len(sel) > 5:
+        ate, _ = ate_rmse(C[sel], seq.positions_w[sel], align_scale=False)
+    n_levels = orb_levels(*seq.images.shape[1:])
+    clean = not ((states == LOST) | (states == IMU_RELOC)).any()
+    expect = expected_launches_vip(states.tolist(), n_levels) if clean else None
+    init_ms = frame_ms[init_f] if init_f >= 0 else float("nan")
+    log(f"phase VIP step 512x640 / 400 tracks / {VIP_FRAMES} frames: VIO init at frame "
+        f"{init_f}, {int(working.sum())}/{VIP_FRAMES} WORKING, {int((states == LOST).sum())} "
+        f"LOST, {int((states == IMU_RELOC).sum())} IMU_RELOC, metric ATE {ate:.5f} m over "
+        f"{len(sel)} frames (threshold {0.05 * span:.5f} m, 5% of span {span:.4f} m)")
+    log(f"  median {med:.2f} ms/frame over {len(run_meds)} runs (host clock to synchronize, "
+        f"frames 3-{VIP_FRAMES}; run medians {' / '.join(f'{m:.2f}' for m in run_meds)}; "
+        f"states and poses bitwise equal across runs; first frame {frame_ms[0]:.1f} ms), "
+        f"VIO-init frame {init_ms:.1f} ms, host reads {syncs / VIP_FRAMES:.2f}/frame "
+        f"({syncs} total), extract_patches launches {launches}"
+        f"{f' (expected {expect})' if expect is not None else ''}, "
+        f"peak allocated {peak / 2**20:.1f} MiB")
+    log(f"  states {''.join(str(s) for s in states.tolist())}")
+    if init_f < 0:
+        raise AssertionError("VIO never initialized")
+    if working.sum() < 0.8 * VIP_FRAMES:
+        raise AssertionError(f"only {int(working.sum())}/{VIP_FRAMES} frames WORKING")
+    if not ate < 0.05 * span:
+        raise AssertionError(f"metric ATE {ate} >= 5% of span {span}")
+    if launches <= 0 or (expect is not None and launches != expect):
+        raise AssertionError(f"kernel launches {launches}, expected {expect}")
+    mark("vip_step")
+
+    st_a, step_a = new_tracker()
+    real, where, _ = sync_audit(torch, step_a, st_a, bundles, VIP_AUDIT_FRAMES)
+    log(f"phase VIP sync audit ({VIP_AUDIT_FRAMES} frames): "
+        f"{len(real) / VIP_AUDIT_FRAMES:.2f} synchronizing calls/frame seen by torch.cuda "
+        f"sync-debug mode, {step_a.host_syncs / VIP_AUDIT_FRAMES:.2f}/frame counted by the step")
+    log("  by call site: " + ", ".join(f"{k} x{v}" for k, v in sorted(
+        where.items(), key=lambda kv: -kv[1])[:12]))
+
+    mark("vip_audit")
+    # the profile window: six VI frames after VIO init. The init frame
+    # alone launches ~0.4M kernels, whose profiler events take minutes to
+    # post-process; its own time is the timed run's VIO-init frame ms
+    start = init_f + 1
+    st_p, step_p = new_tracker()
+    for f in range(start):
+        st_p, _ = step_p(st_p, bundles[f])
+    log("phase VIP profile:")
+    profile = profile_phase(torch, step_p, st_p, bundles, start, 6, "profile_vip.txt")
+    profile["device_idle_share"] = 1.0 - profile["device_ms_per_frame"] / med
+    mark("vip_profile")
+    log(f"  device busy {profile['device_ms_per_frame']:.2f} ms/frame in the window; idle "
+        f"share against the unprofiled {med:.1f} ms/frame: "
+        f"{100 * profile['device_idle_share']:.1f}%")
+    record = {"frames_working": int(working.sum()), "n_frames": VIP_FRAMES,
+              "vio_init_frame": init_f, "ate_metric_m": ate,
+              "ate_threshold_m": 0.05 * span, "median_ms_per_frame": med,
+              "run_medians_ms": run_meds, "vio_init_frame_ms": init_ms,
+              "host_reads_per_frame": syncs / VIP_FRAMES,
+              "sync_calls_per_frame_audit": len(real) / VIP_AUDIT_FRAMES,
+              "peak_allocated_bytes": peak, "profile": profile, "card": smi}
+    return record, launches
 
 
 def main() -> int:
@@ -280,6 +517,7 @@ def main() -> int:
     # -- phase 3: kernel vs plain ---------------------------------------
     log("phase kernel-vs-plain (exact equality):")
     max_err, rows = kernel_phase(torch, tklt, dev)
+    mark("kernel_vs_plain")
 
     # -- phase 4/5 need the synthetic sequences -------------------------
     from uvipslam_torch.frontend.device_tracker import build_tracker
@@ -319,6 +557,7 @@ def main() -> int:
 
     t0 = time.time()
     seq = make_sequence(n_frames=N_FRAMES, H=512, W=640, n_points=6000, seed=7, speed=1.2)
+    mark("sequence")
     log(f"sequence 60x512x640 generated in {time.time() - t0:.1f} s")
     cam = CameraModel.create(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2],
                              width=640, height=512)
@@ -332,25 +571,16 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tklt.launches = 0
-    step, states, Rs, ts, frame_ms = drive(torch, new_tracker, imgs)
+    first = drive(torch, new_tracker, imgs)
     launches = tklt.launches
+    step, states, Rs, ts, _, frame_ms = first
     syncs = step.host_syncs
     peak = torch.cuda.max_memory_allocated()
-    run_meds = [statistics.median(frame_ms[2:])]
-    for _ in range(REPEATS):
-        _, states_r, Rs_r, ts_r, ms_r = drive(torch, new_tracker, imgs)
-        run_meds.append(statistics.median(ms_r[2:]))
-        if states_r != states or not all(
-                torch.equal(a, b) for a, b in zip(Rs_r + ts_r, Rs + ts)):
-            raise AssertionError("a repeat run of the step differs from the main run")
+    run_meds = timed_runs(torch, new_tracker, imgs, first)
 
     states = np.asarray(states)
     working = states == WORKING
-    R = torch.stack(Rs).double().cpu().numpy()
-    t = torch.stack(ts).double().cpu().numpy()
-    if not (np.isfinite(R).all() and np.isfinite(t).all()):
-        raise AssertionError("non-finite pose")
-    C = -np.einsum("nji,nj->ni", R, t)
+    C = centres(torch, np, Rs, ts)
     span = float(np.linalg.norm(seq.positions_w[-1] - seq.positions_w[0]))
     ate = float("inf")
     if working.sum() > 5:
@@ -376,39 +606,40 @@ def main() -> int:
         raise AssertionError("LOST frames")
     if launches <= 0 or launches != expect:
         raise AssertionError(f"kernel launches {launches}, expected {expect}")
+    mark("mono_step")
 
     # -- phase 6: sync audit ----------------------------------------------
     audit_frames = 12
     st_a, step_a = new_tracker()
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            for f in range(audit_frames):
-                st_a, _ = step_a(st_a, imgs[f])
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    real = [w for w in caught if "synchroniz" in str(w.message).lower()]
+    real, where, st_a = sync_audit(torch, step_a, st_a, imgs, audit_frames)
     log(f"phase sync audit ({audit_frames} frames): {len(real) / audit_frames:.2f} "
         f"synchronizing calls/frame seen by torch.cuda sync-debug mode, "
         f"{step_a.host_syncs / audit_frames:.2f}/frame counted by the step")
-    where = {}
-    for w in real:
-        key = f"{os.path.basename(w.filename)}:{w.lineno}"
-        where[key] = where.get(key, 0) + 1
     log("  by call site: " + ", ".join(f"{k} x{v}" for k, v in sorted(
         where.items(), key=lambda kv: -kv[1])[:12]))
-    try:
-        profile = profile_phase(torch, step_a, st_a, imgs, audit_frames)
-    except Exception as e:  # a profiler quirk must not hide the checks above
-        log(f"phase profile: not measured ({type(e).__name__}: {e})")
-        profile = None
-    if profile:
-        # device time does not depend on the profiler; the host clock does
-        profile["device_idle_share"] = 1.0 - profile["device_ms_per_frame"] / med
-        log(f"  device idle share at the unprofiled {med:.1f} ms/frame: "
-            f"{100 * profile['device_idle_share']:.1f}%")
+
+    # -- phase 7: profile ---------------------------------------------------
+    mark("mono_audit")
+    log("phase profile:")
+    profile = profile_phase(torch, step_a, st_a, imgs, audit_frames, 6, "profile.txt")
+    mark("mono_profile")
+    # device time does not depend on the profiler; the host clock does
+    profile["device_idle_share"] = 1.0 - profile["device_ms_per_frame"] / med
+    log(f"  device idle share at the unprofiled {med:.1f} ms/frame: "
+        f"{100 * profile['device_idle_share']:.1f}%")
+
+    # -- phase 8: mono relocalization ----------------------------------------
+    n_rec, rec_err, reloc_launches, kf_frame = reloc_phase(torch, np, tklt, new_tracker, imgs)
+    mark("mono_reloc")
+    log(f"phase mono relocalization: LOST after 3 black frames; WORKING again on the "
+        f"{n_rec}. frame of keyframe {kf_frame}'s image, camera centre {rec_err:.4f} from the "
+        f"keyframe's (bound 0.15); extract_patches launches {reloc_launches} from the first "
+        f"black frame on")
+
+    # -- phase 9: the VIP step ------------------------------------------------
+    vip_record, vip_launches = vip_phase(torch, np, tklt, dev, smi)
+
+    log("phase end times (s since start): " + ", ".join(f"{k} {v}" for k, v in MARKS.items()))
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "uvipslam_tpu"))
     if foreign:
         raise AssertionError(f"the reference stack was imported: {foreign[:5]}")
@@ -419,7 +650,11 @@ def main() -> int:
         "route": "cuda",
         "source": "uvipslam_torch/csrc/extract_patches.cu",
         "replaces": "uvipslam_tpu/ops/klt.py:230",
-        "launches": launches,
+        # the VIP step is the system's main path; every path's own count
+        # is read from zero just before it and just after it
+        "launches": vip_launches,
+        "launches_by_path": {"vip": vip_launches, "mono": launches,
+                             "mono_reloc": reloc_launches},
         "max_abs_err": max_err,
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
@@ -431,7 +666,10 @@ def main() -> int:
                             "host_reads_per_frame": syncs / N_FRAMES,
                             "sync_calls_per_frame_audit": len(real) / audit_frames,
                             "peak_allocated_bytes": peak,
-                            "profile": profile, "card": smi}}
+                            "profile": profile, "card": smi},
+                   "reloc": {"frames_to_recover": n_rec, "centre_error": rec_err,
+                             "launches": reloc_launches},
+                   "vip": vip_record, "phase_end_s": MARKS}
     print(json.dumps(step_record), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,10 +1,14 @@
-"""The port stands alone: importing every uvipslam_torch module pulls in
-neither jax nor the reference package, and the constants the port
-regenerates (BRIEF pattern, vocabulary, haloc projections) and its
-synthetic camera sequences equal the reference's bit for bit."""
+"""The port stands alone: importing every uvipslam_torch module and
+chip_smoke.py pulls in neither jax nor the reference package, chip_smoke.py
+refuses to run without a card or outside a checkout, and the constants the
+port regenerates (BRIEF pattern, vocabulary, haloc projections) and its
+synthetic sequences (camera, IMU and pressure) equal the reference's bit
+for bit."""
 
+import ast
 import os
 import pkgutil
+import shutil
 import subprocess
 import sys
 
@@ -23,9 +27,11 @@ def _all_modules():
 
 def test_import_every_module_without_jax():
     mods = _all_modules()
-    assert "uvipslam_torch.kernels" in mods and "uvipslam_torch.frontend.device_tracker" in mods
+    for m in ("kernels", "frontend.device_tracker", "frontend.device_vip", "frontend.vip_tracker",
+              "vio.init", "ops.pnp", "ops.clahe", "solver.global_ba", "loop.reloc"):
+        assert "uvipslam_torch." + m in mods, m
     code = ("import importlib, sys\n"
-            f"for m in {mods!r}: importlib.import_module(m)\n"
+            f"for m in {mods + ['chip_smoke']!r}: importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
             "             or k == 'uvipslam_tpu' or k.startswith('uvipslam_tpu.'))\n"
             "assert not bad, bad\n"
@@ -36,6 +42,33 @@ def test_import_every_module_without_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     assert r.stdout.startswith("ok")
+
+
+def test_chip_smoke_imports_no_reference():
+    """No import statement of chip_smoke.py names jax or the reference."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as fh:
+        tree = ast.parse(fh.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    assert "uvipslam_torch.frontend.device_vip" in names
+    assert not [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "uvipslam_tpu")], names
+
+
+@pytest.mark.parametrize("where", ["checkout", "alone"])
+def test_chip_smoke_fails_without_card_or_checkout(where, tmp_path):
+    """Without a CUDA device (here), or in a directory that holds
+    chip_smoke.py and nothing else of the repo, the script exits non-zero
+    and prints no result."""
+    script = os.path.join(REPO, "chip_smoke.py")
+    cwd = REPO
+    if where == "alone":
+        shutil.copy(script, tmp_path / "chip_smoke.py")
+        script, cwd = str(tmp_path / "chip_smoke.py"), str(tmp_path)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, script], cwd=cwd, env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
 
 
 def test_regenerated_constants_equal_reference():
@@ -59,10 +92,13 @@ def test_synthetic_sequence_equals_reference(motion):
     from uvipslam_tpu.io import synthetic as jsyn
     from uvipslam_torch.io import synthetic as tsyn
 
-    kw = dict(n_frames=4, H=48, W=64, n_points=300, seed=5, motion=motion, speed=1.2)
+    kw = dict(n_frames=4, H=48, W=64, n_points=300, seed=5, motion=motion, speed=1.2,
+              gyr_noise=0.005, acc_noise=0.05, gyr_bias=(0.004, -0.006, 0.003),
+              depth_noise=0.02, z_amp=0.5)
     j = jsyn.make_sequence(**kw)
     t = tsyn.make_sequence(**kw)
-    for f in ("images", "timestamps", "R_cw", "t_cw", "K", "points", "positions_w"):
+    for f in ("images", "timestamps", "R_cw", "t_cw", "K", "points", "positions_w", "imu_omg",
+              "imu_acc", "imu_dt", "imu_mask", "depth", "depth_valid", "gravity_w"):
         np.testing.assert_array_equal(getattr(t, f), getattr(j, f), err_msg=f)
     assert t.images.dtype == j.images.dtype
     est = j.positions_w + np.random.RandomState(0).normal(0, 0.01, j.positions_w.shape)

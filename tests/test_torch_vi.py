@@ -1,0 +1,672 @@
+"""Parity of the port's inertial core with the reference: preintegration,
+the VI(P) factors, the VI pose solves, the VI window BA, the full-map
+visual BA and the VIO-init solves, on seeded inputs (the fixtures of
+tests/test_solver.py, tests/test_local_ba.py and tests/test_vio_init.py).
+
+Tolerances: preintegration and the factors agree to float32 rounding
+(atol 1e-5 on unit-scale quantities, relative 1e-5 on the covariance,
+whose entries span 1e-10..1e-3). Each iterative solve runs twice:
+
+- in float64, where every LM accept/reject decision is clear, port and
+  reference agree to 1e-8 (ATOL64);
+- in float32, where the LM decisions rest on sums taken in another order
+  than XLA's, the port is held within 1e-4 (ATOL) of the reference's
+  float64 solve, and within 1e-3 (REF32_ATOL) of the reference's own
+  float32 solve, which is the less accurate of the two: on the vision
+  case of `pose_optimization_vi2` its velocity lies 4.3e-4 from the
+  float64 solve, the port's 1.1e-5. The Schur marginals (entries to
+  1e9, formed by cancellation) are held by their distance to the
+  float64 marginal: the port's at most twice the reference's. Inlier
+  sets are equal in both precisions.
+
+The float32 full-map visual BA is held at the level of its cost (see
+`test_global_ba_visual`): its scale gauge is free, and on far points its
+float32 LM stops at different places in both implementations.
+"""
+
+import collections
+import dataclasses
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from uvipslam_tpu.core import preintegration as jpre
+from uvipslam_tpu.core.state import NavState as JNS
+from uvipslam_tpu.mapstate.map import MapState as JMap
+from uvipslam_tpu.solver import factors as jfac
+from uvipslam_tpu.solver import global_ba as jgba
+from uvipslam_tpu.solver import local_ba as jlba
+from uvipslam_tpu.solver import pose_opt as jpo
+from uvipslam_tpu.vio import init as jvio
+from uvipslam_torch import convert
+from uvipslam_torch.core import preintegration as tpre
+from uvipslam_torch.core.tree import tree_map as ttree
+from uvipslam_torch.solver import factors as tfac
+from uvipslam_torch.solver import global_ba as tgba
+from uvipslam_torch.solver import local_ba as tlba
+from uvipslam_torch.solver import pose_opt as tpo
+from uvipslam_torch.vio import init as tvio
+
+FX, FY, CX, CY = 420.0, 420.0, 320.0, 240.0
+ATOL = 1e-4
+ATOL64 = 1e-8
+REF32_ATOL = 1e-3
+DTYPES = {"f32": (np.float32, torch.float32, False), "f64": (np.float64, torch.float64, True)}
+
+
+def _t(a, dtype=None):
+    t = torch.from_numpy(np.array(a))
+    return t.to(dtype) if dtype is not None and t.is_floating_point() else t
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _tree_np(obj):
+    return jax.tree_util.tree_map(np.asarray, obj)
+
+
+def _rot(rs, scale):
+    w = rs.randn(3) * scale
+    th = np.linalg.norm(w)
+    K = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+    return np.eye(3) + np.sin(th) / th * K + (1 - np.cos(th)) / th**2 * K @ K
+
+
+# ---------------------------------------------------------------------------
+# preintegration
+# ---------------------------------------------------------------------------
+
+def _imu_window(seed, T=40, n_valid=31):
+    rs = np.random.RandomState(seed)
+    omg = (rs.randn(T, 3) * 0.4).astype(np.float32)
+    acc = (rs.randn(T, 3) * 2.0 + np.array([0.0, 0.0, 9.81])).astype(np.float32)
+    dt = np.full(T, 0.005, np.float32)
+    mask = np.zeros(T, np.float32)
+    mask[:n_valid] = 1.0
+    bg = (rs.randn(3) * 0.01).astype(np.float32)
+    ba = (rs.randn(3) * 0.05).astype(np.float32)
+    return omg, acc, dt, mask, bg, ba
+
+
+def _assert_preint(t, j, atol=1e-5):
+    for f in ("dP", "dV", "dR", "J_P_bg", "J_P_ba", "J_V_bg", "J_V_ba", "J_R_bg", "dt"):
+        np.testing.assert_allclose(_np(getattr(t, f)), np.asarray(getattr(j, f)), atol=atol,
+                                   rtol=0, err_msg=f)
+    np.testing.assert_allclose(_np(t.cov), np.asarray(j.cov), rtol=1e-5, atol=1e-12)
+
+
+@pytest.mark.parametrize("n_valid", [40, 31, 0])
+def test_preintegrate_masked_window(n_valid):
+    omg, acc, dt, mask, bg, ba = _imu_window(0, n_valid=n_valid)
+    with jax.enable_x64(False):
+        j = jpre.preintegrate(jnp.asarray(omg), jnp.asarray(acc), jnp.asarray(dt),
+                              jnp.asarray(mask), jnp.asarray(bg), jnp.asarray(ba), 0.01, 0.1)
+        j = _tree_np(j)
+    t = tpre.preintegrate(_t(omg), _t(acc), _t(dt), _t(mask), _t(bg), _t(ba), 0.01, 0.1)
+    _assert_preint(t, j)
+    assert float(t.dt) == pytest.approx(0.005 * n_valid, abs=1e-6)
+
+
+def test_preintegrate_batched_windows():
+    """A [3]-batch of windows in one loop equals three single windows."""
+    wins = [_imu_window(s, n_valid=n) for s, n in ((1, 40), (2, 12), (3, 0))]
+    stack = [np.stack(x) for x in zip(*wins)]
+    t = tpre.preintegrate(*(_t(a) for a in stack[:6]), 0.01, 0.1)
+    with jax.enable_x64(False):
+        for i, w in enumerate(wins):
+            j = _tree_np(jpre.preintegrate(*(jnp.asarray(a) for a in w), 0.01, 0.1))
+            _assert_preint(ttree(lambda a: a[i], t), j)
+
+
+def test_preintegrate_continue_two_states_shared_window():
+    """The VIP step's batch of two running integrals over one frame's
+    samples, each at its own bias."""
+    omg, acc, dt, mask, bg, ba = _imu_window(4, T=10, n_valid=9)
+    o0, a0, d0, m0, _, _ = _imu_window(5, T=30, n_valid=25)
+    with jax.enable_x64(False):
+        base = jpre.preintegrate(*(jnp.asarray(x) for x in (o0, a0, d0, m0)),
+                                 jnp.zeros(3), jnp.zeros(3), 0.01, 0.1)
+        init2 = jax.tree_util.tree_map(lambda a, b: jnp.stack([a, b]),
+                                       jpre.PreintState.zero(dtype=jnp.float32), base)
+        bgs = jnp.stack([jnp.asarray(bg), jnp.zeros(3)])
+        bas = jnp.stack([jnp.asarray(ba), jnp.zeros(3)])
+        j = jax.vmap(jpre.preintegrate_continue,
+                     in_axes=(0, None, None, None, None, 0, 0, None, None))(
+            init2, jnp.asarray(omg), jnp.asarray(acc), jnp.asarray(dt), jnp.asarray(mask),
+            bgs, bas, 0.01, 0.1)
+        j = _tree_np(j)
+        base = _tree_np(base)
+    tbase = convert.convert(tpre.PreintState, base)
+    init_t = ttree(lambda a, b: torch.stack([a, b]), tpre.PreintState.zero(), tbase)
+    t = tpre.preintegrate_continue(init_t, _t(omg), _t(acc), _t(dt), _t(mask),
+                                   torch.stack([_t(bg), torch.zeros(3)]),
+                                   torch.stack([_t(ba), torch.zeros(3)]), 0.01, 0.1)
+    _assert_preint(t, j)
+
+
+def test_bias_correct():
+    omg, acc, dt, mask, _, _ = _imu_window(6)
+    rs = np.random.RandomState(7)
+    dbg = (rs.randn(3) * 0.01).astype(np.float32)
+    dba = (rs.randn(3) * 0.05).astype(np.float32)
+    with jax.enable_x64(False):
+        pre = jpre.preintegrate(*(jnp.asarray(x) for x in (omg, acc, dt, mask)),
+                                jnp.zeros(3), jnp.zeros(3), 0.01, 0.1)
+        j = _tree_np(jpre.bias_correct(pre, jnp.asarray(dbg), jnp.asarray(dba)))
+        pre = _tree_np(pre)
+    t = tpre.bias_correct(convert.convert(tpre.PreintState, pre), _t(dbg), _t(dba))
+    _assert_preint(t, j)
+
+
+# ---------------------------------------------------------------------------
+# factors: residuals and analytic Jacobians
+# ---------------------------------------------------------------------------
+
+def _factor_inputs(name, rs, E=7):
+    """Seeded float32 inputs of factor `name`, batched over E edges."""
+    f = lambda *s: rs.randn(*s).astype(np.float32)     # noqa: E731
+    rots = lambda s: np.stack([_rot(rs, s) for _ in range(E)]).astype(np.float32)  # noqa: E731
+    if name == "reproj_navstate":
+        Rcb = _rot(rs, 0.1).astype(np.float32)
+        pw = np.stack([rs.uniform(-2, 2, E), rs.uniform(-1, 1, E), rs.uniform(4, 8, E)],
+                      -1).astype(np.float32)
+        return (f(3) * 0.2, _rot(rs, 0.1).astype(np.float32), pw, f(E, 2) * 30 + 200, Rcb,
+                f(3) * 0.05, FX, FY, CX, CY)
+    if name in ("preint_pvr", "depth_projected"):
+        ins = (f(E, 3), f(E, 3), rots(0.3), f(E, 3), f(E, 3), rots(0.3), f(E, 3) * 0.01,
+               f(E, 3) * 0.05, f(E, 3), f(E, 3), rots(0.2), f(E, 3, 3) * 0.1, f(E, 3, 3) * 0.1,
+               f(E, 3, 3) * 0.1, f(E, 3, 3) * 0.1, f(E, 3, 3) * 0.1,
+               rs.uniform(0.05, 0.5, E).astype(np.float32),
+               np.array([0.0, 0.0, -9.81], np.float32))
+        if name == "preint_pvr":
+            return ins
+        (ip, iv, iR, jp, _, _, dbg, dba, dP, _, _, JPg, JPa, _, _, _, dT, _) = ins
+        return (ip, iv, iR, jp, dbg, dba, dP, JPg, JPa, dT, f(E),
+                rs.uniform(0, 1, E).astype(np.float32), -9.81)
+    if name == "bias_walk":
+        return tuple(f(E, 3) * 0.01 for _ in range(8))
+    if name == "depth_prior":
+        return (f(E, 3), f(E))
+    if name == "prior_pvr_bias":
+        return (f(E, 3), f(E, 3), rots(0.3), f(E, 3) * 0.01, f(E, 3) * 0.01,
+                f(E, 3), f(E, 3), rots(0.3), f(E, 3) * 0.01, f(E, 3) * 0.01)
+    if name == "gyro_bias_edge":
+        return (rots(0.3), rots(0.3), rots(0.3), f(E, 3, 3) * 0.2, f(3) * 0.01)
+    if name == "scale_depth_edge":
+        return (np.float32(3.7), f(E), f(E))
+    raise KeyError(name)
+
+
+FACTORS = ["reproj_navstate", "preint_pvr", "bias_walk", "depth_prior", "depth_projected",
+           "prior_pvr_bias", "gyro_bias_edge", "scale_depth_edge"]
+
+
+@pytest.mark.parametrize("name", FACTORS)
+def test_factor_residual_and_jacobians(name):
+    ins = _factor_inputs(name, np.random.RandomState(FACTORS.index(name)))
+    with jax.enable_x64(False):
+        j = getattr(jfac, name)(*(jnp.asarray(a) if isinstance(a, np.ndarray) else a
+                                  for a in ins))
+        j = [np.asarray(a) for a in j]
+    t = getattr(tfac, name)(*(_t(a) if isinstance(a, np.ndarray) else a for a in ins))
+    assert len(t) == len(j)
+    for k, (a, b) in enumerate(zip(t, j)):
+        assert _np(a).shape == b.shape, (k, _np(a).shape, b.shape)
+        scale = max(1.0, float(np.abs(b).max()))
+        np.testing.assert_allclose(_np(a), b, atol=2e-5 * scale, rtol=0, err_msg=f"output {k}")
+
+
+# ---------------------------------------------------------------------------
+# VI pose solves (fixtures of tests/test_solver.py)
+# ---------------------------------------------------------------------------
+
+def _vi_problem(seed, n_pts, blind=False, dt_img=0.25, T=50, v0=(0.4, 0.0, -0.2)):
+    rs = np.random.RandomState(seed)
+    g_w = np.array([0.0, 0.0, -9.81])
+    dts = np.full(T, dt_img / T)
+    omg = np.zeros((T, 3))
+    acc = np.broadcast_to(-g_w, (T, 3)).copy()
+    v0 = np.asarray(v0)
+    p_true = v0 * dt_img
+    pts = np.stack([rs.uniform(-2, 2, n_pts), rs.uniform(-1.5, 1.5, n_pts),
+                    rs.uniform(3, 8, n_pts)], -1)
+    pc = pts - p_true
+    uv = np.stack([FX * pc[:, 0] / pc[:, 2] + CX, FY * pc[:, 1] / pc[:, 2] + CY], -1)
+    uv = uv + rs.randn(n_pts, 2) * 0.3
+    if blind:
+        uv = np.zeros_like(uv)
+    return dict(g_w=g_w, omg=omg, acc=acc, dts=dts, v0=v0, p_true=p_true, pts=pts, uv=uv,
+                dt_img=dt_img)
+
+
+def _vi_inputs(prob, npdt):
+    """(preint, ns_ref, ns0) as numpy trees in dtype npdt, built by the
+    reference in that dtype (the step's IMU prediction as initial guess)."""
+    T = prob["dts"].shape[0]
+    c = lambda a: jnp.asarray(np.asarray(a, npdt))   # noqa: E731
+    M = jpre.preintegrate(c(prob["omg"]), c(prob["acc"]), c(prob["dts"]), c(np.ones(T)),
+                          c(np.zeros(3)), c(np.zeros(3)), 0.01, 0.1)
+    ns_ref = dataclasses.replace(JNS.identity(dtype=npdt), v=c(prob["v0"]))
+    g, dt = c(prob["g_w"]), prob["dt_img"]
+    ns0 = dataclasses.replace(
+        ns_ref, p=ns_ref.p + ns_ref.v * dt + 0.5 * g * dt * dt + ns_ref.R @ M.dP,
+        v=ns_ref.v + g * dt + ns_ref.R @ M.dV, R=ns_ref.R @ M.dR)
+    return _tree_np(M), _tree_np(ns_ref), _tree_np(ns0)
+
+
+def _solved(dkey, ref, port):
+    """(port result, reference result, reference float64 result) of one
+    solve: `ref(dkey)` runs the reference, `port(dkey)` the port."""
+    j = ref(dkey)
+    return port(dkey), j, (j if dkey == "f64" else ref("f64"))
+
+
+def _assert_states(dkey, t_ns, j_ns, j64_ns, fields=("p", "v", "R", "dbg", "dba")):
+    for f in fields:
+        got, want = _np(getattr(t_ns, f)), np.asarray(getattr(j_ns, f))
+        if dkey == "f64":
+            np.testing.assert_allclose(got, want, atol=ATOL64, rtol=0, err_msg=f)
+        else:
+            np.testing.assert_allclose(got, np.asarray(getattr(j64_ns, f)), atol=ATOL, rtol=0,
+                                       err_msg=f + " against the float64 solve")
+            np.testing.assert_allclose(got, want, atol=REF32_ATOL, rtol=0, err_msg=f)
+
+
+def _assert_marginal(dkey, tH, jH, jH64):
+    tH, jH, jH64 = (np.asarray(_np(x), np.float64) for x in (tH, jH, jH64))
+    if dkey == "f64":
+        np.testing.assert_allclose(tH, jH, rtol=1e-9, atol=1e-6)
+    else:
+        port_err, ref_err = np.abs(tH - jH64).max(), np.abs(jH - jH64).max()
+        assert port_err <= 2.0 * ref_err + 1e-7 * np.abs(jH64).max(), (port_err, ref_err)
+
+
+@pytest.mark.parametrize("dkey", ["f32", "f64"])
+def test_pose_optimization_vi(dkey):
+    prob = _vi_problem(2, 120)
+
+    def ref(dk):
+        npdt, _, x64 = DTYPES[dk]
+        with jax.enable_x64(x64):
+            M, ns_ref, ns0 = _vi_inputs(prob, npdt)
+            c = lambda a: jnp.asarray(np.asarray(a, npdt))   # noqa: E731
+            return _tree_np(jpo.pose_optimization_vi(
+                jax.tree_util.tree_map(jnp.asarray, ns0),
+                jax.tree_util.tree_map(jnp.asarray, ns_ref),
+                jax.tree_util.tree_map(jnp.asarray, M), c(prob["pts"]), c(prob["uv"]),
+                jnp.ones(120, bool), c(np.ones(120)), c(prob["g_w"]), c(np.eye(3)),
+                c(np.zeros(3)), FX, FY, CX, CY, 2.5e-9, 1e-6, depth_meas=c(prob["p_true"][2]),
+                depth_info=c(1.0 / 0.25), use_depth=True))
+
+    def port(dk):
+        npdt, _, x64 = DTYPES[dk]
+        with jax.enable_x64(x64):
+            M, ns_ref, ns0 = _vi_inputs(prob, npdt)
+        ct = lambda a: _t(np.asarray(a, npdt))   # noqa: E731
+        return tpo.pose_optimization_vi(
+            convert.nav_state(ns0), convert.nav_state(ns_ref),
+            convert.convert(tpre.PreintState, M), ct(prob["pts"]), ct(prob["uv"]),
+            torch.ones(120, dtype=torch.bool), ct(np.ones(120)), ct(prob["g_w"]), ct(np.eye(3)),
+            ct(np.zeros(3)), FX, FY, CX, CY, 2.5e-9, 1e-6, depth_meas=ct(prob["p_true"][2]),
+            depth_info=ct(1.0 / 0.25), use_depth=True)
+
+    t, j, j64 = _solved(dkey, ref, port)
+    _assert_states(dkey, t[0], j[0], j64[0])
+    np.testing.assert_array_equal(_np(t[1]), j[1])
+    assert int(t[2]) == int(j[2]) > 100
+    _assert_marginal(dkey, t[3], j[3], j64[3])
+    np.testing.assert_allclose(_np(t[0].p), prob["p_true"], atol=5e-3)
+
+
+@pytest.mark.parametrize("dkey", ["f32", "f64"])
+@pytest.mark.parametrize("blind", [False, True], ids=["vision", "blind"])
+def test_pose_optimization_vi2(dkey, blind):
+    n = 60 if blind else 120
+    prob = _vi_problem(6 if blind else 5, n, blind=blind,
+                       v0=(0.3, -0.1, 0.0) if blind else (0.4, 0.0, -0.2))
+    valid = np.zeros(n, bool) if blind else np.ones(n, bool)
+    kw = {} if blind else dict(depth_meas=prob["p_true"][2], depth_info=1.0 / 0.25)
+
+    def ref(dk):
+        npdt, _, x64 = DTYPES[dk]
+        with jax.enable_x64(x64):
+            M, ns_prev, ns0 = _vi_inputs(prob, npdt)
+            c = lambda a: jnp.asarray(np.asarray(a, npdt))   # noqa: E731
+            return _tree_np(jpo.pose_optimization_vi2(
+                jax.tree_util.tree_map(jnp.asarray, ns_prev),
+                jax.tree_util.tree_map(jnp.asarray, ns0), c(np.eye(15) * 1e2),
+                jax.tree_util.tree_map(jnp.asarray, M), c(prob["pts"]), c(prob["uv"]),
+                jnp.asarray(valid), c(np.ones(n)), c(prob["g_w"]), c(np.eye(3)),
+                c(np.zeros(3)), FX, FY, CX, CY, 2.5e-9, 1e-6, use_depth=not blind,
+                **{k: c(v) for k, v in kw.items()}))
+
+    def port(dk):
+        npdt, _, x64 = DTYPES[dk]
+        with jax.enable_x64(x64):
+            M, ns_prev, ns0 = _vi_inputs(prob, npdt)
+        ct = lambda a: _t(np.asarray(a, npdt))   # noqa: E731
+        return tpo.pose_optimization_vi2(
+            convert.nav_state(ns_prev), convert.nav_state(ns0), ct(np.eye(15) * 1e2),
+            convert.convert(tpre.PreintState, M), ct(prob["pts"]), ct(prob["uv"]), _t(valid),
+            ct(np.ones(n)), ct(prob["g_w"]), ct(np.eye(3)), ct(np.zeros(3)), FX, FY, CX, CY,
+            2.5e-9, 1e-6, use_depth=not blind, **{k: ct(v) for k, v in kw.items()})
+
+    t, j, j64 = _solved(dkey, ref, port)
+    _assert_states(dkey, t[0], j[0], j64[0])
+    np.testing.assert_array_equal(_np(t[1]), j[1])
+    assert int(t[2]) == int(j[2])
+    # the Schur marginal of the previous state
+    _assert_marginal(dkey, t[3], j[3], j64[3])
+    assert np.linalg.eigvalsh(_np(t[3]).astype(np.float64)).min() > 0
+    np.testing.assert_allclose(_np(t[0].p), prob["p_true"], atol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# VI window BA (fixture of tests/test_local_ba.py)
+# ---------------------------------------------------------------------------
+
+def _vi_ba_problem():
+    rs = np.random.RandomState(2)
+    g_w = np.array([0.0, 0.0, -9.81])
+    K, dt_kf, T, P = 3, 0.5, 100, 100
+    v = np.array([0.5, 0.1, -0.2])
+    p_true = np.stack([v * dt_kf * k for k in range(K)])
+    pts = np.stack([rs.uniform(-3, 3, P), rs.uniform(-2, 2, P), rs.uniform(4, 9, P)], -1)
+    obs_kf, obs_pt, obs_uv = [], [], []
+    for k in range(K):
+        pc = pts - p_true[k]
+        uv = np.stack([FX * pc[:, 0] / pc[:, 2] + CX, FY * pc[:, 1] / pc[:, 2] + CY], -1)
+        for p in range(P):
+            if pc[p, 2] > 1:
+                obs_kf.append(k)
+                obs_pt.append(p)
+                obs_uv.append(uv[p] + rs.randn(2) * 0.3)
+    ns_p = p_true + np.vstack([np.zeros(3), rs.randn(K - 1, 3) * 0.05])
+    ns_v = np.tile(v, (K, 1)) + np.vstack([np.zeros(3), rs.randn(K - 1, 3) * 0.05])
+    pts0 = pts + rs.randn(P, 3) * 0.05
+    return dict(g_w=g_w, K=K, T=T, dt_kf=dt_kf, p_true=p_true, v=v, ns_p=ns_p, ns_v=ns_v,
+                pts0=pts0, obs_kf=np.asarray(obs_kf, np.int32),
+                obs_pt=np.asarray(obs_pt, np.int32), obs_uv=np.asarray(obs_uv))
+
+
+@pytest.mark.parametrize("dkey", ["f32", "f64"])
+def test_local_ba_navstate(dkey):
+    pb = _vi_ba_problem()
+    K, T, O = pb["K"], pb["T"], len(pb["obs_kf"])
+
+    def ref_args(npdt):
+        c = lambda a: jnp.asarray(np.asarray(a, npdt))   # noqa: E731
+        M1 = jpre.preintegrate(c(np.zeros((T, 3))), c(np.broadcast_to(-pb["g_w"], (T, 3))),
+                               c(np.full(T, pb["dt_kf"] / T)), c(np.ones(T)), c(np.zeros(3)),
+                               c(np.zeros(3)), 0.01, 0.1)
+        pre = jax.tree_util.tree_map(lambda a: jnp.stack([a, a]), M1)
+        ns = dataclasses.replace(JNS.identity((K,), npdt), p=c(pb["ns_p"]), v=c(pb["ns_v"]))
+        return (ns, jnp.asarray([True, False, False]), jnp.ones(K, bool), c(pb["pts0"]),
+                jnp.ones(100, bool), jnp.asarray(pb["obs_kf"]), jnp.asarray(pb["obs_pt"]),
+                c(pb["obs_uv"]), c(np.ones(O)), jnp.ones(O, bool),
+                jnp.asarray([0, 1], jnp.int32), jnp.asarray([1, 2], jnp.int32), pre,
+                jnp.ones(2, bool), c(pb["g_w"]), c(np.eye(3)), c(np.zeros(3)))
+
+    def ref(dk):
+        npdt, _, x64 = DTYPES[dk]
+        with jax.enable_x64(x64):
+            c = lambda a: jnp.asarray(np.asarray(a, npdt))   # noqa: E731
+            return _tree_np(jlba.local_ba_navstate(
+                *ref_args(npdt), FX, FY, CX, CY, 2.5e-9, 1e-6,
+                depth_meas=c(pb["p_true"][:, 2]), depth_info=c(np.full(K, 1.0 / 0.25)),
+                n_iters=8, rounds=2))
+
+    def port(dk):
+        npdt, _, x64 = DTYPES[dk]
+        with jax.enable_x64(x64):
+            args = _tree_np(ref_args(npdt))
+        targs = [convert.nav_state(args[0])] + [
+            convert.convert(tpre.PreintState, a) if isinstance(a, jpre.PreintState) else _t(a)
+            for a in args[1:]]
+        return tlba.local_ba_navstate(*targs, FX, FY, CX, CY, 2.5e-9, 1e-6,
+                                      depth_meas=_t(np.asarray(pb["p_true"][:, 2], npdt)),
+                                      depth_info=_t(np.full(K, 1.0 / 0.25, npdt)), n_iters=8,
+                                      rounds=2)
+
+    t, j, j64 = _solved(dkey, ref, port)
+    _assert_states(dkey, t[0], j[0], j64[0])
+    pts = collections.namedtuple("Pts", "p")
+    _assert_states(dkey, pts(t[1]), pts(j[1]), pts(j64[1]), fields=("p",))
+    np.testing.assert_array_equal(_np(t[2]), j[2])
+    assert np.linalg.norm(_np(t[0].p) - pb["p_true"], axis=1).max() < 0.01
+
+
+# ---------------------------------------------------------------------------
+# full-map visual BA on a synthetic keyframe table
+# ---------------------------------------------------------------------------
+
+def _map_fixture(K=6, cap=8, P=80, seed=3):
+    """A reference MapState (numpy) with K keyframes on a line, each
+    observing all P points, perturbed poses and points, in cap slots."""
+    rs = np.random.RandomState(seed)
+    pts = np.stack([rs.uniform(-2, 2, P), rs.uniform(-1.5, 1.5, P), rs.uniform(3, 7, P)], -1)
+    with jax.enable_x64(False):
+        m = _tree_np(JMap.empty(cap, 256, P))
+    kf_p = m.kf_ns.p.copy()
+    kf_R = m.kf_ns.R.copy()
+    feat_pt = m.kf_feat_pt.copy()
+    feat_xy = m.kf_feat_xy.copy()
+    feat_valid = m.kf_feat_valid.copy()
+    feat_level = m.kf_feat_level.copy()
+    for k in range(K):
+        Rwc = _rot(rs, 0.03)
+        C = np.array([0.25 * k, 0.02 * k, 0.0])
+        kf_R[k], kf_p[k] = Rwc, C + (rs.randn(3) * 0.01 if k else 0.0)
+        pc = (pts - C) @ Rwc
+        uv = np.stack([FX * pc[:, 0] / pc[:, 2] + CX, FY * pc[:, 1] / pc[:, 2] + CY], -1)
+        sel = rs.permutation(P)
+        feat_pt[k] = sel
+        feat_xy[k] = uv[sel] + rs.randn(P, 2) * 0.3
+        feat_valid[k] = True
+        feat_level[k] = rs.randint(0, 3, P)
+    kf_valid = np.zeros(cap, bool)
+    kf_valid[:K] = True
+    pt_xyz = np.zeros_like(m.pt_xyz)
+    pt_xyz[:P] = pts + rs.randn(P, 3) * 0.03
+    pt_valid = np.zeros_like(m.pt_valid)
+    pt_valid[:P] = True
+    f32 = lambda a: np.asarray(a, np.float32)   # noqa: E731
+    return dataclasses.replace(
+        m, kf_ns=dataclasses.replace(m.kf_ns, p=f32(kf_p), R=f32(kf_R)), kf_valid=kf_valid,
+        kf_feat_pt=feat_pt.astype(np.int32), kf_feat_xy=f32(feat_xy), kf_feat_valid=feat_valid,
+        kf_feat_level=feat_level.astype(np.int32), pt_xyz=f32(pt_xyz), pt_valid=pt_valid,
+        n_kf=np.asarray(K, np.int32), n_pt=np.asarray(P, np.int32))
+
+
+def _reproj_rms(m, obs):
+    """Reprojection RMS (px) of map m's keyframes and points against the
+    observations of map obs."""
+    K = int(obs.n_kf)
+    R, p, X = (np.asarray(_np(a), np.float64) for a in (m.kf_ns.R, m.kf_ns.p, m.pt_xyz))
+    pid = np.asarray(_np(m.kf_feat_pt))
+    err = []
+    for k in range(K):
+        ok = pid[k] >= 0
+        pc = (X[pid[k][ok]] - p[k]) @ R[k]
+        uv = np.stack([FX * pc[:, 0] / pc[:, 2] + CX, FY * pc[:, 1] / pc[:, 2] + CY], -1)
+        err.append(uv - obs.kf_feat_xy[k][ok])
+    return float(np.sqrt(np.mean(np.sum(np.concatenate(err) ** 2, -1))))
+
+
+@pytest.mark.parametrize("dkey", ["f32", "f64"])
+def test_global_ba_visual(dkey):
+    """float64: port and reference agree to 1e-8. float32: the scale gauge
+    is free and far points make the float32 LM stop where the cost no
+    longer resolves a step, differently in the two implementations (by
+    up to 8e-4 in rotation on this fixture; on a fixture with a point
+    seen once, the reference's float32 solve stops at twice the optimal
+    RMS). So the float32 solve is held at its cost: the port's RMS within
+    1% of the float64 optimum, and the inlier sets equal."""
+    m = _map_fixture()
+    sig = tuple(1.2 ** (2 * i) for i in range(8))
+
+    def ref(dk):
+        npdt, _, x64 = DTYPES[dk]
+        mm = jax.tree_util.tree_map(lambda a: a.astype(npdt) if a.dtype == np.float32 else a, m)
+        with jax.enable_x64(x64):
+            return _tree_np(jgba.global_ba_visual(
+                jax.tree_util.tree_map(jnp.asarray, mm), FX, FY, CX, CY, jnp.asarray(sig, npdt),
+                kf_window=6, n_iters=5, p_active=2048))
+
+    def port(dk):
+        npdt, tdt, _ = DTYPES[dk]
+        mm = jax.tree_util.tree_map(lambda a: a.astype(npdt) if a.dtype == np.float32 else a, m)
+        return tgba.global_ba_visual(convert.map_state(mm), FX, FY, CX, CY,
+                                     torch.tensor(sig, dtype=tdt), kf_window=6, n_iters=5,
+                                     p_active=2048)
+
+    t, j, j64 = _solved(dkey, ref, port)
+    if dkey == "f64":
+        for f in ("p", "R", "v"):
+            np.testing.assert_allclose(_np(getattr(t.kf_ns, f)), getattr(j.kf_ns, f),
+                                       atol=ATOL64, rtol=0, err_msg=f)
+        np.testing.assert_allclose(_np(t.pt_xyz), j.pt_xyz, atol=ATOL64, rtol=0)
+    else:
+        best = _reproj_rms(j64, m)
+        assert _reproj_rms(t, m) < 1.01 * best, (_reproj_rms(t, m), best)
+        assert _reproj_rms(j, m) < 1.01 * best, (_reproj_rms(j, m), best)
+    np.testing.assert_array_equal(_np(t.kf_feat_pt), j.kf_feat_pt)
+    assert _reproj_rms(t, m) < 0.2 * _reproj_rms(m, m)      # the BA moved the map
+    np.testing.assert_array_equal(_np(t.kf_ns.p)[0], m.kf_ns.p[0])   # gauge slot fixed
+
+
+# ---------------------------------------------------------------------------
+# VIO init (fixtures of tests/test_vio_init.py)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def sim():
+    from tests.test_vio_init import simulate_kfs
+
+    with jax.enable_x64(True):
+        out = {}
+        for key, kw in (("bg", {}), ("plain", dict(bg=(0, 0, 0))),
+                        ("ba", dict(bg=(0, 0, 0), ba=(0.06, -0.04, 0.08)))):
+            s = simulate_kfs(**kw)
+            s["pre"] = _tree_np(s["pre"])
+            out[key] = s
+        return out
+
+
+def _f32(*a):
+    return [np.asarray(x, np.float32) for x in a]
+
+
+def _slot_shift(pre, field, K):
+    """Slot k = the preintegration from keyframe k-1 to k (slot 0 empty)."""
+    a = getattr(pre, field)
+    return np.concatenate([np.zeros((1,) + a.shape[1:]), a[:K]])
+
+
+def test_estimate_gyro_bias(sim):
+    s, K = sim["bg"], 12
+    dR = np.concatenate([np.eye(3)[None], s["pre"].dR[1:]])
+    JR = np.concatenate([np.zeros((1, 3, 3)), s["pre"].J_R_bg[1:]])
+    ins = _f32(s["kf_R"][1:], dR, JR) + [np.asarray([False] + [True] * (K - 1))]
+    with jax.enable_x64(False):
+        j = np.asarray(jvio.estimate_gyro_bias(*(jnp.asarray(a) for a in ins)))
+    t = tvio.estimate_gyro_bias(*(_t(a) for a in ins))
+    np.testing.assert_allclose(_np(t), j, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(_np(t), s["bg"], atol=2e-4)
+
+
+def test_pressure_scale_and_gravity_helpers():
+    rs = np.random.RandomState(1)
+    K = 15
+    z_map = np.cumsum(rs.uniform(-0.3, 0.5, K)).astype(np.float32)
+    depth = (z_map * 3.7 + rs.randn(K) * 0.01).astype(np.float32)
+    mask = np.ones(K, bool)
+    mask[4] = False
+    acc = (rs.randn(100, 3) * 0.3 + np.array([0.2, -0.1, 9.8])).astype(np.float32)
+    amask = (rs.uniform(size=100) > 0.2).astype(np.float32)
+    g = np.array([0.3, -0.2, 0.93], np.float32)
+    g /= np.linalg.norm(g)
+    with jax.enable_x64(False):
+        js = [np.asarray(a) for a in jvio.estimate_scale_from_pressure(
+            jnp.asarray(z_map), jnp.asarray(depth), jnp.asarray(mask))]
+        jg = np.asarray(jvio.gravity_from_accel_average(jnp.asarray(acc), jnp.asarray(amask)))
+        jr = np.asarray(jvio.rotation_to_gravity(jnp.asarray(g)))
+    ts = tvio.estimate_scale_from_pressure(_t(z_map), _t(depth), _t(mask))
+    for a, b in zip(ts, js):
+        np.testing.assert_allclose(_np(a), b, rtol=1e-5)
+    np.testing.assert_allclose(float(ts[0]), 3.7, rtol=0.02)
+    np.testing.assert_allclose(_np(tvio.gravity_from_accel_average(_t(acc), _t(amask))), jg,
+                               atol=1e-6)
+    np.testing.assert_allclose(_np(tvio.rotation_to_gravity(_t(g))), jr, atol=1e-6)
+
+
+def _linear_inputs(s, K=12, pcb=(0.02, -0.05, 0.1), true_scale=4.2):
+    pcb = np.asarray(pcb)
+    c = (s["kf_p"] - s["kf_R"] @ pcb) / true_scale
+    pre = s["pre"]
+    return dict(c=c, R=s["kf_R"], dP=_slot_shift(pre, "dP", K), dV=_slot_shift(pre, "dV", K),
+                dt=_slot_shift(pre, "dt", K), JPba=_slot_shift(pre, "J_P_ba", K),
+                JVba=_slot_shift(pre, "J_V_ba", K), pcb=pcb,
+                mask=np.asarray([False, False] + [True] * (K - 1)))
+
+
+def test_linear_scale_gravity_and_refinements(sim):
+    L = _linear_inputs(sim["ba"])
+    base = _f32(L["c"], L["R"], L["dP"], L["dV"], L["dt"])
+    jb = lambda a: jnp.asarray(a)   # noqa: E731
+    with jax.enable_x64(False):
+        js0, jg0 = jvio.estimate_scale_gravity_linear(*map(jb, base), jb(_f32(L["pcb"])[0]),
+                                                      jb(L["mask"]))
+        j1 = jvio.refine_scale_gravity_accbias(
+            *map(jb, base), *map(jb, _f32(L["JPba"], L["JVba"])), jg0,
+            jb(_f32(L["pcb"])[0]), jb(L["mask"]), sigma_dth=1e6, sigma_ba=1e6)
+        j2 = jvio.refine_gravity_accbias_fixed_scale(
+            *map(jb, base), *map(jb, _f32(L["JPba"], L["JVba"])), jg0,
+            jb(_f32(L["pcb"])[0]), jnp.float32(4.2), jb(L["mask"]))
+        jout = [np.asarray(a) for a in (js0, jg0, *j1, *j2)]
+    tb = [_t(a) for a in base]
+    ts0, tg0 = tvio.estimate_scale_gravity_linear(*tb, _t(_f32(L["pcb"])[0]), _t(L["mask"]))
+    t1 = tvio.refine_scale_gravity_accbias(*tb, *(_t(a) for a in _f32(L["JPba"], L["JVba"])),
+                                           tg0, _t(_f32(L["pcb"])[0]), _t(L["mask"]),
+                                           sigma_dth=1e6, sigma_ba=1e6)
+    t2 = tvio.refine_gravity_accbias_fixed_scale(
+        *tb, *(_t(a) for a in _f32(L["JPba"], L["JVba"])), tg0, _t(_f32(L["pcb"])[0]),
+        torch.tensor(4.2), _t(L["mask"]))
+    tout = [_np(a) for a in (ts0, tg0, *t1, *t2)]
+    # float32 normal equations of a 12-triplet system: relative 1e-3
+    for k, (a, b) in enumerate(zip(tout, jout)):
+        np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-3, err_msg=f"output {k}")
+    np.testing.assert_allclose(float(t1[0]), 4.2, rtol=0.02)
+    np.testing.assert_allclose(_np(t1[2]), (0.06, -0.04, 0.08), atol=0.02)
+
+
+def test_velocities_from_positions(sim):
+    s, K = sim["plain"], 12
+    ins = _f32(s["kf_p"][:-1], s["kf_R"][:-1], _slot_shift(s["pre"], "dP", K - 1),
+               _slot_shift(s["pre"], "dt", K - 1), s["g_w"]) + [np.ones(K, bool)]
+    with jax.enable_x64(False):
+        j = np.asarray(jvio.velocities_from_positions(*(jnp.asarray(a) for a in ins)))
+    t = _np(tvio.velocities_from_positions(*(_t(a) for a in ins)))
+    np.testing.assert_allclose(t, j, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(t[:-1], s["kf_v"][:-2], atol=5e-3)
+
+
+def test_build_strided_inertial():
+    rs = np.random.RandomState(9)
+    K, S = 11, 7
+    valid = np.ones(K, bool)
+    valid[[0, 6]] = False
+    ins = (valid, rs.randn(K, S, 3).astype(np.float32), rs.randn(K, S, 3).astype(np.float32),
+           rs.uniform(size=(K, S)).astype(np.float32),
+           (rs.uniform(size=(K, S)) > 0.3).astype(np.float32))
+    with jax.enable_x64(False):
+        j = [np.asarray(a) for a in jvio.build_strided_inertial(*(jnp.asarray(a) for a in ins),
+                                                                3)]
+    t = [_np(a) for a in tvio.build_strided_inertial(*(_t(a) for a in ins), 3)]
+    for a, b in zip(t, j):
+        np.testing.assert_array_equal(a, b)

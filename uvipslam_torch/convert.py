@@ -1,11 +1,11 @@
 """Carry reference state into the port.
 
-Turns a reference `TrackerState`, `MapState`, `Tracks` or `NavState`
-whose leaves are numpy arrays (on the reference side:
+Turns a reference `TrackerState`, `VipTrackerState`, `MapState`, `Tracks`
+or `NavState` whose leaves are numpy arrays (on the reference side:
 `jax.tree_util.tree_map(np.asarray, state)`) into the port's dataclass of
 tensors on a given device. Fields are read by name, so this module needs
 nothing from the reference package. The reference's PRNG key has no
-torch counterpart: a converted TrackerState gets a fresh generator.
+torch counterpart: a converted tracker state gets a fresh generator.
 """
 
 from __future__ import annotations
@@ -18,11 +18,13 @@ import torch
 from uvipslam_torch.core.preintegration import PreintState
 from uvipslam_torch.core.state import NavState
 from uvipslam_torch.frontend.device_tracker import TrackerState
+from uvipslam_torch.frontend.device_vip import VipTrackerState
 from uvipslam_torch.frontend.frame import Tracks
 from uvipslam_torch.mapstate.map import MapState
 
 _NESTED = {"kf_ns": NavState, "kf_preint": PreintState, "tracks": Tracks,
-           "map": MapState}
+           "map": MapState, "ns": NavState, "rec_ns": NavState, "preint_kf": PreintState,
+           "rec_preint": PreintState}
 
 
 def to_tensor(a, device=None) -> torch.Tensor:
@@ -50,6 +52,10 @@ def convert(cls, src, device=None, seed: int = 0):
 
 def tracker_state(src, device=None, seed: int = 0) -> TrackerState:
     return convert(TrackerState, src, device, seed)
+
+
+def vip_state(src, device=None, seed: int = 0) -> VipTrackerState:
+    return convert(VipTrackerState, src, device, seed)
 
 
 def map_state(src, device=None) -> MapState:

@@ -1,26 +1,29 @@
 """Device-resident mono tracker: one `step(state, img)` call per frame.
 
 Counterpart of `uvipslam_tpu/frontend/device_tracker.py`. The whole
-per-frame pipeline runs on the tensors' device: track propagation,
-refill and descriptor refresh, two-view initialization, pose + local-map
-solve, keyframes with triangulation, windowed BA and map hygiene.
+per-frame pipeline runs on the tensors' device: optional CLAHE, track
+propagation, refill and descriptor refresh, two-view initialization,
+pose + local-map solve, keyframes with triangulation, windowed BA, map
+hygiene, and relocalization after a loss.
 
 The reference's `lax.switch`/`lax.cond` become Python branches on device
 scalars. Each decision is one host read, batched where the reference's
 conditions are ready together: per frame the state (1), then in
 INITIALIZING the (ok, stale) pair, in NOT_INITIALIZED the go flag, in
-WORKING the (lost, need_kf) pair, and on keyframe frames the compaction
-flag of the map hygiene. `MonoStep.host_syncs` counts them. Removing them
-(CUDA graphs over device-side predication) is later work.
+WORKING the (lost, need_kf) pair, in LOST the accept flag, and on
+keyframe frames the compaction flag of the map hygiene.
+`MonoStep.host_syncs` counts them. Removing them (CUDA graphs over
+device-side predication) is later work.
 
 Each phase runs inside a `torch.profiler.record_function` span named
 `step.<phase>` (propagate, refill, two_view_init, pose_localmap,
-refill_refresh, keyframe), so a profiler trace splits a frame's host and
-device time by phase.
+refill_refresh, keyframe, relocalize), so a profiler trace splits a
+frame's host and device time by phase.
 
-The LOST branch keeps the state LOST: it stands in for the reference's
-`branch_lost` when `uvipslam_tpu.loop.reloc.relocalize_frame` fails
-(device_tracker.py:384); relocalization and PnP are the next slice.
+LOST relocalizes as the reference's `branch_lost` does: a fresh
+detection, BoW retrieval and PnP RANSAC (`loop.reloc.relocalize_frame`),
+two seeds refined by the pose + local-map solve, the better one taken
+back to WORKING when it holds max(min_tracked, 15) inliers.
 """
 
 from __future__ import annotations
@@ -40,9 +43,11 @@ from uvipslam_torch.frontend.tracker import (INITIALIZING, LOST, NOT_INITIALIZED
                                              WORKING, TrackerConfig, _cam_pose_to_ns,
                                              _local_ba, _motion_guess, _ns_to_cam_pose,
                                              _pose_and_localmap, _triangulate_new)
+from uvipslam_torch.loop.reloc import relocalize_frame
 from uvipslam_torch.mapstate.hygiene import compact_points, cull_points, fuse_duplicates_recent
 from uvipslam_torch.mapstate.map import MapState
 from uvipslam_torch.models.camera import CameraModel
+from uvipslam_torch.ops.clahe import clahe
 from uvipslam_torch.ops.klt import build_flow_pyramid
 from uvipslam_torch.ops.twoview import initialize_two_view
 
@@ -152,9 +157,6 @@ class MonoStep:
     `host_syncs`."""
 
     def __init__(self, cam: CameraModel, cfg: TrackerConfig, device=None):
-        if cfg.enhance:
-            raise NotImplementedError(
-                "CLAHE enhancement (uvipslam_tpu.ops.clahe.clahe) is not ported yet")
         self.cam = cam
         self.cfg = cfg
         self.device = torch.device(device) if device is not None else torch.device("cpu")
@@ -308,11 +310,29 @@ class MonoStep:
             last_kf_frame=st.frame_id.clone(),
             n_ref_tracked=torch.sum(t.valid & (t.pt_id >= 0)).to(torch.int32))
 
+    def _relocalize(self, st, img):
+        """A fresh detection, relocalized against the map
+        (`relocalize_pose`)."""
+        fresh = refill_tracks(Tracks.empty(self.cfg.n_tracks, device=self.device), img,
+                              st.frame_id, n_features=self.cfg.n_tracks,
+                              px_distance=self.cfg.px_distance)
+        fresh = self._undistort(refresh_descriptors(fresh, img))
+        fresh = dataclasses.replace(
+            fresh, birth_frame=torch.full_like(fresh.birth_frame, 0) + st.frame_id,
+            birth_xy_und=fresh.xy_und)
+        return relocalize_pose(fresh, st.map, st.gen, self.cam, self.scale_sigmas)
+
     def _lost(self, st: TrackerState, img):
-        # stands in for the reference's branch_lost when
-        # uvipslam_tpu.loop.reloc.relocalize_frame finds no pose: the
-        # state stays LOST (relocalization is the next slice)
-        return st, LOST
+        with record_function("step.relocalize"):
+            R, t, n, tr = self._relocalize(st, img)
+        if not self._read_bool(n >= max(self.cfg.min_tracked, 15)):
+            return st, LOST
+        dev = self.device
+        return dataclasses.replace(
+            st, tracks=tr, Rcw=lie.normalize_rotation(R), tcw=t,
+            R_vel=torch.eye(3, dtype=torch.float32, device=dev),
+            t_vel=torch.zeros(3, dtype=torch.float32, device=dev),
+            state=_i32(WORKING, dev)), WORKING
 
     # ------------------------------------------------------------------
     def __call__(self, st: TrackerState, img: torch.Tensor):
@@ -320,6 +340,8 @@ class MonoStep:
         cfg, cam = self.cfg, self.cam
         img = img.to(device=self.device, dtype=torch.float32)
         frame_id = st.frame_id + 1
+        if cfg.enhance:
+            img = clahe(img)
         pyr = tuple(build_flow_pyramid(img, cfg.n_levels_klt))
         st = dataclasses.replace(st, frame_id=frame_id)
 
@@ -356,6 +378,28 @@ class MonoStep:
                       n_inliers=torch.zeros((), dtype=torch.int32, device=self.device),
                       new_kf=new_kf)
         return st, out
+
+
+def relocalize_pose(tracks, m: MapState, gen, cam: CameraModel, scale_sigmas):
+    """BoW retrieval + PnP of `tracks` (a fresh detection) against map m
+    (`loop.reloc.relocalize_frame`), then two seeds refined by the pose +
+    local-map solve: A = the PnP pose (the best candidate keyframe's pose
+    when PnP found fewer than 6 inliers), B = the best candidate
+    keyframe's pose. Returns (R, t, n_inliers, tracks) of the seed with
+    more inliers (ties: A), all on the device."""
+    R0, t0, pt_id, n_pnp, top_kfs = relocalize_frame(tracks, m, gen, cam.fx, cam.fy, cam.cx,
+                                                     cam.cy)
+    tracks = dataclasses.replace(tracks, pt_id=pt_id)
+    Rk, tk = _ns_to_cam_pose(_nav_row(m.kf_ns, top_kfs[0]))
+    use_pnp = n_pnp >= 6
+    Ra = torch.where(use_pnp, lie.normalize_rotation(R0), Rk)
+    ta = torch.where(use_pnp, t0, tk)
+    seeds = [_pose_and_localmap(tracks, m, R_, t_, cam.fx, cam.fy, cam.cx, cam.cy, scale_sigmas)
+             for R_, t_ in ((Ra, ta), (Rk, tk))]
+    pick_b = seeds[1][3] > seeds[0][3]
+    R, t, _, n, tr = (tree_map(lambda a, b: torch.where(pick_b, b, a), x, y)
+                      for x, y in zip(*seeds))
+    return R, t, n, tr
 
 
 def _nav_row(ns, k):

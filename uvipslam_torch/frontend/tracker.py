@@ -1,8 +1,9 @@
 """Tracker configuration, states and the device phases of the mono step.
 
 Counterpart of `uvipslam_tpu/frontend/tracker.py`: `TrackerConfig`, the
-tracking states, the camera-pose <-> NavState converters and the four
-phases the device step runs (`_motion_guess`, `_pose_and_localmap`,
+tracking states, the camera-pose <-> NavState converters (camera as
+body, and through the camera-in-body extrinsics) and the four phases the
+device steps run (`_motion_guess`, `_pose_and_localmap`,
 `_triangulate_new`, `_local_ba`). The host-orchestrated `MonoTracker`
 class of the reference belongs to a later slice.
 """
@@ -63,6 +64,21 @@ def _cam_pose_to_ns(Rcw, tcw) -> NavState:
 def _ns_to_cam_pose(ns: NavState):
     Rcw = ns.R.transpose(-1, -2)
     return Rcw, -mv(Rcw, ns.p)
+
+
+def _ns_to_cam_pose_ext(ns: NavState, Rcb, tcb):
+    """Camera extrinsic of a BODY NavState through the camera-in-body
+    transform x_c = Rcb x_b + tcb."""
+    Rcw = mm(Rcb, ns.R.transpose(-1, -2))
+    return Rcw, -mv(Rcw, ns.p) + tcb
+
+
+def _cam_pose_to_ns_ext(Rcw, tcw, Rbc, tbc) -> NavState:
+    """BODY NavState pose of a camera extrinsic (x_b = Rbc x_c + tbc); the
+    inverse of `_ns_to_cam_pose_ext`."""
+    Rwb = mm(Rbc, Rcw).transpose(-1, -2)
+    ns = NavState.identity(tuple(tcw.shape[:-1]), tcw.dtype, tcw.device)
+    return dataclasses.replace(ns, p=-mv(Rwb, mv(Rbc, tcw) + tbc), R=Rwb)
 
 
 def _project(pc, fx, fy, cx, cy, eps=1e-6):

@@ -1,12 +1,10 @@
-"""Synthetic camera sequences for driving the port (host-side numpy).
+"""Synthetic sensor sequences for driving the port (host-side numpy).
 
-Counterpart of the camera half of `uvipslam_tpu/io/synthetic.py`:
-`make_sequence` renders the same sprite field along the same trajectory
-from the same `np.random.RandomState` draws, so for equal arguments its
-images and ground-truth poses equal the reference's bit for bit, and
-`ate_rmse` is the same Umeyama-aligned ATE. The IMU and pressure streams
-of the reference generator are drawn after the images and come with the
-inertial slice of the port.
+Counterpart of `uvipslam_tpu/io/synthetic.py`: `make_sequence` renders
+the same sprite field along the same trajectory and draws the same IMU
+and pressure streams from the same `np.random.RandomState` draws, so for
+equal arguments every field equals the reference's bit for bit, and
+`ate_rmse` is the same Umeyama-aligned ATE.
 """
 
 from __future__ import annotations
@@ -17,13 +15,20 @@ import numpy as np
 
 
 @dataclasses.dataclass
-class CameraSequence:
+class SyntheticSequence:
     images: np.ndarray        # [T, H, W] f32 in [0, 255]
     timestamps: np.ndarray    # [T]
     R_cw: np.ndarray          # [T, 3, 3] world->camera
     t_cw: np.ndarray          # [T, 3]
     K: np.ndarray             # [3, 3]
     points: np.ndarray        # [P, 3] world sprite centers
+    imu_omg: np.ndarray       # [T, S, 3] gyro samples in (t_{k-1}, t_k]
+    imu_acc: np.ndarray       # [T, S, 3]
+    imu_dt: np.ndarray        # [T, S]
+    imu_mask: np.ndarray      # [T, S]
+    depth: np.ndarray         # [T] pressure depth (world z of the body)
+    depth_valid: np.ndarray   # [T]
+    gravity_w: np.ndarray     # [3]
 
     @property
     def positions_w(self) -> np.ndarray:
@@ -61,13 +66,36 @@ def _center_yaw(motion: str, t: float, t_end: float, speed: float, z_amp: float)
     return [0.0, 0.0, speed * t], 0.0     # forward
 
 
-def make_sequence(n_frames: int = 60, fps: float = 20.0, H: int = 240, W: int = 320,
-                  n_points: int = 1500, seed: int = 0, motion: str = "arc",
-                  speed: float = 0.35, sprite: int = 9, z_amp: float = 0.1,
-                  image_noise_seed: int | None = None) -> CameraSequence:
+def _so3_exp_np(w):
+    th = np.linalg.norm(w)
+    K = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+    if th < 1e-12:
+        return np.eye(3) + K
+    return np.eye(3) + np.sin(th) / th * K + (1 - np.cos(th)) / th**2 * K @ K
+
+
+def _so3_log_np(R):
+    cos = np.clip((np.trace(R) - 1) / 2, -1, 1)
+    th = np.arccos(cos)
+    v = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    if th < 1e-9:
+        return v / 2
+    return th / (2 * np.sin(th)) * v
+
+
+def make_sequence(n_frames: int = 60, fps: float = 20.0, imu_rate: float = 200.0,
+                  H: int = 240, W: int = 320, n_points: int = 1500, seed: int = 0,
+                  motion: str = "arc", speed: float = 0.35, gyr_noise: float = 0.003,
+                  acc_noise: float = 0.02, gyr_bias: tuple = (0.002, -0.003, 0.001),
+                  acc_bias: tuple = (0.03, -0.02, 0.04), depth_noise: float = 0.05,
+                  sprite: int = 9, z_amp: float = 0.1, image_noise_seed: int | None = None,
+                  Tbc: np.ndarray | None = None) -> SyntheticSequence:
     """Render `n_frames` [H, W] images of a multi-scale textured sprite
     field seen from a camera moving along `motion`, with per-pixel sensor
-    noise from a second stream (`image_noise_seed`, default `seed`)."""
+    noise from a second stream (`image_noise_seed`, default `seed`); then
+    the IMU samples between frames (body frame; `Tbc` is the optional 4x4
+    camera-in-body extrinsic, x_b = Rbc x_c + tbc) and the pressure depth
+    (the body's world z), drawn after the images from the first stream."""
     rs = np.random.RandomState(seed)
     rs_img = np.random.RandomState(seed if image_noise_seed is None else image_noise_seed)
     fx = fy = 0.65 * W
@@ -146,8 +174,48 @@ def make_sequence(n_frames: int = 60, fps: float = 20.0, H: int = 240, W: int = 
                 continue
             img[y0:y1, x0:x1] = s_shift[y0 - iv:y1 - iv, x0 - iu:x1 - iu]
         images[f] = img + rs_img.randn(H, W).astype(np.float32) * 1.0
-    return CameraSequence(images=images, timestamps=ts, R_cw=R_cw, t_cw=t_cw, K=K,
-                          points=pts)
+
+    # ---- IMU: S samples per frame interval, in (t_{f-1}, t_f] ----
+    Tbc = np.eye(4) if Tbc is None else np.asarray(Tbc, np.float64)
+    Rcb = Tbc[:3, :3].T
+    tcb = -Tbc[:3, :3].T @ Tbc[:3, 3]
+    dt_img = 1.0 / fps
+    S = max(1, int(round(imu_rate / fps)))
+    dt_imu = dt_img / S
+    imu_omg = np.zeros((n_frames, S, 3), np.float32)
+    imu_acc = np.zeros((n_frames, S, 3), np.float32)
+    imu_dt = np.zeros((n_frames, S), np.float32)
+    imu_mask = np.zeros((n_frames, S), np.float32)
+    g_w = np.array([0.0, 0.0, -9.81])
+
+    def Rwb_at(t):
+        return _so3_exp_np(np.array([0.0, _center_yaw(motion, t, t_end, speed, z_amp)[1], 0.0])) \
+            @ Rcb
+
+    def body_center_at(t):
+        # Twb = Twc Tbc^-1: the body origin is C + Rwc tcb
+        c, yaw = _center_yaw(motion, t, t_end, speed, z_amp)
+        return np.array(c) + _so3_exp_np(np.array([0.0, yaw, 0.0])) @ tcb
+
+    for f in range(1, n_frames):
+        for s in range(S):
+            t_a = (f - 1) * dt_img + s * dt_imu
+            t_b = t_a + dt_imu
+            Rwa, Rwb = Rwb_at(t_a), Rwb_at(t_b)
+            w_body = _so3_log_np(Rwa.T @ Rwb) / dt_imu
+            # world acceleration of the body origin by central difference
+            a_w = (body_center_at(t_b + dt_imu) - 2 * body_center_at(t_b)
+                   + body_center_at(t_b - dt_imu)) / dt_imu**2
+            imu_omg[f, s] = w_body + np.asarray(gyr_bias) + rs.randn(3) * gyr_noise
+            imu_acc[f, s] = Rwb.T @ (a_w - g_w) + np.asarray(acc_bias) + rs.randn(3) * acc_noise
+            imu_dt[f, s] = dt_imu
+            imu_mask[f, s] = 1.0
+
+    depth = np.array([body_center_at(t)[2] for t in ts]) + rs.randn(n_frames) * depth_noise
+    return SyntheticSequence(images=images, timestamps=ts, R_cw=R_cw, t_cw=t_cw, K=K,
+                             points=pts, imu_omg=imu_omg, imu_acc=imu_acc, imu_dt=imu_dt,
+                             imu_mask=imu_mask, depth=depth.astype(np.float32),
+                             depth_valid=np.ones(n_frames, bool), gravity_w=g_w)
 
 
 def ate_rmse(est_pos: np.ndarray, gt_pos: np.ndarray, align_scale: bool = True):

@@ -124,11 +124,13 @@ class MapState:
 
     def add_keyframe(self, ns: NavState, time, frame_id, feat_xy, feat_desc,
                      feat_level, feat_angle, feat_valid, feat_pt, depth,
-                     depth_valid, preint: PreintState, prev_kf):
+                     depth_valid, preint: PreintState, prev_kf, imu_omg=None,
+                     imu_acc=None, imu_dt=None, imu_mask=None):
         """Insert a keyframe at the next slot; returns (new_map, kf_slot).
         The BoW and haloc retrieval vectors are computed once here. The
-        raw IMU window arguments of the reference are VIP-only and not
-        taken yet."""
+        raw IMU window since the previous keyframe ([S, 3], [S, 3], [S],
+        [S]) is stored when given (the VIP step re-integrates it at VIO
+        init); otherwise the slot keeps its old window."""
         dev = feat_desc.device
         bow = bow_vector(feat_desc, feat_valid, reloc.codebook(dev), reloc.idf(dev))
         hsh = compute_hash(feat_desc, feat_valid)
@@ -165,6 +167,10 @@ class MapState:
             pt_desc=pt_desc,
             n_kf=k + 1,
         )
+        if imu_omg is not None:
+            new = dataclasses.replace(
+                new, kf_imu_omg=put(m.kf_imu_omg, imu_omg), kf_imu_acc=put(m.kf_imu_acc, imu_acc),
+                kf_imu_dt=put(m.kf_imu_dt, imu_dt), kf_imu_mask=put(m.kf_imu_mask, imu_mask))
         return new, k
 
     # -------------------------------------------------------------------

@@ -9,11 +9,14 @@ of magnitude <= 256, exact in float32, so the distances are exact.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 N_BITS = 256
 TH_HIGH = 100
 TH_LOW = 50
+HISTO_BINS = 30
 
 
 def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
@@ -43,6 +46,40 @@ def match_best(desc_a, desc_b, valid_a, valid_b, pair_mask=None,
     if ratio < 1.0:
         ok = ok & (best <= ratio * second)
     return idx.to(torch.int32), best, ok
+
+
+def mutual_filter(idx_ab, ok_ab, idx_ba, ok_ba) -> torch.Tensor:
+    """Keep only mutual best matches (cross-check)."""
+    nb = idx_ba.shape[0]
+    inb = (idx_ab >= 0) & (idx_ab < nb)
+    j = idx_ab.clamp(0, nb - 1).long()
+    back = torch.where(inb, idx_ba[j], torch.full_like(idx_ab, -1))
+    return ok_ab & inb & ok_ba[j] & (back == torch.arange(idx_ab.shape[0], device=idx_ab.device))
+
+
+def rotation_consistency(angle_a, angle_b, idx_ab, ok, n_keep_bins: int = 3,
+                         min_top_fraction: float = 0.35) -> torch.Tensor:
+    """Keep matches whose orientation difference falls in the dominant
+    histogram bins: the top `n_keep_bins`, or the top 2*n_keep_bins when
+    those hold less than `min_top_fraction` of the matches. Ties between
+    bins rank the lower bin first (XLA's top_k)."""
+    nb = angle_b.shape[0]
+    rot = angle_a - angle_b[idx_ab.clamp(0, nb - 1).long()]
+    two_pi = 2.0 * math.pi
+    rot = torch.fmod(rot, two_pi)               # jnp.mod: the sign of the divisor
+    rot = torch.where((rot != 0) & (rot < 0), rot + two_pi, rot)
+    bins = torch.clamp((rot * (HISTO_BINS / two_pi)).to(torch.int32), 0, HISTO_BINS - 1)
+    hist = torch.zeros((HISTO_BINS,), dtype=torch.float32, device=rot.device).index_add_(
+        0, bins.long(), ok.to(torch.float32))
+    n_wide = min(2 * n_keep_bins, HISTO_BINS)
+    srt = torch.sort(hist, descending=True, stable=True)
+    topv, top_bins = srt.values[:n_wide], srt.indices[:n_wide]
+    hit = bins.long()[:, None] == top_bins[None, :]
+    in_top = hit[:, :n_keep_bins].any(dim=1)
+    in_wide = hit.any(dim=1)
+    informative = torch.sum(topv[:n_keep_bins]) >= min_top_fraction * torch.clamp(
+        torch.sum(hist), min=1.0)
+    return ok & torch.where(informative, in_top, in_wide)
 
 
 def window_mask(xy_a: torch.Tensor, xy_b: torch.Tensor, radius) -> torch.Tensor:
