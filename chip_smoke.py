@@ -6,21 +6,28 @@
 Phases (each passes or raises; any failure exits non-zero and prints no
 result):
   1. require a CUDA device; print the card's name and power limit;
-  2. build the hand-written kernels from uvipslam_torch/csrc (nvcc,
-     sm_90a) and print the build time;
-  3. hold the patch-extraction kernel against its plain torch version on
-     the card at the main path's shapes (512x640, 256x320 and the ORB
-     levels; psize 19/25/27/35; N = 400 or the level quota; border,
-     outside and non-finite points): exact equality required. Median
-     times of both over 20 runs (CUDA events);
+  2. build the hand-written kernels from uvipslam_torch/csrc (one nvcc
+     per source, sm_90a) and print the build time and ptxas's registers
+     and spills;
+  3. hold each kernel against its plain torch version on the card:
+     extract_patches at the main path's shapes (512x640, 256x320 and the
+     ORB levels; psize 19/25/27/35; N = 400 or the level quota; border,
+     outside and non-finite points), exact equality of patches and
+     `local`; anchor_refine at the two settings of `propagate_tracks`
+     (256x320 psize 27, 10 iterations; 512x640 psize 25, 8 iterations;
+     N 400, real templates on a sub-pixel shifted image, the same probe
+     points, some tracks invalid), within the tolerances of
+     `refine_phase`. Median times as called, alone and of the plain
+     versions over 20 runs (CUDA events), and each kernel's bound;
   4. small-input agreement: the first frame of a 120x160 sequence through
      the step on the card and on the CPU (plain versions) gives the same
      tracks;
   5. the mono device step at the reference's working point (512x640,
      400 tracks, kf_cap 64, pt_cap 8192, 60 frames; bench.py's settings)
-     with the kernel launch counter reset just before: >= 80% of frames
+     with the kernel launch counters reset just before: >= 80% of frames
      WORKING, Sim3-aligned ATE < 2% of the trajectory span, no LOST
-     frame, and exactly the kernel launches the path's branches imply.
+     frame, and exactly the launches of each kernel the path's branches
+     imply.
      Two more runs of the same sequence repeat the timing (the step is
      host-bound and its ms/frame spreads between runs of one process) and
      must give the same states and poses bit for bit;
@@ -28,12 +35,14 @@ result):
      every host synchronization the step really makes;
   7. torch.profiler over a few WORKING frames: device time per frame,
      kernels and launches per frame, host and device time per phase of the
-     step (its `step.*` spans), the top operators (table written to
-     chiprun_out/profile.txt);
+     step (its `step.*` spans, `step.propagate` on a line of its own),
+     the hand kernels' device time per launch, the top operators (the
+     full table goes to profile.txt in the output directory);
   8. mono relocalization: the mono step on the same sequence, then three
      black frames (the state must be LOST), then the last keyframe's image
      again: WORKING within three frames with the camera centre within 0.15
-     of that keyframe's centre, and the patch kernel launched meanwhile;
+     of that keyframe's centre, and exactly the launches of each kernel
+     its branches imply;
   9. the VIP step (IMU preintegration, pressure-scale VIO init, the VI
      solves and window BA) at bench.py's VIP settings (512x640, 400
      tracks, 120 frames, kf_cap 64, pt_cap 8192), three runs that must be
@@ -45,8 +54,8 @@ result):
      init (table in chiprun_out/profile_vip.txt).
 
 The last three lines of standard output are the steps' JSON record, the
-per-kernel JSON record (launches per path) and {"ok": true, "device":
-{...}}. The script imports neither jax nor the reference package
+per-kernel JSON record (launches per path, times, errors, bounds) and
+{"ok": true, "device": {...}}. The script imports neither jax nor the reference package
 uvipslam_tpu.
 """
 
@@ -91,15 +100,23 @@ def nvidia_smi_line() -> str:
 
 
 def probe_points(torch, h, w, n, seed):
-    """n points: mostly inside, plus border, outside and non-finite ones."""
+    """n points: mostly inside, plus border, outside and non-finite ones
+    (the first N_SPECIAL; from index 4 on they lie outside the image or
+    are not finite)."""
     g = torch.Generator().manual_seed(seed)
     pts = torch.rand((n, 2), generator=g) * torch.tensor([w, h])
     special = torch.tensor([[0.0, 0.0], [w - 1e-3, h - 1e-3], [0.4, h / 2], [w - 0.2, 3.0],
                             [-7.5, 20.0], [w + 30.0, 9.0], [15.0, -1e9], [3.0, h + 0.5],
+                            [-1e12, 40.0], [40.0, 1e12],
                             [float("nan"), 4.0], [float("inf"), 5.0], [6.0, float("-inf")]])
     k = min(len(special), n)
     pts[:k] = special[:k]
     return pts.contiguous()
+
+
+N_SPECIAL = 13
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM, published
+F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores, published
 
 
 def time_ms(torch, fn, reps=20):
@@ -118,9 +135,31 @@ def time_ms(torch, fn, reps=20):
     return statistics.median(out)
 
 
-def kernel_phase(torch, tklt, dev):
-    """Kernel vs plain at the main path's shapes. Returns (max_abs_err,
-    per-shape timing rows)."""
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over the float32 rate."""
+    t_mem, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+def window_pixels(torch, tklt, img, pts, psize, sel=None):
+    """Distinct image pixels under the patches at pts (rows `sel`): what
+    a patch pull must read of the image."""
+    h, w = img.shape
+    x0, y0, _ = tklt.patch_corners(pts, h, w, psize)
+    if sel is not None:
+        x0, y0 = x0[sel], y0[sel]
+    d = torch.arange(psize, device=img.device)
+    idx = (y0.long()[:, None, None] + d[None, :, None]) * w + x0.long()[:, None, None] + d
+    mask = torch.zeros(h * w, dtype=torch.bool, device=img.device)
+    mask[idx.reshape(-1)] = True
+    return int(mask.sum())
+
+
+def patch_phase(torch, tklt, dev):
+    """extract_patches vs its plain gather at the main path's shapes:
+    exact equality of patches and `local`. Returns (max_abs_err, per-shape
+    timing rows)."""
     from uvipslam_torch.ops.orb import level_quotas
 
     shapes = [((512, 640), 25, 400), ((512, 640), 19, 400), ((512, 640), 35, 400),
@@ -145,20 +184,21 @@ def kernel_phase(torch, tklt, dev):
             raise AssertionError(f"local differs at {h}x{w} psize {psize}")
         max_err = max(max_err, (kern - plain).abs().max().item())
         if i < 5 or psize == 35 and (h, w) == (427, 533):
-            # as the path calls them: corners in torch + kernel / + gather
+            # as the path calls them: one launch / corners in torch + gather
             ms = time_ms(torch, lambda: tklt.extract_patches_cuda(img, pts, psize))
             pms = time_ms(torch, lambda: tklt._extract_patches(img, pts, psize))
-            # the copy alone: corners and indices precomputed, BATCH calls
-            # back to back between the events
-            x0, y0, _ = tklt.patch_corners(pts, h, w, psize)
+            # alone: the kernel into preallocated outputs, and the plain
+            # gather from precomputed indices, BATCH calls back to back
             out = torch.empty((n, psize, psize), device=dev)
+            local = torch.empty((n, 2), device=dev)
+            x0, y0, _ = tklt.patch_corners(pts, h, w, psize)
             d = torch.arange(psize, device=dev)
             ri = y0.long()[:, None, None] + d[None, :, None]
             ci = x0.long()[:, None, None] + d[None, None, :]
 
             def kern_only():
                 for _ in range(BATCH):
-                    tklt.launch_extract_patches(img, x0, y0, psize, out)
+                    tklt.launch_extract_patches(img, pts, psize, out, local)
 
             def plain_only():
                 for _ in range(BATCH):
@@ -166,13 +206,102 @@ def kernel_phase(torch, tklt, dev):
 
             kms = time_ms(torch, kern_only) / BATCH
             kpms = time_ms(torch, plain_only) / BATCH
+            nbytes = 4 * window_pixels(torch, tklt, img, pts, psize) + 4 * n * psize * psize + 16 * n
+            bms, by = bound(nbytes, 0)
             rows.append(dict(shape=[h, w], psize=psize, n=n, ms=ms, plain_ms=pms,
-                             copy_only_ms=kms, plain_gather_only_ms=kpms))
-            log(f"  extract_patches {h}x{w} psize {psize} N {n}: exact; as called "
-                f"kernel {ms:.4f} ms vs plain {pms:.4f} ms; copy alone kernel {kms:.4f} ms "
-                f"vs plain gather {kpms:.4f} ms (medians of 20 runs, CUDA events)")
+                             alone_ms=kms, plain_gather_alone_ms=kpms, bytes=nbytes,
+                             bound_ms=bms, bound_by=by))
+            log(f"  extract_patches {h}x{w} psize {psize} N {n}: exact; as called kernel "
+                f"{ms:.4f} ms vs plain {pms:.4f} ms; alone kernel {kms:.4f} ms vs plain gather "
+                f"{kpms:.4f} ms (medians of 20 runs, CUDA events); bound {bms * 1e3:.3f} us "
+                f"({nbytes} B)")
         else:
             log(f"  extract_patches {h}x{w} psize {psize} N {n}: exact")
+    return max_err, rows
+
+
+def wave_image(torch, h, w, dev, sx=0.0, sy=0.0):
+    """A smooth textured image shifted by (sx, sy) pixels."""
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float64, device=dev) - sy,
+                            torch.arange(w, dtype=torch.float64, device=dev) - sx,
+                            indexing="ij")
+    v = (128 + 40 * torch.sin(0.21 * xs + 0.13 * ys) + 30 * torch.cos(0.17 * ys - 0.11 * xs)
+         + 20 * torch.sin(0.091 * xs + 0.29 * ys) + 15 * torch.cos(0.31 * xs - 0.05 * ys))
+    return v.float().contiguous()
+
+
+def refine_phase(torch, tklt, dev):
+    """anchor_refine vs `_anchor_refine_plain` on the card at the two
+    main-path settings, N 400: birth templates from extract_templates_fast
+    on a smooth image, refined on the image shifted by (0.7, -0.4) px from
+    the probe points, 5% of them marked invalid. Tolerances: accept equal
+    except where the plain version lies within 1e-3 of a threshold; out
+    within 1e-3 px where both accept; the outside and non-finite probe
+    points rejected with out = pts (NaN for NaN); >= 90% of the valid
+    interior tracks accepted. Returns (max_abs_err, timing rows)."""
+    settings = [((256, 320), 10, 5.0, 45.0), ((512, 640), 8, 4.0, 32.0)]
+    rows, max_err = [], 0.0
+    win, n = 13, 400
+    for i, ((h, w), iters, mc, mr) in enumerate(settings):
+        a = wave_image(torch, h, w, dev)
+        b = wave_image(torch, h, w, dev, 0.7, -0.4)
+        pts = probe_points(torch, h, w, n, seed=20 + i).to(dev)
+        T, Tx, Ty = tklt.extract_templates_fast(a, torch.nan_to_num(pts), win)
+        valid = (torch.rand(n, generator=torch.Generator().manual_seed(i)) > 0.05).to(dev)
+        args = (b, T, Tx, Ty, pts, valid)
+        kw = dict(win=win, iters=iters, max_correction=mc, max_residual=mr)
+        out, acc = tklt.anchor_refine_cuda(*args, **kw)
+        p_out, p_acc = tklt._anchor_refine_plain(*args, **kw)
+        _, _, good, resid, corr = tklt._refine_terms(b, T, Tx, Ty, pts, win, iters, mc)
+        torch.cuda.synchronize()
+        near = ((corr - mc).abs() < 1e-3) | ((resid - mr).abs() < 1e-3)
+        flips = int(((acc != p_acc) & ~near).sum())
+        both = acc & p_acc
+        err = (out[both] - p_out[both]).abs().max().item() if bool(both.any()) else 0.0
+        sp = slice(4, N_SPECIAL)
+        edge_ok = (not bool(acc[sp].any()) and not bool(p_acc[sp].any()) and torch.equal(
+            torch.nan_to_num(out[sp], 7.0, 8.0, 9.0), torch.nan_to_num(pts[sp], 7.0, 8.0, 9.0)))
+        inner = valid.clone()
+        inner[:N_SPECIAL] = False
+        share = int((acc & inner).sum()) / int(inner.sum())
+        psize = tklt.refine_psize(win, mc)
+        log(f"  anchor_refine {h}x{w} psize {psize} iters {iters} N {n}: accept flips outside "
+            f"the 1e-3 margins {flips} (inside {int(((acc != p_acc) & near).sum())}), max |out "
+            f"- plain| where both accept {err:.3e} px over {int(both.sum())} tracks, outside and "
+            f"non-finite points {'rejected with out = pts' if edge_ok else 'WRONG'}, valid "
+            f"interior accepted {100 * share:.1f}%")
+        if flips or not err <= 1e-3 or not edge_ok or share < 0.9:
+            raise AssertionError(f"anchor_refine kernel disagrees at {h}x{w}")
+        max_err = max(max_err, err)
+
+        ms = time_ms(torch, lambda: tklt.anchor_refine_cuda(*args, **kw))
+        pms = time_ms(torch, lambda: tklt._anchor_refine_plain(*args, **kw))
+        o2 = torch.empty_like(out)
+        a2 = torch.empty_like(acc)
+
+        def kern_only():
+            for _ in range(BATCH):
+                tklt.launch_anchor_refine(*args, win, iters, mc, mr, o2, a2)
+
+        kms = time_ms(torch, kern_only) / BATCH
+        # what this run's data needs: templates of the valid tracks with a
+        # finite start, the image under the patches of those with good_G;
+        # per template pixel 6 flops for G, 14 per iteration, 12 for the
+        # residual
+        _, _, local = tklt.patch_corners(pts, h, w, psize)
+        work = valid & torch.isfinite(local).all(-1)
+        n_work, n_good = int(work.sum()), int((work & good).sum())
+        nbytes = (3 * 4 * win * win * n_work + 4 * window_pixels(torch, tklt, b, pts, psize,
+                                                                 work & good)
+                  + n * (8 + 1 + 8 + 1))
+        flops = win * win * (6 * n_work + (14 * iters + 12) * n_good)
+        bms, by = bound(nbytes, flops)
+        rows.append(dict(shape=[h, w], psize=psize, iters=iters, n=n, ms=ms, plain_ms=pms,
+                         alone_ms=kms, bytes=nbytes, flops=flops, bound_ms=bms, bound_by=by,
+                         max_abs_err=err))
+        log(f"    as called kernel {ms:.4f} ms vs plain {pms:.4f} ms; alone kernel {kms:.4f} ms "
+            f"(medians of 20 runs, CUDA events); bound {bms * 1e3:.3f} us by {by} ({nbytes} B, "
+            f"{flops} flop)")
     return max_err, rows
 
 
@@ -219,23 +348,39 @@ def centres(torch, np, Rs, ts):
     return -np.einsum("nji,nj->ni", R, t)
 
 
-def expected_launches(states, n_orb_levels):
-    """Patch pulls per frame implied by the branch each frame ran: the
-    state a frame starts in is the previous frame's output state."""
-    from uvipslam_torch.frontend.tracker import INITIALIZING, NOT_INITIALIZED, WORKING
+def expected_launches(states, n_orb_levels, prev=None):
+    """Launches of each kernel implied by the branch each frame of the
+    mono step ran (the state a frame starts in is the previous frame's
+    output state, NOT_INITIALIZED before the first): a propagate is two
+    anchor refinements, a refill two template pulls and one per ORB
+    level, a refresh one pull; LOST runs a fresh detection (refill +
+    refresh)."""
+    from uvipslam_torch.frontend.tracker import INITIALIZING, LOST, NOT_INITIALIZED, WORKING
 
-    refill = 2 + n_orb_levels            # two template pulls + one per ORB level
-    total = 0
-    prev = NOT_INITIALIZED
+    refill = 2 + n_orb_levels
+    pulls = refines = 0
+    prev = NOT_INITIALIZED if prev is None else prev
     for s in states:
         if prev == NOT_INITIALIZED:
-            total += refill
+            pulls += refill
         elif prev == INITIALIZING:
-            total += 2                   # propagate: two anchor refinements
+            refines += 2
         elif prev == WORKING:
-            total += 2 + (refill + 1 if s == WORKING else 0)   # + refresh
+            refines += 2
+            pulls += refill + 1 if s == WORKING else 0
+        elif prev == LOST:
+            pulls += refill + 1
         prev = s
-    return total
+    return {"extract_patches": pulls, "anchor_refine": refines}
+
+
+def read_launches(tklt):
+    return {"extract_patches": tklt.patch_launches, "anchor_refine": tklt.refine_launches}
+
+
+def reset_launches(tklt):
+    tklt.patch_launches = 0
+    tklt.refine_launches = 0
 
 
 def profile_phase(torch, step, st, feeds, start, n, out_name):
@@ -293,9 +438,23 @@ def profile_phase(torch, step, st, feeds, start, n, out_name):
     log("  per phase (ms/frame, host under the profiler / device): " + "; ".join(
         f"{k[5:]} {v['host_ms']:.1f} / {v['device_ms']:.2f} (x{v['calls']:.2f})"
         for k, v in sorted(spans.items(), key=lambda kv: -kv[1]["host_ms"])))
+    prop = spans.get("step.propagate")
+    if prop is None:
+        raise AssertionError("no step.propagate span in the profile window")
+    log(f"  {launches / n:.0f} kernel launches per frame; step.propagate host {prop['host_ms']:.2f} "
+        f"ms / device {prop['device_ms']:.3f} ms per frame")
+    # the hand-written kernels' own device time per launch on the path
+    ours = {name: [e for e in gpu if name in e.key] for name in
+            ("extract_patches_kernel", "anchor_refine_kernel")}
+    ours = {k: dict(launches=sum(e.count for e in v),
+                    device_us_per_launch=sum(dev_us(e) for e in v) / max(1, sum(e.count for e in v)))
+            for k, v in ours.items()}
+    log("  hand kernels on the path: " + "; ".join(
+        f"{k} {v['launches']} launches, {v['device_us_per_launch']:.2f} us device each"
+        for k, v in ours.items()))
     return dict(wall_ms_per_frame_profiled=wall_ms / n, device_ms_per_frame=device_ms / n,
                 device_kernels_per_frame=kernels / n, launches_per_frame=launches / n,
-                phases=spans)
+                phases=spans, hand_kernels=ours)
 
 
 def sync_audit(torch, step, st, feeds, n):
@@ -322,7 +481,8 @@ def reloc_phase(torch, np, tklt, new_tracker, imgs):
     """The mono step WORKING on the sequence, three black frames (LOST),
     then the last keyframe's image again until WORKING (three frames at
     most). Returns (frames to recover, centre error, kernel launches from
-    the first black frame on)."""
+    the first black frame on, the launches its branches imply, the
+    keyframe's frame)."""
     from uvipslam_torch.frontend.tracker import LOST, WORKING
 
     st, step = new_tracker()
@@ -331,30 +491,34 @@ def reloc_phase(torch, np, tklt, new_tracker, imgs):
     if int(out.state) != WORKING:
         raise AssertionError(f"mono step not WORKING after {RELOC_WARMUP} frames")
     torch.cuda.synchronize()
-    tklt.launches = 0
+    reset_launches(tklt)
     black = torch.zeros_like(imgs[0])
+    states = []
     for _ in range(3):
         st, out = step(st, black)
-    if int(out.state) != LOST:
-        raise AssertionError(f"state {int(out.state)} after three black frames, not LOST")
+        states.append(int(out.state))
+    if states[-1] != LOST:
+        raise AssertionError(f"state {states[-1]} after three black frames, not LOST")
     k = int(st.map.n_kf) - 1
     kf_frame = int(st.map.kf_frame_id[k])
     C_kf = st.map.kf_ns.p[k].double().cpu().numpy()
     for n in range(1, 4):
         st, out = step(st, imgs[kf_frame])
-        if int(out.state) == WORKING:
+        states.append(int(out.state))
+        if states[-1] == WORKING:
             break
     else:
         raise AssertionError("no relocalization within three frames")
     torch.cuda.synchronize()
-    launches = tklt.launches
+    launches = read_launches(tklt)
+    expect = expected_launches(states, 8, prev=WORKING)
     C = centres(torch, np, [out.Rcw], [out.tcw])[0]
     err = float(np.linalg.norm(C - C_kf))
     if not err < 0.15:
         raise AssertionError(f"relocalized centre {C} is {err} from keyframe centre {C_kf}")
-    if launches <= 0:
-        raise AssertionError("the patch kernel did not launch on the relocalization path")
-    return n, err, launches, kf_frame
+    if launches != expect or min(launches.values()) <= 0:
+        raise AssertionError(f"relocalization path launches {launches}, expected {expect}")
+    return n, err, launches, expect, kf_frame
 
 
 def orb_levels(h, w, n=8, scale=1.2):
@@ -365,18 +529,20 @@ def orb_levels(h, w, n=8, scale=1.2):
 
 
 def expected_launches_vip(states, n_orb_levels):
-    """Patch pulls per frame of the VIP step when no frame is LOST or in
-    IMU recovery: the shared detection (template pulls, ORB levels and
+    """Launches of each kernel on the VIP step when no frame is LOST or
+    in IMU recovery: the shared detection (template pulls, ORB levels and
     the descriptor refresh) runs in NOT_INITIALIZED and WORKING, the two
     anchor refinements in INITIALIZING and WORKING."""
     from uvipslam_torch.frontend.tracker import INITIALIZING, NOT_INITIALIZED, WORKING
 
     detect = 2 + n_orb_levels + 1
-    total, prev = 0, NOT_INITIALIZED
+    pulls = refines = 0
+    prev = NOT_INITIALIZED
     for s in states:
-        total += {NOT_INITIALIZED: detect, INITIALIZING: 2, WORKING: 2 + detect}[prev]
+        pulls += detect if prev in (NOT_INITIALIZED, WORKING) else 0
+        refines += 2 if prev in (INITIALIZING, WORKING) else 0
         prev = s
-    return total
+    return {"extract_patches": pulls, "anchor_refine": refines}
 
 
 def vip_phase(torch, np, tklt, dev, smi):
@@ -406,9 +572,9 @@ def vip_phase(torch, np, tklt, dev, smi):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tklt.launches = 0
+    reset_launches(tklt)
     first = drive(torch, new_tracker, bundles)
-    launches = tklt.launches
+    launches = read_launches(tklt)
     step, states, Rs, ts, vios, frame_ms = first
     syncs = step.host_syncs
     peak = torch.cuda.max_memory_allocated()
@@ -438,7 +604,7 @@ def vip_phase(torch, np, tklt, dev, smi):
         f"frames 3-{VIP_FRAMES}; run medians {' / '.join(f'{m:.2f}' for m in run_meds)}; "
         f"states and poses bitwise equal across runs; first frame {frame_ms[0]:.1f} ms), "
         f"VIO-init frame {init_ms:.1f} ms, host reads {syncs / VIP_FRAMES:.2f}/frame "
-        f"({syncs} total), extract_patches launches {launches}"
+        f"({syncs} total), kernel launches {launches}"
         f"{f' (expected {expect})' if expect is not None else ''}, "
         f"peak allocated {peak / 2**20:.1f} MiB")
     log(f"  states {''.join(str(s) for s in states.tolist())}")
@@ -448,7 +614,7 @@ def vip_phase(torch, np, tklt, dev, smi):
         raise AssertionError(f"only {int(working.sum())}/{VIP_FRAMES} frames WORKING")
     if not ate < 0.05 * span:
         raise AssertionError(f"metric ATE {ate} >= 5% of span {span}")
-    if launches <= 0 or (expect is not None and launches != expect):
+    if min(launches.values()) <= 0 or (expect is not None and launches != expect):
         raise AssertionError(f"kernel launches {launches}, expected {expect}")
     mark("vip_step")
 
@@ -513,10 +679,16 @@ def main() -> int:
     kernels.load()
     log(f"phase build: {os.path.basename(path)} in {time.time() - t0:.2f} s "
         f"(nvcc {kernels.build_seconds if kernels.build_seconds is not None else 0.0:.2f} s)")
+    for line in kernels.build_log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log("  ptxas: " + line.strip())
+    mark("build")
 
-    # -- phase 3: kernel vs plain ---------------------------------------
-    log("phase kernel-vs-plain (exact equality):")
-    max_err, rows = kernel_phase(torch, tklt, dev)
+    # -- phase 3: kernels vs plain ---------------------------------------
+    log("phase kernel-vs-plain: extract_patches (exact equality)")
+    patch_err, patch_rows = patch_phase(torch, tklt, dev)
+    log("phase kernel-vs-plain: anchor_refine (1e-3 px where both accept)")
+    refine_err, refine_rows = refine_phase(torch, tklt, dev)
     mark("kernel_vs_plain")
 
     # -- phase 4/5 need the synthetic sequences -------------------------
@@ -570,9 +742,9 @@ def main() -> int:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tklt.launches = 0
+    reset_launches(tklt)
     first = drive(torch, new_tracker, imgs)
-    launches = tklt.launches
+    launches = read_launches(tklt)
     step, states, Rs, ts, _, frame_ms = first
     syncs = step.host_syncs
     peak = torch.cuda.max_memory_allocated()
@@ -595,7 +767,7 @@ def main() -> int:
         f"frames 3-60; run medians {' / '.join(f'{m:.2f}' for m in run_meds)}; states and "
         f"poses bitwise equal across runs; first frame {frame_ms[0]:.1f} ms), "
         f"host reads {syncs / N_FRAMES:.2f}/frame "
-        f"({syncs} total), extract_patches launches {launches} (expected {expect}), "
+        f"({syncs} total), kernel launches {launches} (expected {expect}), "
         f"peak allocated {peak / 2**20:.1f} MiB")
     log(f"  states {''.join(str(s) for s in states.tolist())}")
     if working.sum() < 0.8 * N_FRAMES:
@@ -604,7 +776,7 @@ def main() -> int:
         raise AssertionError(f"ATE {ate} >= 2% of span {span}")
     if (states == LOST).any():
         raise AssertionError("LOST frames")
-    if launches <= 0 or launches != expect:
+    if min(launches.values()) <= 0 or launches != expect:
         raise AssertionError(f"kernel launches {launches}, expected {expect}")
     mark("mono_step")
 
@@ -629,12 +801,13 @@ def main() -> int:
         f"{100 * profile['device_idle_share']:.1f}%")
 
     # -- phase 8: mono relocalization ----------------------------------------
-    n_rec, rec_err, reloc_launches, kf_frame = reloc_phase(torch, np, tklt, new_tracker, imgs)
+    n_rec, rec_err, reloc_launches, reloc_expect, kf_frame = reloc_phase(torch, np, tklt,
+                                                                         new_tracker, imgs)
     mark("mono_reloc")
     log(f"phase mono relocalization: LOST after 3 black frames; WORKING again on the "
         f"{n_rec}. frame of keyframe {kf_frame}'s image, camera centre {rec_err:.4f} from the "
-        f"keyframe's (bound 0.15); extract_patches launches {reloc_launches} from the first "
-        f"black frame on")
+        f"keyframe's (bound 0.15); kernel launches {reloc_launches} from the first black frame "
+        f"on (expected {reloc_expect})")
 
     # -- phase 9: the VIP step ------------------------------------------------
     vip_record, vip_launches = vip_phase(torch, np, tklt, dev, smi)
@@ -644,21 +817,43 @@ def main() -> int:
     if foreign:
         raise AssertionError(f"the reference stack was imported: {foreign[:5]}")
 
-    big = [r for r in rows if r["psize"] == 35 and r["shape"] == [512, 640]][0]
+    big = [r for r in patch_rows if r["psize"] == 35 and r["shape"] == [512, 640]][0]
+    full = [r for r in refine_rows if r["shape"] == [512, 640]][0]
+    by_path = {"vip": vip_launches, "mono": launches, "mono_reloc": reloc_launches}
+    # the VIP step is the system's main path; every path's own counts are
+    # read from zero just before it and just after it. No single PyTorch
+    # call computes either function (library_ms null)
     record = {"kernels": [{
         "name": "extract_patches",
         "route": "cuda",
         "source": "uvipslam_torch/csrc/extract_patches.cu",
         "replaces": "uvipslam_tpu/ops/klt.py:230",
-        # the VIP step is the system's main path; every path's own count
-        # is read from zero just before it and just after it
-        "launches": vip_launches,
-        "launches_by_path": {"vip": vip_launches, "mono": launches,
-                             "mono_reloc": reloc_launches},
-        "max_abs_err": max_err,
+        "launches": vip_launches["extract_patches"],
+        "launches_by_path": {k: v["extract_patches"] for k, v in by_path.items()},
+        "max_abs_err": patch_err,
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
-        "shapes": rows,
+        "alone_ms": big["alone_ms"],
+        "plain_gather_alone_ms": big["plain_gather_alone_ms"],
+        "bound_ms": big["bound_ms"],
+        "bound_by": big["bound_by"],
+        "library_ms": None,
+        "shapes": patch_rows,
+    }, {
+        "name": "anchor_refine",
+        "route": "cuda",
+        "source": "uvipslam_torch/csrc/anchor_refine.cu",
+        "replaces": "uvipslam_tpu/ops/klt.py:230",
+        "launches": vip_launches["anchor_refine"],
+        "launches_by_path": {k: v["anchor_refine"] for k, v in by_path.items()},
+        "max_abs_err": refine_err,
+        "ms": full["ms"],
+        "plain_ms": full["plain_ms"],
+        "alone_ms": full["alone_ms"],
+        "bound_ms": full["bound_ms"],
+        "bound_by": full["bound_by"],
+        "library_ms": None,
+        "shapes": refine_rows,
     }]}
     step_record = {"step": {"frames_working": int(working.sum()), "n_frames": N_FRAMES,
                             "ate_m": ate, "ate_threshold_m": 0.02 * span,

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain torch versions on the card.
+"""The port's CUDA kernels (csrc/extract_patches.cu, csrc/anchor_refine.cu)
+against their plain torch versions on the card.
 
 Needs an NVIDIA GPU and nvcc; skipped without a CUDA device. This file
 imports no jax, so it also runs on a machine without the reference's
@@ -37,18 +38,68 @@ def test_extract_patches_kernel_matches_plain(cuda_device, psize):
     img = torch.rand((H, W), generator=torch.Generator().manual_seed(1)) * 255.0
     pts = _points()
     plain, local_plain = klt._extract_patches(img, pts, psize)
-    before = klt.launches
+    before = (klt.patch_launches, klt.refine_launches)
     kern, local_kern = klt.extract_patches_any(img.to(cuda_device), pts.to(cuda_device), psize)
     torch.cuda.synchronize()
-    assert klt.launches == before + 1
+    assert (klt.patch_launches, klt.refine_launches) == (before[0] + 1, before[1])
     assert torch.equal(kern.cpu(), plain)
     assert torch.equal(torch.nan_to_num(local_kern.cpu()), torch.nan_to_num(local_plain))
+
+
+def _wave_image(h, w, sx=0.0, sy=0.0):
+    """A smooth textured image, shifted by (sx, sy) pixels."""
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float64) - sy,
+                            torch.arange(w, dtype=torch.float64) - sx, indexing="ij")
+    v = (128 + 40 * torch.sin(0.21 * xs + 0.13 * ys) + 30 * torch.cos(0.17 * ys - 0.11 * xs)
+         + 20 * torch.sin(0.091 * xs + 0.29 * ys) + 15 * torch.cos(0.31 * xs - 0.05 * ys))
+    return v.float().contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,iters,max_correction,max_residual",
+                         [((256, 320), 10, 5.0, 45.0), ((512, 640), 8, 4.0, 32.0)])
+def test_anchor_refine_kernel_matches_plain(cuda_device, size, iters, max_correction,
+                                            max_residual):
+    """The fused kernel against `_anchor_refine_plain` on the card at the
+    two main-path settings (psize 27 and 25): accept equal except where
+    the plain version lies within 1e-3 of a threshold, out within 1e-3 px
+    where both accept (float32 sums in another order), rejected and
+    non-finite tracks keep their start point, one counted launch."""
+    h, w = size
+    a = _wave_image(h, w).to(cuda_device)
+    b = _wave_image(h, w, 0.7, -0.4).to(cuda_device)
+    pts = _points()
+    pts = pts * torch.tensor([w / W, h / H])
+    T, Tx, Ty = klt.extract_templates_fast(a, torch.nan_to_num(pts).to(cuda_device))
+    valid = torch.rand(pts.shape[0], generator=torch.Generator().manual_seed(2)) > 0.05
+    args = (b, T, Tx, Ty, pts.to(cuda_device), valid.to(cuda_device))
+    kw = dict(win=13, iters=iters, max_correction=max_correction, max_residual=max_residual)
+    plain_out, plain_acc = klt._anchor_refine_plain(*args, **kw)
+    before = (klt.patch_launches, klt.refine_launches)
+    out, acc = klt.anchor_refine_fast(*args, **kw)
+    torch.cuda.synchronize()
+    assert (klt.patch_launches, klt.refine_launches) == (before[0], before[1] + 1)
+    _, _, _, resid, corr = klt._refine_terms(*args[:5], 13, iters, max_correction)
+    near = ((corr - max_correction).abs() < 1e-3) | ((resid - max_residual).abs() < 1e-3)
+    assert torch.equal(acc[~near], plain_acc[~near])
+    assert int(plain_acc.sum()) >= 0.9 * int(valid[8:].sum())
+    both = acc & plain_acc
+    assert (out[both] - plain_out[both]).abs().max().item() <= 1e-3
+    assert torch.equal(torch.nan_to_num(out[~acc]).cpu(), torch.nan_to_num(pts[~acc.cpu()]))
 
 
 @pytest.mark.cuda
 def test_extract_patches_kernel_rejects_cpu_tensors(cuda_device):
     with pytest.raises(ValueError):
         klt.extract_patches_cuda(torch.zeros((40, 50)), torch.zeros((3, 2)), 19)
+
+
+@pytest.mark.cuda
+def test_anchor_refine_kernel_rejects_cpu_tensors(cuda_device):
+    z = torch.zeros((3, 169))
+    with pytest.raises(ValueError):
+        klt.anchor_refine_cuda(torch.zeros((40, 50)), z, z, z, torch.zeros((3, 2)),
+                               torch.ones(3, dtype=torch.bool))
 
 
 @pytest.mark.cuda
@@ -75,10 +126,10 @@ def test_vip_frame_on_card_matches_cpu(cuda_device):
     for dev in ("cpu", cuda_device):
         st, step = build_vip_tracker(cam, cfg, 16, 1024, device=dev)
         bundles = make_bundles(seq, device=dev)
-        before = klt.launches
+        before = klt.patch_launches
         st, _ = step(st, bundles[0])
         torch.cuda.synchronize()
-        launched = klt.launches - before
+        launched = klt.patch_launches - before
         st1, pre_frame = step._accumulate(st, bundles[1])
         out[str(dev)] = (st, launched, st1, pre_frame)
     cpu, card = out["cpu"][0], out[str(cuda_device)][0]

@@ -72,12 +72,13 @@ def test_extract_patches_rejects_bad_arguments():
 
 
 def test_cpu_dispatch_does_not_count_launches():
-    before = tklt.launches
+    before = (tklt.patch_launches, tklt.refine_launches)
     img = torch.from_numpy(smooth_image())
     pts = torch.from_numpy(probe_points(96, 128))
     tklt.extract_patches_any(img, pts, 19)
-    tklt.extract_templates_fast(img, pts[:40])
-    assert tklt.launches == before
+    T, Tx, Ty = tklt.extract_templates_fast(img, pts[:40])
+    tklt.anchor_refine_fast(img, T, Tx, Ty, pts[:40], torch.ones(40, dtype=torch.bool))
+    assert (tklt.patch_launches, tklt.refine_launches) == before
 
 
 def test_sample_patch_matches():
@@ -130,3 +131,51 @@ def test_anchor_refine_fast_matches(max_correction, iters):
     np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=ATOL, rtol=0)
     assert np.asarray(ja).sum() > 30   # the refinement really converged
+
+
+def _edge_starts(case, h, w):
+    """Start points whose refinement takes the plain form's edge paths:
+    a first sample far outside the patch (a clipped corner), a position
+    absorbed by a huge coordinate, NaN/inf, or a track marked invalid."""
+    return {
+        "outside": [[-7.5, 20.0], [-0.6, 40.0], [w + 2.5, 30.0], [w + 40.0, 50.0],
+                    [60.0, -3.2], [70.0, h + 0.4], [-30.0, -30.0], [w + 9.0, h + 9.0]],
+        "huge": [[-1e12, 40.0], [1e12, 40.0], [60.0, -1e12], [60.0, 1e12], [3e9, 5.0],
+                 [-1e12, 1e12]],
+        "nonfinite": [[np.nan, 30.0], [30.0, np.nan], [np.inf, 40.0], [40.0, -np.inf],
+                      [-np.inf, np.inf], [np.nan, np.nan]],
+        "invalid": [],
+    }[case]
+
+
+@pytest.mark.parametrize("case", ["outside", "huge", "nonfinite", "invalid"])
+@pytest.mark.parametrize("max_correction,iters", [(4.0, 8), (5.0, 10)])
+def test_anchor_refine_fast_edge_cases(case, max_correction, iters):
+    """The plain port against the reference where the kernel's traps lie:
+    `accept` equal, `out` at ATOL, NaN where NaN (rejected tracks keep
+    their start point exactly)."""
+    a, b = _shifted_pair()
+    h, w = a.shape
+    rs = np.random.RandomState(6)
+    pts = np.stack([rs.uniform(14, 114, 32), rs.uniform(14, 82, 32)], -1).astype(np.float32)
+    T, Tx, Ty = (np.array(x) for x in jklt.extract_templates_fast(
+        jnp.asarray(a), jnp.asarray(pts), win=13))
+    start = pts + np.array([1.0, 0.4], np.float32)
+    edge = np.asarray(_edge_starts(case, h, w), np.float32).reshape(-1, 2)
+    start[:len(edge)] = edge
+    valid = np.ones(32, bool)
+    if case == "invalid":
+        valid[::2] = False
+    kw = dict(win=13, iters=iters, max_correction=max_correction, max_residual=32.0)
+    jo, ja = jklt.anchor_refine_fast(jnp.asarray(b), jnp.asarray(T), jnp.asarray(Tx),
+                                     jnp.asarray(Ty), jnp.asarray(start),
+                                     jnp.asarray(valid), **kw)
+    to, ta = tklt.anchor_refine_fast(torch.from_numpy(b), torch.from_numpy(T),
+                                     torch.from_numpy(Tx), torch.from_numpy(Ty),
+                                     torch.from_numpy(start), torch.from_numpy(valid), **kw)
+    ja, jo = np.asarray(ja), np.asarray(jo)
+    np.testing.assert_array_equal(ta.numpy(), ja)
+    np.testing.assert_allclose(to.numpy(), jo, atol=ATOL, rtol=0)
+    np.testing.assert_array_equal(to.numpy()[~ja], start[~ja])
+    assert not ja[:len(edge)].any() and not ja[~valid].any()
+    assert ja[len(edge):][valid[len(edge):]].sum() >= 0.8 * valid[len(edge):].sum()

@@ -1,11 +1,13 @@
 """The port stands alone: importing every uvipslam_torch module and
-chip_smoke.py pulls in neither jax nor the reference package, chip_smoke.py
+chip_smoke.py pulls in neither jax nor the reference package, no module
+of the port names a path under the reference package, chip_smoke.py
 refuses to run without a card or outside a checkout, and the constants the
-port regenerates (BRIEF pattern, vocabulary, haloc projections) and its
-synthetic sequences (camera, IMU and pressure) equal the reference's bit
-for bit."""
+port regenerates or carries (BRIEF pattern, vocabulary, haloc projections)
+and its synthetic sequences (camera, IMU and pressure) equal the
+reference's bit for bit."""
 
 import ast
+import hashlib
 import os
 import pkgutil
 import shutil
@@ -42,6 +44,41 @@ def test_import_every_module_without_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     assert r.stdout.startswith("ok")
+
+
+def _string_constants(tree):
+    """Every string constant of a module except its docstrings."""
+    docs = set()
+    for n in ast.walk(tree):
+        if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = n.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+                docs.add(id(body[0].value))
+    return [n.value for n in ast.walk(tree) if isinstance(n, ast.Constant)
+            and isinstance(n.value, str) and id(n) not in docs]
+
+
+def test_no_module_names_a_reference_path():
+    """No string in the port's code (docstrings aside, which cite the
+    reference's files) names the reference package, so no module can read
+    a file under it."""
+    root = os.path.join(REPO, "uvipslam_torch")
+    found = []
+    for d, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(d, f)) as fh:
+                    tree = ast.parse(fh.read())
+                found += [(f, c) for c in _string_constants(tree) if "uvipslam_tpu" in c]
+    assert not found, found
+
+
+def test_vocabulary_copy_equals_reference():
+    def sha(path):
+        with open(os.path.join(REPO, path), "rb") as fh:
+            return hashlib.sha256(fh.read()).hexdigest()
+
+    assert sha("uvipslam_torch/loop/vocab_data.npz") == sha("uvipslam_tpu/loop/vocab_data.npz")
 
 
 def test_chip_smoke_imports_no_reference():

@@ -165,7 +165,7 @@ def jax_run(seq):
 @pytest.fixture(scope="module")
 def torch_run(seq):
     cam = TCam.create(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2], width=160, height=120)
-    st, step = tdt.build_tracker(cam, ttr.TrackerConfig(**CFG), KF_CAP, PT_CAP)
+    st, step = tdt.build_tracker(cam, ttr.TrackerConfig(**CFG), KF_CAP, PT_CAP, device="cpu")
 
     def step_fn(st, img):
         st, out = step(st, torch.from_numpy(img))
@@ -270,7 +270,8 @@ def test_enhance_frame0_tracks_equal(seq):
     st_j, step_j = jdt.build_tracker(cam_j, jtr.TrackerConfig(**cfg), KF_CAP, PT_CAP)
     st_j, _ = step_j(st_j, jnp.asarray(img))
     cam_t = TCam.create(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2], width=160, height=120)
-    st_t, step_t = tdt.build_tracker(cam_t, ttr.TrackerConfig(**cfg), KF_CAP, PT_CAP)
+    st_t, step_t = tdt.build_tracker(cam_t, ttr.TrackerConfig(**cfg), KF_CAP, PT_CAP,
+                                    device="cpu")
     st_t, _ = step_t(st_t, torch.from_numpy(img))
     tj, tt = st_j.tracks, st_t.tracks
     for f in ("xy", "desc", "level", "valid", "birth_frame"):
@@ -280,6 +281,7 @@ def test_enhance_frame0_tracks_equal(seq):
                                    err_msg=f)
     assert int(np.sum(_np(tt.valid))) > 50
     # the enhanced frame's tracks differ from the plain frame's
-    st_p, step_p = tdt.build_tracker(cam_t, ttr.TrackerConfig(**CFG), KF_CAP, PT_CAP)
+    st_p, step_p = tdt.build_tracker(cam_t, ttr.TrackerConfig(**CFG), KF_CAP, PT_CAP,
+                                    device="cpu")
     st_p, _ = step_p(st_p, torch.from_numpy(img))
     assert not torch.equal(st_p.tracks.xy, tt.xy)

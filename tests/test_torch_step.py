@@ -87,7 +87,7 @@ def jax_run(seq):
 def torch_run(seq):
     cam = TCam.create(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2],
                       width=160, height=120)
-    st, step = tdt.build_tracker(cam, ttr.TrackerConfig(**CFG), KF_CAP, PT_CAP)
+    st, step = tdt.build_tracker(cam, ttr.TrackerConfig(**CFG), KF_CAP, PT_CAP, device="cpu")
     states, Rs, ts = [], [], []
     for f in range(N_FRAMES):
         st, out = step(st, torch.from_numpy(seq.images[f].astype(np.float32)))
@@ -145,7 +145,7 @@ def test_run_sequence_replays_the_step(seq, torch_run):
     cam = torch_run["cam"]
     n = 4
     _, outs, step = tdt.run_sequence(cam, ttr.TrackerConfig(**CFG), seq.images[:n].astype(
-        np.float32), kf_cap=KF_CAP, pt_cap=PT_CAP)
+        np.float32), kf_cap=KF_CAP, pt_cap=PT_CAP, device="cpu")
     np.testing.assert_array_equal(outs.state.numpy(), torch_run["states"][:n])
     np.testing.assert_array_equal(_centers(outs.Rcw.numpy(), outs.tcw.numpy()),
                                   torch_run["C"][:n])

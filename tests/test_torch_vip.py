@@ -127,9 +127,9 @@ def jax_run(seq):
 @pytest.fixture(scope="module")
 def torch_run(seq):
     cam = TCam.create(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2], width=W, height=H)
-    st, step = tdv.build_vip_tracker(cam, tvt.VipConfig(**CFG), KF_CAP, PT_CAP)
+    st, step = tdv.build_vip_tracker(cam, tvt.VipConfig(**CFG), KF_CAP, PT_CAP, device="cpu")
     states, vios, C = [], [], []
-    for f, b in enumerate(tdv.make_bundles(seq)):
+    for f, b in enumerate(tdv.make_bundles(seq, device="cpu")):
         st, out = step(st, b)
         states.append(int(out.state))
         vios.append(bool(out.vio_ok))
@@ -137,9 +137,9 @@ def torch_run(seq):
         if f == 0:
             tracks0 = st.tracks
     syncs = step.host_syncs
-    st = tdv.init_vip_state(tvt.VipConfig(**CFG), KF_CAP, PT_CAP, H, W)
+    st = tdv.init_vip_state(tvt.VipConfig(**CFG), KF_CAP, PT_CAP, H, W, device="cpu")
     blackout = []
-    for f, b in enumerate(tdv.make_bundles(seq)):
+    for f, b in enumerate(tdv.make_bundles(seq, device="cpu")):
         if f in BLACK:
             b = dataclasses.replace(b, img=torch.zeros_like(b.img))
         st, out = step(st, b)
@@ -211,8 +211,8 @@ def test_first_try_lane_forces_a_keyframe(jax_run, torch_run, seq, monkeypatch):
 
     monkeypatch.setattr(tdv, "_vi_track", lane0_fails)
     st = convert.vip_state(src)
-    step = tdv.VipStep(torch_run["cam"], tvt.VipConfig(**CFG), KF_CAP)
-    st, out = step(st, tdv.make_bundles(seq)[int(src.frame_id) + 1])
+    step = tdv.VipStep(torch_run["cam"], tvt.VipConfig(**CFG), KF_CAP, device="cpu")
+    st, out = step(st, tdv.make_bundles(seq, device="cpu")[int(src.frame_id) + 1])
     assert len(calls) == 2 and calls[1] >= step.reloc_min, calls
     assert int(out.state) == ttr.WORKING
     assert int(out.new_kf) == int(src.map.n_kf)           # the forced keyframe

@@ -5,12 +5,16 @@ its counterpart at the same path there and is tested against it on
 identical float32 inputs (tests/test_torch_*.py).
 
 Plain tensor code is PyTorch run eagerly. The one TPU kernel of the
-reference (`uvipslam_tpu/ops/klt.py::_extract_patches_pallas`) is a
-hand-written CUDA kernel here (`csrc/extract_patches.cu`, bound by
-`kernels.py`); on CPU tensors its plain torch version runs instead.
+reference (`uvipslam_tpu/ops/klt.py::_extract_patches_pallas`) becomes two
+hand-written CUDA kernels here, bound by `kernels.py`: the patch pull
+(`csrc/extract_patches.cu`) and the pull fused with the anchor
+refinement's Gauss-Newton loop (`csrc/anchor_refine.cu`). On CPU tensors
+their plain torch versions run instead. The step entry points run on the
+card unless the caller passes `device="cpu"`.
 
 Subpackages mirror the reference: core, models, ops, solver, mapstate,
-loop, frontend. This package never imports jax.
+loop, frontend. This package never imports jax and reads no file of the
+reference package.
 """
 
 import torch

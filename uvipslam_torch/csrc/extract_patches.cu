@@ -1,59 +1,76 @@
 // Per-feature square patch extraction for Hopper (sm_90a).
 //
 // Replaces the TPU kernel uvipslam_tpu/ops/klt.py::_extract_patches_pallas
-// (pl.pallas_call at klt.py:288). That kernel kept the whole image in VMEM,
-// cut eight features per program, snapped rows to 8 and rolled lanes into a
-// [R, 128] window (R rows). Here the output is the slab contract of the
-// reference's plain form (klt.py::_extract_patches): patches
-// [N, psize, psize] whose top-left corner is (x0[n], y0[n]). The wrapper
-// (uvipslam_torch/ops/klt.py::extract_patches_any) computes the clipped
-// int32 corners and the fractional `local` in torch with the reference's
-// formula, so this kernel is a pure copy and matches the plain gather bit
-// for bit.
+// (klt.py:230, pl.pallas_call at klt.py:288). That kernel kept the whole
+// image in VMEM, cut eight features per program, snapped rows to 8 and
+// rolled lanes into a [R, 128] window (R rows). Here the output is the slab
+// contract of the reference's plain form (klt.py::_extract_patches):
+// patches [N, psize, psize] and `local` [N, 2], the point's fractional
+// position inside its patch. The corners and `local` are computed on the
+// device with the reference's formula (patch_common.cuh), so one launch
+// does the whole function and matches the plain torch gather
+// (uvipslam_torch/ops/klt.py::_extract_patches) bit for bit, border,
+// outside and non-finite points included.
 //
-// Launch: one block per feature; the block's threads stride over the
-// psize*psize outputs in row-major order, so consecutive threads read
-// consecutive pixels of an image row (coalesced) and write consecutive
-// floats of the patch.
+// Launch: kFeats features per block of kWarps warps. The block's
+// kFeats * psize patch rows are dealt to its warps; a warp copies one row
+// with its lanes on consecutive pixels, so each row is one coalesced load
+// and one coalesced store (a row wider than 32 takes the lanes again).
 //
-// Bound: memory. At N = 400, psize = 35 it writes 400*35*35*4 B = 1.96 MB
-// and reads about as much (rows of neighbouring features overlap in L2);
-// nothing is computed. Fusing the pull with _sample_patch and the
-// Gauss-Newton loop of anchor_refine_fast in shared memory, so the patch
-// never reaches device memory, is left for a later change.
+// Bound: memory. At N = 400, psize = 35 on a 512x640 image it must read
+// at most the image once (1.31 MB) and write 1.96 MB of patches, ~1 us at
+// 3.35 TB/s; nothing is computed beyond the corners. In practice the
+// launch itself (a ctypes call) costs more than the copy, so the design
+// removes the torch corner ops around it: one launch per call and no
+// other device work. The anchor refinement, which pulls the most patches,
+// does not come here at all: csrc/anchor_refine.cu pulls its patch into
+// shared memory.
 
 #include <cuda_runtime.h>
 
+#include "patch_common.cuh"
+
 namespace {
 
-__global__ void extract_patches_kernel(const float* __restrict__ img, int W,
-                                       const int* __restrict__ x0,
-                                       const int* __restrict__ y0,
-                                       int psize,
-                                       float* __restrict__ out) {
-  const int n = blockIdx.x;
-  const int px = x0[n];
-  const int py = y0[n];
-  const int area = psize * psize;
-  float* dst = out + static_cast<long long>(n) * area;
-  for (int e = threadIdx.x; e < area; e += blockDim.x) {
-    const int i = e / psize;
-    const int j = e - i * psize;
-    dst[e] = img[static_cast<long long>(py + i) * W + (px + j)];
+constexpr int kWarps = 8;
+constexpr int kFeats = 4;
+
+__global__ void __launch_bounds__(kWarps * 32)
+extract_patches_kernel(const float* __restrict__ img, int H, int W,
+                       const float* __restrict__ pts, int n, int psize,
+                       float* __restrict__ out, float* __restrict__ local) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int f0 = blockIdx.x * kFeats;
+  const int rows = kFeats * psize;
+  for (int r = warp; r < rows; r += kWarps) {
+    const int k = r / psize;
+    const int f = f0 + k;
+    if (f >= n) break;
+    const int i = r - k * psize;
+    const float px = pts[2 * f];
+    const float py = pts[2 * f + 1];
+    const int x0 = uvip::patch_corner(px, W, psize);
+    const int y0 = uvip::patch_corner(py, H, psize);
+    const float* src = img + static_cast<long long>(y0 + i) * W + x0;
+    float* dst = out + (static_cast<long long>(f) * psize + i) * psize;
+    for (int j = lane; j < psize; j += 32) dst[j] = src[j];
+    if (i == 0 && lane < 2) {
+      local[2 * f + lane] = lane == 0 ? px - static_cast<float>(x0)
+                                      : py - static_cast<float>(y0);
+    }
   }
 }
 
 }  // namespace
 
-extern "C" int uvip_extract_patches(const float* img, int H, int W,
-                                    const int* x0, const int* y0, int n,
-                                    int psize, float* out, void* stream) {
-  (void)H;
+extern "C" int uvip_extract_patches(const float* img, int H, int W, const float* pts,
+                                    int n, int psize, float* out, float* local,
+                                    void* stream) {
   if (n <= 0) return 0;
-  const int area = psize * psize;
-  int threads = area < 256 ? ((area + 31) / 32) * 32 : 256;
-  extract_patches_kernel<<<n, threads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      img, W, x0, y0, psize, out);
+  if (psize <= 0 || psize > H || psize > W) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (n + kFeats - 1) / kFeats;
+  extract_patches_kernel<<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      img, H, W, pts, n, psize, out, local);
   return static_cast<int>(cudaGetLastError());
 }

@@ -113,9 +113,20 @@ def _i32(v, device):
     return torch.full((), v, dtype=torch.int32, device=device)
 
 
+def step_device(device) -> torch.device:
+    """The device a step's entry point runs on: the card unless the
+    caller names another. Raises when a CUDA device is asked for and none
+    is present, rather than falling back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the step runs on the card unless the caller "
+                           "passes device='cpu'")
+    return device
+
+
 def init_state(cfg: TrackerConfig, kf_cap: int, pt_cap: int, height: int, width: int,
-               seed: int = 0, device=None) -> TrackerState:
-    device = torch.device(device) if device is not None else torch.device("cpu")
+               seed: int = 0, device="cuda") -> TrackerState:
+    device = step_device(device)
     f32 = dict(dtype=torch.float32, device=device)
     pyr = tuple(build_flow_pyramid(torch.zeros((height, width), **f32), cfg.n_levels_klt))
     gen = torch.Generator(device=device)
@@ -156,10 +167,10 @@ class MonoStep:
     nn.Module): `st, out = step(st, img)`. Counts its host reads in
     `host_syncs`."""
 
-    def __init__(self, cam: CameraModel, cfg: TrackerConfig, device=None):
+    def __init__(self, cam: CameraModel, cfg: TrackerConfig, device="cuda"):
         self.cam = cam
         self.cfg = cfg
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = step_device(device)
         self.scale_sigmas = torch.tensor(cfg.scale_sigmas, dtype=torch.float32).to(self.device)
         self.K = torch.as_tensor(cam.K).to(self.device)
         self.host_syncs = 0
@@ -408,20 +419,22 @@ def _nav_row(ns, k):
 
 
 def build_tracker(cam: CameraModel, cfg: TrackerConfig, kf_cap: int, pt_cap: int,
-                  device=None, seed: int = 0):
-    """Returns (state0, step) with step = MonoStep(...)."""
+                  device="cuda", seed: int = 0):
+    """Returns (state0, step) with step = MonoStep(...), on the card
+    unless `device` names another."""
     st0 = init_state(cfg, kf_cap, pt_cap, cam.height, cam.width, seed=seed, device=device)
     return st0, MonoStep(cam, cfg, device=device)
 
 
 def run_sequence(cam: CameraModel, cfg: TrackerConfig, images, kf_cap: int = 64,
-                 pt_cap: int = 8192, device=None):
-    """Replay a sequence frame by frame. Returns (final_state, StepOut
-    with a leading time dimension, the step object)."""
+                 pt_cap: int = 8192, device="cuda"):
+    """Replay a sequence frame by frame on `device`, each image moved
+    there. Returns (final_state, StepOut with a leading time dimension,
+    the step object)."""
     st, step = build_tracker(cam, cfg, kf_cap, pt_cap, device=device)
     outs = []
     for img in images:
-        st, out = step(st, torch.as_tensor(img))
+        st, out = step(st, torch.as_tensor(img).to(step.device))
         outs.append(out)
     stacked = StepOut(*(torch.stack([getattr(o, f.name) for o in outs])
                         for f in dataclasses.fields(StepOut)))

@@ -45,7 +45,8 @@ from uvipslam_torch.core.preintegration import (PreintState, bias_correct, prein
 from uvipslam_torch.core.state import NavState
 from uvipslam_torch.core.tree import put_row, row, tree_map
 from uvipslam_torch.frontend.device_tracker import (RING, _i32, _nanmedian, _nav_row,
-                                                    device_hygiene, relocalize_pose)
+                                                    device_hygiene, relocalize_pose,
+                                                    step_device)
 from uvipslam_torch.frontend.frame import (Tracks, propagate_tracks, refill_tracks,
                                            refresh_descriptors)
 from uvipslam_torch.frontend.tracker import (IMU_RELOC, INITIALIZING, LOST, NOT_INITIALIZED,
@@ -141,8 +142,8 @@ def _imu_window(S, device):
 
 
 def init_vip_state(cfg: VipConfig, kf_cap: int, pt_cap: int, height: int, width: int,
-                   seed: int = 0, device=None) -> VipTrackerState:
-    device = torch.device(device) if device is not None else torch.device("cpu")
+                   seed: int = 0, device="cuda") -> VipTrackerState:
+    device = step_device(device)
     f32 = dict(dtype=torch.float32, device=device)
     S = cfg.imu_cap_per_kf
     gen = torch.Generator(device=device)
@@ -191,11 +192,11 @@ class VipStep:
     """The per-frame step of the device VIP tracker:
     `st, out = step(st, bundle)`. Counts its host reads in `host_syncs`."""
 
-    def __init__(self, cam: CameraModel, cfg: VipConfig, kf_cap: int, device=None):
+    def __init__(self, cam: CameraModel, cfg: VipConfig, kf_cap: int, device="cuda"):
         self.cam = cam
         self.cfg = cfg
         self.kf_cap = kf_cap
-        self.device = dev = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = dev = step_device(device)
         f32 = dict(dtype=torch.float32)
         self.scale_sigmas = torch.tensor(cfg.scale_sigmas, **f32).to(dev)
         self.K = torch.as_tensor(cam.K).to(dev)
@@ -759,16 +760,19 @@ class VipStep:
         return R, t, n, tr
 
 
-def build_vip_tracker(cam: CameraModel, cfg: VipConfig, kf_cap: int, pt_cap: int, device=None,
-                      seed: int = 0):
-    """Returns (state0, step) with step = VipStep(...)."""
+def build_vip_tracker(cam: CameraModel, cfg: VipConfig, kf_cap: int, pt_cap: int,
+                      device="cuda", seed: int = 0):
+    """Returns (state0, step) with step = VipStep(...), on the card unless
+    `device` names another."""
     st0 = init_vip_state(cfg, kf_cap, pt_cap, cam.height, cam.width, seed=seed, device=device)
     return st0, VipStep(cam, cfg, kf_cap, device=device)
 
 
-def make_bundles(seq, device=None):
-    """A synthetic sequence's frame bundles, uploaded to `device` once
-    (each bundle's tensors are views into the uploaded arrays)."""
+def make_bundles(seq, device="cuda"):
+    """A synthetic sequence's frame bundles, uploaded to `device` (the
+    card unless named) once (each bundle's tensors are views into the
+    uploaded arrays)."""
+    device = step_device(device)
     def up(a, dtype=torch.float32):
         return torch.from_numpy(a).to(dtype).to(device)
 

@@ -3,10 +3,11 @@
 Counterpart of `uvipslam_tpu/frontend/frame.py`: `Tracks`, track
 propagation by two-stage anchor refinement against birth templates plus
 an F-RANSAC gate, refill of dead slots with new ORB detections, and the
-per-frame unsteered descriptor refresh. Each of the three calls pulls
-patches through `ops.klt.extract_patches_any` (the CUDA kernel on the
-card): two in `propagate_tracks`, two templates plus the eight ORB
-levels in `refill_tracks`, one in `refresh_descriptors`.
+per-frame unsteered descriptor refresh. On the card, `propagate_tracks`
+launches the fused anchor-refinement kernel twice (`ops.klt.anchor_refine_fast`),
+and the other two pull patches through `ops.klt.extract_patches_any`:
+two templates plus one per ORB level in `refill_tracks`, one in
+`refresh_descriptors`.
 """
 
 from __future__ import annotations

@@ -3,9 +3,9 @@
 Counterpart of `uvipslam_tpu/loop/reloc.py`:
 
 - the vocabulary constants (the trained binary codebook and its idf
-  weights, read from the reference package's `loop/vocab_data.npz` by
-  path with numpy, the same file) that `MapState` stores per-keyframe BoW
-  vectors with;
+  weights, read with numpy from this package's own `loop/vocab_data.npz`,
+  a byte-equal copy of the reference's) that `MapState` stores
+  per-keyframe BoW vectors with;
 - `first_try_associations`, the cheap first tier after a failed VI solve:
   a projection search of the last keyframe's landmarks at the
   IMU-predicted pose, narrow then wide;
@@ -27,11 +27,7 @@ from uvipslam_torch.ops import hamming
 from uvipslam_torch.ops.pnp import pnp_ransac
 from uvipslam_torch.solver.pose_opt import pose_optimization_se3
 
-# the reference package sits beside this one; its artifact is read as a
-# file, without importing that package
-_VOCAB_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "uvipslam_tpu", "loop", "vocab_data.npz")
+_VOCAB_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "vocab_data.npz")
 
 
 def _load_vocab():

@@ -1,19 +1,25 @@
 """Anchor-template feature refinement and its patch pull.
 
 Counterpart of the parts of `uvipslam_tpu/ops/klt.py` on the tracking
-path: the flow pyramid, the FFT global shift, patch extraction (the one
-hand-written CUDA kernel of the port), separable interpolation-matmul
-patch sampling, `anchor_refine_fast` and `extract_templates_fast`. The
-gather-based `klt_track`, `anchor_refine` and `extract_templates` are on
-no path of the reference and are not ported.
+path: the flow pyramid, the FFT global shift, patch extraction,
+separable interpolation-matmul patch sampling, `anchor_refine_fast` and
+`extract_templates_fast`. The gather-based `klt_track`, `anchor_refine`
+and `extract_templates` are on no path of the reference and are not
+ported.
 
-Patch extraction dispatch (`extract_patches_any`): a CPU tensor takes the
-plain torch gather `_extract_patches`; a CUDA tensor launches
-`csrc/extract_patches.cu` and raises if it cannot. Both emit the slab
-contract of the reference's `_extract_patches` ([N, psize, psize] patches,
-`local` relative to the clipped corner), never the TPU kernel's
-[N, R, 128] layout (R rows), whose different patch shape changes the
-clamp bounds of `anchor_refine_fast`.
+Two hand-written CUDA kernels take the place of the reference's one TPU
+kernel (`_extract_patches_pallas`), each dispatched by device: a CPU
+tensor takes the plain torch version, a CUDA tensor launches the kernel
+and raises if it cannot.
+
+- `extract_patches_any`: `csrc/extract_patches.cu`, or the plain gather
+  `_extract_patches`. Both emit the slab contract of the reference's
+  `_extract_patches` ([N, psize, psize] patches, `local` relative to the
+  clipped corner), never the TPU kernel's [N, R, 128] layout (R rows),
+  whose different patch shape changes the clamp bounds of
+  `anchor_refine_fast`. The template and ORB pulls use it.
+- `anchor_refine_fast`: `csrc/anchor_refine.cu`, the patch pull fused
+  with the whole Gauss-Newton loop, or `_anchor_refine_plain`.
 """
 
 from __future__ import annotations
@@ -28,8 +34,10 @@ from uvipslam_torch.ops.image import pyr_down
 INT32_MIN = -(2 ** 31)
 INT32_MAX = 2 ** 31 - 1
 
-# kernel launches made by `extract_patches_any` on CUDA tensors
-launches = 0
+# kernel launches on CUDA tensors: csrc/extract_patches.cu by
+# `extract_patches_cuda`, csrc/anchor_refine.cu by `anchor_refine_cuda`
+patch_launches = 0
+refine_launches = 0
 
 
 def build_flow_pyramid(img: torch.Tensor, levels: int = 5) -> list:
@@ -131,42 +139,48 @@ def _check_patch_args(img: torch.Tensor, pts: torch.Tensor, psize: int):
                          f"or above 127")
 
 
-def launch_extract_patches(img: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
-                           psize: int, out: torch.Tensor) -> None:
+def _require_cuda(name: str, img: torch.Tensor):
+    if img.device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {img.device}")
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def launch_extract_patches(img: torch.Tensor, pts: torch.Tensor, psize: int,
+                           out: torch.Tensor, local: torch.Tensor) -> None:
     """Raw launch of csrc/extract_patches.cu on the current stream of
     img's device (made the current device for the launch): contiguous
-    CUDA img [H, W] f32, int32 corners x0/y0 [N] already clipped into the
-    image, out [N, psize, psize] f32, all on one device. Not counted."""
+    CUDA img [H, W] f32 and pts [N, 2] f32, outputs out [N, psize, psize]
+    and local [N, 2] f32, all on one device. Not counted."""
     H, W = img.shape
-    N = x0.shape[0]
+    N = pts.shape[0]
     if N == 0:
         return
-    if not (x0.device == y0.device == out.device == img.device):
-        raise ValueError("img, x0, y0 and out must be on one device")
+    if not (pts.device == out.device == local.device == img.device):
+        raise ValueError("img, pts, out and local must be on one device")
     lib = kernels.load()
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = lib.uvip_extract_patches(
-            ctypes.c_void_p(img.data_ptr()), H, W,
-            ctypes.c_void_p(x0.data_ptr()), ctypes.c_void_p(y0.data_ptr()), N,
-            psize, ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
+        err = lib.uvip_extract_patches(_ptr(img), H, W, _ptr(pts), N, psize, _ptr(out),
+                                       _ptr(local), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"extract_patches kernel launch failed: cudaError {err}")
 
 
 def extract_patches_cuda(img: torch.Tensor, pts: torch.Tensor, psize: int):
-    """The kernel path of `extract_patches_any` on CUDA tensors: corners
-    in torch, then one counted launch."""
-    global launches
+    """The kernel path of `extract_patches_any` on CUDA tensors: one
+    counted launch that computes the corners, `local` and the patches."""
+    global patch_launches
     _check_patch_args(img, pts, psize)
-    if img.device.type != "cuda":
-        raise ValueError(f"extract_patches_cuda needs CUDA tensors, got {img.device}")
-    H, W = img.shape
-    x0, y0, local = patch_corners(pts, H, W, psize)
-    out = torch.empty((pts.shape[0], psize, psize), dtype=torch.float32, device=img.device)
-    if pts.shape[0] > 0:
-        launch_extract_patches(img, x0.contiguous(), y0.contiguous(), psize, out)
-        launches += 1
+    _require_cuda("extract_patches_cuda", img)
+    N = pts.shape[0]
+    out = torch.empty((N, psize, psize), dtype=torch.float32, device=img.device)
+    local = torch.empty((N, 2), dtype=torch.float32, device=img.device)
+    if N > 0:
+        launch_extract_patches(img, pts.contiguous(), psize, out, local)
+        patch_launches += 1
     return out, local
 
 
@@ -194,18 +208,20 @@ def _sample_patch(patches: torch.Tensor, center: torch.Tensor, win: int) -> torc
     return torch.bmm(tmp, Wx.transpose(1, 2))
 
 
-def anchor_refine_fast(img, T, Tx, Ty, pts, valid, win: int = 13,
-                       iters: int = 8, max_correction: float = 4.0,
-                       max_residual: float = 32.0):
-    """Refine [N, 2] start positions against [N, win*win] birth templates:
-    one patch pull per track, then fixed inverse-compositional GN
-    iterations with interpolation-matmul sampling.
-    Returns (pts_refined [N, 2], accepted [N] bool)."""
-    N = pts.shape[0]
-    margin = int(max_correction) + 2
-    psize = win + 2 * margin
+def refine_psize(win: int, max_correction: float) -> int:
+    """The patch side `anchor_refine_fast` pulls: the window plus a margin
+    of int(max_correction) + 2 on each side."""
+    return win + 2 * (int(max_correction) + 2)
 
-    patches, local = extract_patches_any(img, pts, psize)
+
+def _refine_terms(img, T, Tx, Ty, pts, win: int, iters: int, max_correction: float):
+    """The plain form's Gauss-Newton loop: returns the refined patch
+    position p, `local`, good_G, the mean absolute residual and the
+    correction norm, each per track."""
+    N = pts.shape[0]
+    psize = refine_psize(win, max_correction)
+    _check_patch_args(img, pts, psize)
+    patches, local = _extract_patches(img, pts, psize)
 
     Gxx = torch.sum(Tx * Tx, dim=1)
     Gxy = torch.sum(Tx * Ty, dim=1)
@@ -235,10 +251,92 @@ def anchor_refine_fast(img, T, Tx, Ty, pts, valid, win: int = 13,
     resid = torch.sum(torch.abs(_sample_patch(patches, p, win).reshape(N, -1) - T),
                       dim=1) / (win * win)
     corr = torch.linalg.vector_norm(p - local, dim=-1)
+    return p, local, good_G, resid, corr
+
+
+def _anchor_refine_plain(img, T, Tx, Ty, pts, valid, win: int = 13, iters: int = 8,
+                         max_correction: float = 4.0, max_residual: float = 32.0):
+    """Plain torch form of `anchor_refine_fast` (the reference's
+    arithmetic: a patch gather, then interpolation-matmul sampling in each
+    Gauss-Newton iteration)."""
+    p, local, good_G, resid, corr = _refine_terms(img, T, Tx, Ty, pts, win, iters,
+                                                  max_correction)
     accept = valid & good_G & (corr <= max_correction) & (resid < max_residual)
     out_pts = pts + (p - local)
     out = torch.where(accept[:, None], out_pts, pts)
     return out, accept
+
+
+def _check_refine_args(img, T, Tx, Ty, pts, valid, win: int, iters: int,
+                       max_correction: float):
+    _check_patch_args(img, pts, refine_psize(win, max_correction))
+    N = pts.shape[0]
+    for name, t in (("T", T), ("Tx", Tx), ("Ty", Ty)):
+        if t.shape != (N, win * win) or t.dtype != torch.float32 or t.device != img.device:
+            raise ValueError(f"{name} must be float32 [{N}, {win * win}] on {img.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if valid.shape != (N,) or valid.dtype != torch.bool or valid.device != img.device:
+        raise ValueError(f"valid must be bool [{N}] on {img.device}")
+    if not 0 < win * win <= 256 or iters < 0 or not 0.0 <= max_correction < 1e6:
+        raise ValueError(f"win {win} (win^2 <= 256), iters {iters} or max_correction "
+                         f"{max_correction} out of range")
+    if refine_psize(win, max_correction) > 55:
+        raise ValueError(f"patch side {refine_psize(win, max_correction)} above 55")
+
+
+def launch_anchor_refine(img, T, Tx, Ty, pts, valid, win: int, iters: int,
+                         max_correction: float, max_residual: float,
+                         out: torch.Tensor, accept: torch.Tensor) -> None:
+    """Raw launch of csrc/anchor_refine.cu on the current stream of img's
+    device: contiguous CUDA inputs as `anchor_refine_fast` takes them,
+    outputs out [N, 2] f32 and accept [N] bool. Not counted."""
+    H, W = img.shape
+    N = pts.shape[0]
+    if N == 0:
+        return
+    lib = kernels.load()
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        err = lib.uvip_anchor_refine(
+            _ptr(img), H, W, _ptr(T), _ptr(Tx), _ptr(Ty), _ptr(pts), _ptr(valid), N, win,
+            iters, max_correction, max_residual, _ptr(out), _ptr(accept),
+            ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"anchor_refine kernel launch failed: cudaError {err}")
+
+
+def anchor_refine_cuda(img, T, Tx, Ty, pts, valid, win: int = 13, iters: int = 8,
+                       max_correction: float = 4.0, max_residual: float = 32.0):
+    """The kernel path of `anchor_refine_fast` on CUDA tensors: one counted
+    launch that pulls each patch and runs the whole refinement."""
+    global refine_launches
+    _check_refine_args(img, T, Tx, Ty, pts, valid, win, iters, max_correction)
+    _require_cuda("anchor_refine_cuda", img)
+    N = pts.shape[0]
+    out = torch.empty((N, 2), dtype=torch.float32, device=img.device)
+    accept = torch.empty((N,), dtype=torch.bool, device=img.device)
+    if N > 0:
+        launch_anchor_refine(img, T.contiguous(), Tx.contiguous(), Ty.contiguous(),
+                             pts.contiguous(), valid.contiguous(), win, iters,
+                             max_correction, max_residual, out, accept)
+        refine_launches += 1
+    return out, accept
+
+
+def anchor_refine_fast(img, T, Tx, Ty, pts, valid, win: int = 13,
+                       iters: int = 8, max_correction: float = 4.0,
+                       max_residual: float = 32.0):
+    """Refine [N, 2] start positions against [N, win*win] birth templates:
+    one patch pull per track, then fixed inverse-compositional GN
+    iterations with bilinear sampling. CUDA tensors take the fused kernel,
+    CPU tensors the plain torch form.
+    Returns (pts_refined [N, 2], accepted [N] bool)."""
+    kw = dict(win=win, iters=iters, max_correction=max_correction, max_residual=max_residual)
+    if img.device.type == "cuda":
+        return anchor_refine_cuda(img, T, Tx, Ty, pts, valid, **kw)
+    if img.device.type != "cpu":
+        raise ValueError(f"no anchor refinement for device {img.device}")
+    return _anchor_refine_plain(img, T, Tx, Ty, pts, valid, **kw)
 
 
 def extract_templates_fast(img: torch.Tensor, pts: torch.Tensor, win: int = 13):
