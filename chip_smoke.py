@@ -52,6 +52,24 @@ result):
      reads, kernel launches, peak memory, a sync audit over the first 30
      frames and a profile split by phase over six VI frames after VIO
      init (table in chiprun_out/profile_vip.txt).
+ 10. the mono stream with loop closing (`frontend.stream.DeviceStream`,
+     mode "mono", `loop_closing=True`) fed one frame at a time over a
+     512x640 `motion="loop"` sequence that returns to its start (400
+     tracks, kf_cap 64, pt_cap 8192): last frame WORKING, at least one
+     loop closed, the closed pair a true revisit (ground-truth centres of
+     the query frame and the loop keyframe's frame closer than 0.6),
+     keyframe ATE after the closure below 5% of the span, kernel launches
+     as the states imply, two runs bitwise equal. Prints each closure,
+     the ms of the keyframe passes by part, host reads per frame and per
+     pass, peak memory, and `fuse_duplicates`' own peak;
+ 11. the VIP stream (`DeviceStream`, mode "vip", `loop_closing=True`)
+     over a `motion="loop"` sequence with IMU and pressure: VIO
+     initializes, >= 80% of frames WORKING, metric ATE below 5% of the
+     trajectory's extent; a closure is printed, not gated. Then
+     `global_ba_navstate` alone on the final map, on the card and on the
+     CPU from the same state: the same keyframe positions within
+     NAVSTATE_BA_TOL of the extent, and an objective that does not rise
+     in either round.
 
 The last three lines of standard output are the steps' JSON record, the
 per-kernel JSON record (launches per path, times, errors, bounds) and
@@ -71,11 +89,22 @@ import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_FRAMES = 60
-REPEATS = 2      # timing repeats of each step after the gated run
+REPEATS = 2      # timing repeats of the VIP step after the gated run
+MONO_REPEATS = 1  # and of the mono step (one since the stream phases joined the script)
 BATCH = 50
 VIP_FRAMES = 120
 VIP_AUDIT_FRAMES = 30
 RELOC_WARMUP = 30     # mono frames before the blackout
+# the revisit sequence of the stream phases: the reference's own revisit
+# test (80 frames, seed 9, `motion="loop"`, there at 240x320 and speed 1.4)
+# at 512x640 and half the speed, so that a frame moves the image by as
+# many pixels as there (at speed 1.4 the 512x640 mono step is LOST from
+# frame 16 on and closes nothing; at 0.7 it closes the revisit)
+STREAM_FRAMES = 80
+STREAM_SEED = 9
+STREAM_SPEED = 0.7
+VIP_STREAM_FRAMES = 100
+NAVSTATE_BA_TOL = 0.005   # card vs CPU keyframe positions, as a share of the extent
 
 
 T0 = time.perf_counter()
@@ -325,13 +354,13 @@ def drive(torch, new_tracker, feeds):
     return step, states, Rs, ts, vios, frame_ms
 
 
-def timed_runs(torch, new_tracker, feeds, first):
-    """REPEATS more runs after `first` (a drive() result); each must give
+def timed_runs(torch, new_tracker, feeds, first, repeats=REPEATS):
+    """`repeats` more runs after `first` (a drive() result); each must give
     the same states and poses bit for bit. Returns the run medians of the
     per-frame ms over frames 3 on."""
     _, states, Rs, ts, _, frame_ms = first
     meds = [statistics.median(frame_ms[2:])]
-    for _ in range(REPEATS):
+    for _ in range(repeats):
         _, states_r, Rs_r, ts_r, _, ms_r = drive(torch, new_tracker, feeds)
         meds.append(statistics.median(ms_r[2:]))
         if states_r != states or not all(
@@ -651,6 +680,286 @@ def vip_phase(torch, np, tklt, dev, smi):
     return record, launches
 
 
+def drive_stream(torch, new_stream, feeds):
+    """A fresh DeviceStream fed the sequence one frame at a time. Returns
+    (stream, states, Rs, ts, vios, per-frame ms to a synchronize)."""
+    ds = new_stream()
+    states, Rs, ts, vios, frame_ms = [], [], [], [], []
+    for x in feeds:
+        t1 = time.perf_counter()
+        out = ds.process(x)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t1) * 1e3)
+        states.append(int(out.state))
+        vios.append(bool(getattr(out, "vio_ok", False)))
+        Rs.append(out.Rcw)
+        ts.append(out.tcw)
+    return ds, states, Rs, ts, vios, frame_ms
+
+
+def stream_signature(ds, states, Rs, ts):
+    """What two runs of a stream must share bit for bit."""
+    m = ds.st.map
+    passes = [(p["frame"], p["kf"], sorted(p["status"].items())) for p in ds.kf_passes]
+    return (states, ds.loop_events, passes), Rs + ts + [m.kf_ns.p, m.kf_ns.R, m.kf_ns.v,
+                                                        m.pt_xyz, m.kf_feat_pt, m.pt_valid]
+
+
+def same_streams(torch, a, b):
+    (ha, ta), (hb, tb) = a, b
+    return ha == hb and all(torch.equal(x, y) for x, y in zip(ta, tb))
+
+
+def log_passes(ds, n_frames):
+    """The keyframe passes of a stream: closures one by one, the
+    detection-only passes summed up; host reads per frame and per pass."""
+    lc = ds.loop_closer
+    det = [p for p in ds.kf_passes if not p["status"].get("loop")]
+    closing = [p for p in ds.kf_passes if p["status"].get("loop")]
+    for p in closing:
+        st = p["status"]
+        log(f"  loop closed at frame {p['frame']}: keyframe pair ({p['kf']}, {st['loop_kf']}), "
+            f"Sim3 inliers {st['sim3_inliers']}, total matches {st['total_matches']}, scale "
+            f"{st['scale']:.5f}; pass {p['ms']:.1f} ms = " + ", ".join(
+                f"{k} {v:.1f}" for k, v in p["parts_ms"].items())
+            + f"; {p['host_reads']} host reads")
+    if det:
+        ms = [p["ms"] for p in det]
+        reads = [p["host_reads"] for p in det]
+        verified = [p for p in det if "sim3" in p["parts_ms"]]
+        log(f"  {len(det)} detection-only keyframe passes: median {statistics.median(ms):.1f} ms "
+            f"(min {min(ms):.1f}, max {max(ms):.1f}), host reads per pass median "
+            f"{statistics.median(reads)} (min {min(reads)}, max {max(reads)}); {len(verified)} of "
+            f"them ran a Sim3 verification that was refused"
+            + (f" ({', '.join(f'{p['parts_ms']['sim3']:.1f}' for p in verified)} ms)"
+               if verified else ""))
+    total = ds.step.host_syncs + ds.host_syncs + lc.host_reads
+    log(f"  host reads: step {ds.step.host_syncs / n_frames:.2f}/frame, the stream's own "
+        f"{ds.host_syncs / n_frames:.2f}/frame, the closer {lc.host_reads} over "
+        f"{len(ds.kf_passes)} passes; {total / n_frames:.2f}/frame in all")
+    return dict(detection_passes=len(det), closing_passes=[dict(
+        frame=p["frame"], kf=p["kf"], status=p["status"], ms=p["ms"], parts_ms=p["parts_ms"],
+        host_reads=p["host_reads"]) for p in closing],
+        detection_ms_median=statistics.median([p["ms"] for p in det]) if det else None,
+        detection_reads_median=statistics.median([p["host_reads"] for p in det]) if det else None,
+        host_reads_per_frame=total / n_frames)
+
+
+def stream_mono_phase(torch, np, tklt, dev, smi):
+    """Phase 10. Returns (record, launches on the mono stream path)."""
+    from uvipslam_torch.frontend.stream import DeviceStream
+    from uvipslam_torch.frontend.tracker import WORKING, TrackerConfig
+    from uvipslam_torch.io.synthetic import ate_rmse, make_sequence
+    from uvipslam_torch.mapstate.hygiene import fuse_duplicates
+    from uvipslam_torch.models.camera import CameraModel
+
+    n = STREAM_FRAMES
+    t0 = time.time()
+    seq = make_sequence(n_frames=n, H=512, W=640, n_points=6000, seed=STREAM_SEED,
+                        motion="loop", speed=STREAM_SPEED)
+    log(f"loop sequence {n}x512x640 (seed {STREAM_SEED}, speed {STREAM_SPEED}) generated in "
+        f"{time.time() - t0:.1f} s")
+    cam = CameraModel.create(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2],
+                             width=640, height=512)
+    cfg = TrackerConfig(n_tracks=400, min_init_tracks=100, local_window=8, loop_closing=True)
+    imgs = torch.from_numpy(seq.images.astype(np.float32)).to(dev)
+
+    def new_stream():
+        return DeviceStream(cam, cfg, kf_cap=64, pt_cap=8192, mode="mono", device=dev)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(tklt)
+    ds, states, Rs, ts, _, frame_ms = drive_stream(torch, new_stream, imgs)
+    launches = read_launches(tklt)
+    peak = torch.cuda.max_memory_allocated()
+    ds2, states2, Rs2, ts2, _, frame_ms2 = drive_stream(torch, new_stream, imgs)
+    equal = same_streams(torch, stream_signature(ds, states, Rs, ts),
+                         stream_signature(ds2, states2, Rs2, ts2))
+
+    lc = ds.loop_closer
+    m = ds.st.map
+    expect = expected_launches(states, 8)
+    meds = [statistics.median(frame_ms[2:]), statistics.median(frame_ms2[2:])]
+    log(f"phase mono stream with loop closing 512x640 / 400 tracks / {n} frames: last state "
+        f"{states[-1]}, {states.count(WORKING)}/{n} WORKING, {int(m.n_kf)} keyframes, "
+        f"{lc.n_closed} loop(s) closed; median {statistics.median(meds):.2f} ms/frame (runs "
+        f"{' / '.join(f'{x:.2f}' for x in meds)}; host clock to synchronize, keyframe passes "
+        f"included), two runs bitwise equal: {equal}; kernel launches {launches} (expected "
+        f"{expect}); peak allocated {peak / 2**20:.1f} MiB")
+    log(f"  states {''.join(str(s) for s in states)}")
+    passes = log_passes(ds, n)
+
+    # fuse_duplicates alone on the final map: its own time and peak memory
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fuse_ms = time_ms(torch, lambda: fuse_duplicates(m), reps=5)
+    fuse_peak = torch.cuda.max_memory_allocated() - base
+    log(f"  fuse_duplicates alone on the final map (pt_cap 8192, blocks of 1024 rows): "
+        f"{fuse_ms:.2f} ms, peak {fuse_peak / 2**20:.1f} MiB above the resident "
+        f"{base / 2**20:.1f} MiB (a [P, P, 3] float32 difference alone would be "
+        f"{8192 * 8192 * 12 / 2**20:.0f} MiB)")
+
+    if states[-1] != WORKING:
+        raise AssertionError(f"last frame in state {states[-1]}, not WORKING")
+    if lc.n_closed < 1:
+        raise AssertionError("no loop closed on the revisit")
+    qf, loop_kf = ds.loop_events[0]
+    lf = int(m.kf_frame_id[loop_kf])
+    gap = float(np.linalg.norm(seq.positions_w[qf] - seq.positions_w[lf]))
+    nk = int(m.n_kf)
+    kf_frames = m.kf_frame_id[:nk].cpu().numpy()
+    kf_ok = m.kf_valid[:nk].cpu().numpy()
+    kfgt = seq.positions_w[kf_frames][kf_ok]
+    kfp = m.kf_ns.p[:nk].double().cpu().numpy()[kf_ok]
+    kfrmse, _ = ate_rmse(kfp, kfgt)
+    span = float(np.abs(kfgt[:, 0]).max())
+    log(f"  first closure: query frame {qf} against keyframe {loop_kf} (frame {lf}), "
+        f"ground-truth centres {gap:.4f} apart (bound 0.6); keyframe ATE after the closure "
+        f"{kfrmse:.5f} over {len(kfp)} keyframes (threshold {0.05 * span:.5f}, 5% of span "
+        f"{span:.4f})")
+    if not gap < 0.6:
+        raise AssertionError(f"the closed pair is {gap} apart: not a revisit")
+    if not kfrmse < 0.05 * span:
+        raise AssertionError(f"keyframe ATE {kfrmse} >= 5% of span {span}")
+    if min(launches.values()) <= 0 or launches != expect:
+        raise AssertionError(f"kernel launches {launches}, expected {expect}")
+    if not equal:
+        raise AssertionError("two runs of the mono stream differ")
+    mark("stream_mono")
+    record = {"n_frames": n, "seed": STREAM_SEED, "speed": STREAM_SPEED,
+              "frames_working": states.count(WORKING), "loops_closed": lc.n_closed,
+              "revisit_gap": gap, "kf_ate": kfrmse, "kf_ate_threshold": 0.05 * span,
+              "median_ms_per_frame": statistics.median(meds), "run_medians_ms": meds,
+              "peak_allocated_bytes": peak, "fuse_duplicates_ms": fuse_ms,
+              "fuse_duplicates_peak_bytes": fuse_peak, "passes": passes, "card": smi}
+    return record, launches
+
+
+def stream_vip_phase(torch, np, tklt, dev, smi):
+    """Phase 11. Returns (record, launches on the VIP stream path)."""
+    from uvipslam_torch.core.tree import tree_map
+    from uvipslam_torch.frontend.device_vip import make_bundles
+    from uvipslam_torch.frontend.stream import DeviceStream
+    from uvipslam_torch.frontend.tracker import IMU_RELOC, LOST, WORKING
+    from uvipslam_torch.frontend.vip_tracker import VipConfig
+    from uvipslam_torch.io.synthetic import ate_rmse, make_sequence
+    from uvipslam_torch.models.camera import CameraModel
+    from uvipslam_torch.solver.global_ba import global_ba_navstate
+
+    n = VIP_STREAM_FRAMES
+    t0 = time.time()
+    seq = make_sequence(n_frames=n, H=512, W=640, n_points=6000, seed=STREAM_SEED,
+                        motion="loop", speed=STREAM_SPEED, gyr_noise=0.005, acc_noise=0.05,
+                        gyr_bias=(0.004, -0.006, 0.003), depth_noise=0.02, z_amp=0.5)
+    log(f"loop sequence {n}x512x640 with IMU and pressure generated in {time.time() - t0:.1f} s")
+    cam = CameraModel.create(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2],
+                             width=640, height=512)
+    cfg = VipConfig(n_tracks=400, min_init_tracks=100, local_window=8, gyr_noise_sd=0.01,
+                    acc_noise_sd=0.1, depth_noise_sd=0.05, vio_init_min_kfs=6,
+                    vio_init_min_time=1.0, loop_closing=True)
+    bundles = make_bundles(seq, device=dev)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(tklt)
+    ds, states, Rs, ts, vios, frame_ms = drive_stream(
+        torch, lambda: DeviceStream(cam, cfg, kf_cap=64, pt_cap=8192, mode="vip", device=dev),
+        bundles)
+    launches = read_launches(tklt)
+    peak = torch.cuda.max_memory_allocated()
+
+    states_a = np.asarray(states)
+    vios_a = np.asarray(vios)
+    working = states_a == WORKING
+    C = centres(torch, np, Rs, ts)
+    gt = seq.positions_w
+    extent = float(np.linalg.norm(gt - gt[0], axis=1).max())
+    init_f = int(np.argmax(vios_a)) if vios_a.any() else -1
+    sel = np.asarray([i for i in range(n) if init_f >= 0 and i >= init_f + 3 and working[i]],
+                     dtype=np.int64)
+    ate = float("inf")
+    if len(sel) > 5:
+        ate, _ = ate_rmse(C[sel], gt[sel], align_scale=False)
+    clean = not ((states_a == LOST) | (states_a == IMU_RELOC)).any()
+    expect = expected_launches_vip(states, orb_levels(*seq.images.shape[1:])) if clean else None
+    lc = ds.loop_closer
+    log(f"phase VIP stream with loop closing 512x640 / 400 tracks / {n} frames: VIO init at "
+        f"frame {init_f}, {int(working.sum())}/{n} WORKING, {int((states_a == LOST).sum())} LOST, "
+        f"{int((states_a == IMU_RELOC).sum())} IMU_RELOC, {lc.n_closed} loop(s) closed (printed, "
+        f"not gated), metric ATE {ate:.5f} m over {len(sel)} frames (threshold "
+        f"{0.05 * extent:.5f} m, 5% of the trajectory's extent {extent:.4f} m); median "
+        f"{statistics.median(frame_ms[2:]):.2f} ms/frame (one run), kernel launches {launches}"
+        f"{f' (expected {expect})' if expect is not None else ''}, peak allocated "
+        f"{peak / 2**20:.1f} MiB")
+    log(f"  states {''.join(str(s) for s in states)}")
+    passes = log_passes(ds, n)
+    ate_split = None
+    if ds.loop_events:
+        qf = ds.loop_events[0][0]
+        pre, post = sel[sel < qf], sel[sel >= qf]
+        ate_split = [float(ate_rmse(C[x], gt[x], align_scale=False)[0]) if len(x) > 2
+                     else float("nan") for x in (pre, post)]
+        log(f"  metric ATE before the first closure (frame {qf}) {ate_split[0]:.5f} m over "
+            f"{len(pre)} frames, from it on {ate_split[1]:.5f} m over {len(post)} frames")
+    if init_f < 0:
+        raise AssertionError("VIO never initialized on the loop sequence")
+    if working.sum() < 0.8 * n:
+        raise AssertionError(f"only {int(working.sum())}/{n} frames WORKING")
+    if not ate < 0.05 * extent:
+        raise AssertionError(f"metric ATE {ate} >= 5% of the extent {extent}")
+    if min(launches.values()) <= 0 or (expect is not None and launches != expect):
+        raise AssertionError(f"kernel launches {launches}, expected {expect}")
+    mark("stream_vip")
+
+    # global_ba_navstate alone on the final map: card and CPU, same state
+    m = ds.st.map
+    step = ds.step
+
+    def ba(mm, d):
+        costs = []
+        t1 = time.perf_counter()
+        out = global_ba_navstate(
+            mm, step.gravity.to(d), step.Rcb.to(d), step.tcb.to(d), cam.fx, cam.fy, cam.cx,
+            cam.cy, cfg.gyr_noise_sd, cfg.acc_noise_sd, cfg.gyr_bias_rw2, cfg.acc_bias_rw2,
+            step.depth_info, ds.sigmas.to(d), cost_out=costs)
+        costs = [(float(a), float(b)) for a, b in costs]
+        return out, costs, (time.perf_counter() - t1) * 1e3
+
+    m_card, cost_card, ms_card = ba(m, dev)
+    m_cpu, cost_cpu, ms_cpu = ba(tree_map(lambda a: a.cpu(), m), torch.device("cpu"))
+    valid = m.kf_valid.cpu().numpy()
+    p0 = m.kf_ns.p.double().cpu().numpy()[valid]
+    p_card = m_card.kf_ns.p.double().cpu().numpy()[valid]
+    p_cpu = m_cpu.kf_ns.p.double().numpy()[valid]
+    diff = float(np.abs(p_card - p_cpu).max())
+    moved = float(np.abs(p_card - p0).max())
+    kept_same = float((m_card.kf_feat_pt.cpu() == m_cpu.kf_feat_pt).float().mean())
+    log(f"phase global_ba_navstate alone on the final VIP map ({int(valid.sum())} keyframes, "
+        f"vio_ok {bool(ds.st.vio_ok)}): card {ms_card:.0f} ms, CPU {ms_cpu:.0f} ms; keyframe "
+        f"positions card vs CPU max |diff| {diff:.3e} m (bound {NAVSTATE_BA_TOL * extent:.3e}, "
+        f"{NAVSTATE_BA_TOL:.1%} of the extent), moved by the BA up to {moved:.3e} m; observation "
+        f"tables equal in {100 * kept_same:.2f}% of entries; objective per round start -> end: "
+        f"card {cost_card}, CPU {cost_cpu}")
+    if not (np.isfinite(p_card).all() and np.isfinite(p_cpu).all()):
+        raise AssertionError("non-finite keyframe positions after global_ba_navstate")
+    if not diff < NAVSTATE_BA_TOL * extent:
+        raise AssertionError(f"global_ba_navstate card vs CPU differ by {diff} m")
+    for a, b in cost_card + cost_cpu:
+        if not (np.isfinite(a) and np.isfinite(b) and b <= a):
+            raise AssertionError(f"global_ba_navstate objective rose: {a} -> {b}")
+    mark("navstate_ba")
+    record = {"n_frames": n, "vio_init_frame": init_f, "frames_working": int(working.sum()),
+              "ate_metric_m": ate, "ate_threshold_m": 0.05 * extent,
+              "ate_before_and_from_first_closure_m": ate_split, "loops_closed": lc.n_closed, "median_ms_per_frame": statistics.median(frame_ms[2:]),
+              "peak_allocated_bytes": peak, "passes": passes,
+              "navstate_ba": {"card_ms": ms_card, "cpu_ms": ms_cpu, "max_abs_diff_m": diff,
+                              "bound_m": NAVSTATE_BA_TOL * extent, "cost_card": cost_card,
+                              "cost_cpu": cost_cpu}, "card": smi}
+    return record, launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "uvipslam_torch")):
         print("chip_smoke.py must run from a checkout holding uvipslam_torch/",
@@ -683,6 +992,16 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas: " + line.strip())
     mark("build")
+
+    if "--only" in sys.argv:
+        # development aid: the stream phases alone; prints no result line
+        only = sys.argv[sys.argv.index("--only") + 1].split(",")
+        if "stream" in only:
+            stream_mono_phase(torch, np, tklt, dev, smi)
+        if "vip_stream" in only:
+            stream_vip_phase(torch, np, tklt, dev, smi)
+        log("partial run (--only): no result line")
+        return 0
 
     # -- phase 3: kernels vs plain ---------------------------------------
     log("phase kernel-vs-plain: extract_patches (exact equality)")
@@ -748,7 +1067,7 @@ def main() -> int:
     step, states, Rs, ts, _, frame_ms = first
     syncs = step.host_syncs
     peak = torch.cuda.max_memory_allocated()
-    run_meds = timed_runs(torch, new_tracker, imgs, first)
+    run_meds = timed_runs(torch, new_tracker, imgs, first, MONO_REPEATS)
 
     states = np.asarray(states)
     working = states == WORKING
@@ -812,6 +1131,10 @@ def main() -> int:
     # -- phase 9: the VIP step ------------------------------------------------
     vip_record, vip_launches = vip_phase(torch, np, tklt, dev, smi)
 
+    # -- phases 10 and 11: the streams with loop closing -----------------------
+    stream_record, stream_launches = stream_mono_phase(torch, np, tklt, dev, smi)
+    vstream_record, vstream_launches = stream_vip_phase(torch, np, tklt, dev, smi)
+
     log("phase end times (s since start): " + ", ".join(f"{k} {v}" for k, v in MARKS.items()))
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "uvipslam_tpu"))
     if foreign:
@@ -819,7 +1142,8 @@ def main() -> int:
 
     big = [r for r in patch_rows if r["psize"] == 35 and r["shape"] == [512, 640]][0]
     full = [r for r in refine_rows if r["shape"] == [512, 640]][0]
-    by_path = {"vip": vip_launches, "mono": launches, "mono_reloc": reloc_launches}
+    by_path = {"vip": vip_launches, "mono": launches, "mono_reloc": reloc_launches,
+               "stream_mono": stream_launches, "stream_vip": vstream_launches}
     # the VIP step is the system's main path; every path's own counts are
     # read from zero just before it and just after it. No single PyTorch
     # call computes either function (library_ms null)
@@ -864,7 +1188,8 @@ def main() -> int:
                             "profile": profile, "card": smi},
                    "reloc": {"frames_to_recover": n_rec, "centre_error": rec_err,
                              "launches": reloc_launches},
-                   "vip": vip_record, "phase_end_s": MARKS}
+                   "vip": vip_record, "stream_mono": stream_record,
+                   "stream_vip": vstream_record, "phase_end_s": MARKS}
     print(json.dumps(step_record), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

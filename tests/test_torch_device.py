@@ -6,8 +6,10 @@ import pytest
 import torch
 
 from uvipslam_torch.frontend import device_tracker, device_vip
+from uvipslam_torch.frontend.stream import DeviceStream
 from uvipslam_torch.frontend.tracker import TrackerConfig
 from uvipslam_torch.frontend.vip_tracker import VipConfig
+from uvipslam_torch.loop.closer import LoopCloser
 from uvipslam_torch.models.camera import CameraModel
 
 CAM = CameraModel.create(100.0, 100.0, 80.0, 60.0, width=160, height=120)
@@ -18,7 +20,8 @@ def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-@pytest.mark.parametrize("entry", ["build_tracker", "build_vip_tracker", "run_sequence"])
+@pytest.mark.parametrize("entry", ["build_tracker", "build_vip_tracker", "run_sequence",
+                                   "stream_mono", "stream_vip", "loop_closer"])
 def test_default_device_is_the_card(no_card, entry):
     cfg = TrackerConfig(n_tracks=16, min_init_tracks=8)
     calls = {
@@ -27,6 +30,10 @@ def test_default_device_is_the_card(no_card, entry):
             CAM, VipConfig(n_tracks=16, min_init_tracks=8), 4, 64),
         "run_sequence": lambda: device_tracker.run_sequence(
             CAM, cfg, torch.zeros((1, 120, 160)), kf_cap=4, pt_cap=64),
+        "stream_mono": lambda: DeviceStream(CAM, cfg, kf_cap=4, pt_cap=64, mode="mono"),
+        "stream_vip": lambda: DeviceStream(
+            CAM, VipConfig(n_tracks=16, min_init_tracks=8, loop_closing=True), 4, 64),
+        "loop_closer": lambda: LoopCloser(100.0, 100.0, 80.0, 60.0),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -36,3 +43,7 @@ def test_cpu_on_request(no_card):
     st, step = device_tracker.build_tracker(
         CAM, TrackerConfig(n_tracks=16, min_init_tracks=8), 4, 64, device="cpu")
     assert step.device.type == "cpu" and st.tracks.xy.device.type == "cpu"
+    ds = DeviceStream(CAM, TrackerConfig(n_tracks=16, min_init_tracks=8, loop_closing=True),
+                      kf_cap=4, pt_cap=64, mode="mono", device="cpu")
+    assert ds.device.type == "cpu" and ds.st.map.pt_xyz.device.type == "cpu"
+    assert ds.loop_closer.device.type == "cpu" and ds.loop_closer.gen.device.type == "cpu"

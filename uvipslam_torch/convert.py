@@ -5,7 +5,9 @@ or `NavState` whose leaves are numpy arrays (on the reference side:
 `jax.tree_util.tree_map(np.asarray, state)`) into the port's dataclass of
 tensors on a given device. Fields are read by name, so this module needs
 nothing from the reference package. The reference's PRNG key has no
-torch counterpart: a converted tracker state gets a fresh generator.
+torch counterpart: a converted tracker state gets a fresh generator, and
+so does a converted `LoopCloser`, whose host state (consistency groups,
+last loop frame, cluster tables) is carried over as it is.
 """
 
 from __future__ import annotations
@@ -68,3 +70,29 @@ def tracks(src, device=None) -> Tracks:
 
 def nav_state(src, device=None) -> NavState:
     return convert(NavState, src, device)
+
+
+def loop_closer(src, device=None, seed: int = 11):
+    """The port's `LoopCloser` with the settings and host state of a
+    reference one, so that both start a `process_keyframe` call from the
+    same state. `post_ba` stays the port's default (visual global BA)."""
+    from uvipslam_torch.loop.closer import LoopCloser
+
+    lc = LoopCloser(src.fx, src.fy, src.cx, src.cy, consistency_th=src.consistency_th,
+                    covis_th=src.covis_th, min_gap=src.min_gap,
+                    min_sim3_inliers=src.min_sim3_inliers,
+                    min_total_matches=src.min_total_matches, seed=seed,
+                    device="cpu" if device is None else device)
+    for f in ("Rcb", "tcb", "Rbc", "tbc"):
+        setattr(lc, f, to_tensor(getattr(src, f), lc.device))
+    lc.consistent_groups = [(frozenset(int(k) for k in g), int(n))
+                            for g, n in src.consistent_groups]
+    lc.last_loop_frame = int(src.last_loop_frame)
+    lc.n_closed = int(src.n_closed)
+    lc.cl_kf = [int(k) for k in src.cl_kf]
+    lc.cl_hash = [np.array(h, copy=True) for h in src.cl_hash]
+    lc.cl_cent = [np.array(c, copy=True) for c in src.cl_cent]
+    lc.kf_cluster_ids = {int(k): [int(i) for i in v] for k, v in src.kf_cluster_ids.items()}
+    lc.cluster_lc_found = [(int(a), int(b)) for a, b in src.cluster_lc_found]
+    lc.cluster_min_pts = int(src.cluster_min_pts)
+    return lc

@@ -307,7 +307,9 @@ def sim3_log(s, R, t):
     phi2 = torch.sum(phi * phi, dim=-1)
     theta = _safe_sqrt(phi2, phi2 < 1e-14) * (phi2 >= 1e-14)
     W = _sim3_W(sigma, s, theta, hat(phi))
-    rho = torch.linalg.solve(W, t[..., None])[..., 0]
+    # solve_ex: a singular W (a non-finite input) gives a non-finite rho
+    # and no exception, as the reference's solve does
+    rho = torch.linalg.solve_ex(W, t[..., None]).result[..., 0]
     return torch.cat([rho, phi, sigma[..., None]], dim=-1)
 
 

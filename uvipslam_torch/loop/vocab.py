@@ -3,8 +3,7 @@
 Counterpart of `uvipslam_tpu/loop/vocab.py`: `bow_vector` quantizes
 descriptors by one Hamming matmul against the codebook and builds the
 L1-normalized TF-IDF vector; `l1_score` scores it against the stored
-keyframe vectors. Loop-candidate retrieval (`detect_candidates`) belongs
-to the loop-closing slice.
+keyframe vectors; `detect_candidates` ranks them for loop retrieval.
 """
 
 from __future__ import annotations
@@ -30,3 +29,23 @@ def l1_score(v1: torch.Tensor, v2: torch.Tensor) -> torch.Tensor:
     """DBoW2 L1 similarity 1 - |v1 - v2|_1 / 2 of L1-normalized vectors,
     batched over the leading dims of v2."""
     return 1.0 - 0.5 * torch.sum(torch.abs(v1 - v2), dim=-1)
+
+
+def bow_words(desc: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """Word id per descriptor (the direct index of a BoW-constrained
+    match)."""
+    return torch.argmin(hamming_matrix(desc, codebook), dim=1).to(torch.int32)
+
+
+def detect_candidates(query_bow, kf_bows, kf_valid, exclude, min_score, top_k: int = 8):
+    """Loop-candidate retrieval: score every stored keyframe, gate by the
+    covisible min-score and return the top candidates; equal scores rank
+    the lower slot first. Returns (idx [top_k] i32, score [top_k],
+    ok [top_k])."""
+    s = l1_score(query_bow, kf_bows)
+    s = torch.where(kf_valid & ~exclude, s, torch.full_like(s, -1.0))
+    srt = torch.sort(s, descending=True, stable=True)
+    val, idx = srt.values[:top_k], srt.indices[:top_k]
+    ok = val >= torch.clamp(torch.as_tensor(min_score, dtype=val.dtype, device=val.device),
+                            min=0.0)
+    return idx.to(torch.int32), val, ok

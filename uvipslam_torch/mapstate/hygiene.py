@@ -1,10 +1,10 @@
-"""Map maintenance: landmark culling, recent-duplicate fusion and slot
-compaction.
+"""Map maintenance: landmark and keyframe culling, duplicate fusion and
+slot compaction.
 
-Counterpart of `cull_points`, `fuse_duplicates_recent` and
-`compact_points` in `uvipslam_tpu/mapstate/hygiene.py`: masked batched
-passes over the landmark table. `cull_keyframes` and the O(P^2)
-`fuse_duplicates` are on no path of the mono slice and wait.
+Counterpart of `uvipslam_tpu/mapstate/hygiene.py`: masked batched passes
+over the landmark and keyframe tables. The whole-table `fuse_duplicates`
+(run after a loop closure) walks its [P, P] comparison in row blocks, so
+its memory does not grow with P^2.
 """
 
 from __future__ import annotations
@@ -23,10 +23,7 @@ def cull_points(m: MapState, frame_id: torch.Tensor, min_found_ratio: float = 0.
     observations after the probation window) and detach them from the
     keyframe feature tables."""
     P = m.pt_cap
-    has = (m.kf_feat_pt >= 0) & m.kf_feat_valid
-    idx = torch.where(has, m.kf_feat_pt, torch.full_like(m.kf_feat_pt, P - 1)).reshape(-1)
-    n_obs = torch.zeros((P,), dtype=torch.int32, device=idx.device).index_add_(
-        0, idx.long(), has.reshape(-1).to(torch.int32))
+    n_obs = _obs_counts(m, (m.kf_feat_pt >= 0) & m.kf_feat_valid)
     ratio = m.pt_found / torch.clamp(m.pt_visible, min=1.0)
     age = frame_id - m.pt_first_frame
     weak = (ratio < min_found_ratio) | ((age > probation_frames) & (n_obs < min_obs_after))
@@ -36,6 +33,91 @@ def cull_points(m: MapState, frame_id: torch.Tensor, min_found_ratio: float = 0.
     return dataclasses.replace(
         m, pt_valid=keep,
         kf_feat_pt=torch.where(culled, torch.full_like(m.kf_feat_pt, -1), m.kf_feat_pt))
+
+
+def _obs_counts(m: MapState, obs_ok: torch.Tensor) -> torch.Tensor:
+    """[P] i32 observation count per landmark over the masked
+    observations (an integer scatter-add: exact in any order)."""
+    P = m.pt_cap
+    idx = torch.where(obs_ok, m.kf_feat_pt.clamp(0, P - 1),
+                      torch.full_like(m.kf_feat_pt, P - 1)).reshape(-1)
+    return torch.zeros((P,), dtype=torch.int32, device=idx.device).index_add_(
+        0, idx.long(), obs_ok.reshape(-1).to(torch.int32))
+
+
+def cull_keyframes(m: MapState, redundancy: float = 0.9, min_other_obs: int = 3,
+                   keep_last: int = 3) -> MapState:
+    """Invalidate the single most redundant keyframe, if any: one whose
+    landmarks are more than `redundancy` observed by at least
+    `min_other_obs` other keyframes. The first and the `keep_last` newest
+    keyframes are kept; the kf_prev chain is spliced across the culled
+    slot and its observations are detached."""
+    K, F = m.kf_feat_pt.shape
+    dev = m.kf_feat_pt.device
+    obs_ok = (m.kf_feat_pt >= 0) & m.kf_feat_valid & m.kf_valid[:, None]
+    pid = m.kf_feat_pt.clamp(0, m.pt_cap - 1).long()
+    obs_ok = obs_ok & m.pt_valid[pid]
+    n_obs = _obs_counts(m, obs_ok)
+    redundant = obs_ok & (n_obs[pid] - 1 >= min_other_obs)
+    n_own = torch.sum(obs_ok, dim=1)
+    frac = torch.sum(redundant, dim=1) / torch.clamp(n_own, min=1)
+
+    first = torch.argmax(m.kf_valid.to(torch.int32))
+    slot = torch.arange(K, device=dev)
+    protect = (slot == first) | (slot >= m.n_kf - keep_last) | ~m.kf_valid
+    cullable = ~protect & (frac > redundancy) & (n_own > 0)
+    score = torch.where(cullable, frac, torch.full_like(frac, -1.0))
+    # the lowest slot among equal scores, as jnp.argmax picks
+    k = torch.sort(score, descending=True, stable=True).indices[0]
+    do = score[k] > 0
+
+    hit = (slot == k) & do
+    prev_k = m.kf_prev[k]
+    return dataclasses.replace(
+        m, kf_valid=m.kf_valid & ~hit,
+        kf_prev=torch.where((m.kf_prev == k) & do, prev_k, m.kf_prev),
+        kf_feat_valid=m.kf_feat_valid & ~hit[:, None])
+
+
+def fuse_duplicates(m: MapState, radius: float = 0.05, max_desc_dist: float = 50.0,
+                    block: int = 1024) -> MapState:
+    """Merge landmark pairs that nearly coincide in space with matching
+    descriptors: the younger (higher slot) point is redirected to its
+    oldest duplicate, its observations rewritten and the point
+    invalidated. The P x P comparison runs in blocks of `block` rows, the
+    squared distance accumulated per coordinate in float32, so the peak
+    memory is a few [block, P] arrays and not the [P, P, 3] difference."""
+    P = m.pt_cap
+    dev = m.pt_xyz.device
+    ids = torch.arange(P, device=dev)
+    x = m.pt_xyz
+    best = []
+    for lo in range(0, P, block):
+        hi = min(lo + block, P)
+        d2 = torch.zeros((hi - lo, P), dtype=x.dtype, device=dev)
+        for c in range(3):
+            d = x[lo:hi, None, c] - x[None, :, c]
+            d2 += d * d
+        dup = ((d2 < radius * radius)
+               & (hamming_matrix(m.pt_desc[lo:hi], m.pt_desc) < max_desc_dist)
+               & m.pt_valid[lo:hi, None] & m.pt_valid[None, :]
+               & (ids[lo:hi, None] > ids[None, :]))     # younger row, older column
+        target = torch.where(dup, ids[None, :], torch.full_like(ids, P)[None, :])
+        best.append(torch.min(target, dim=1).values)
+    best_target = torch.cat(best)                       # [P], P = none
+    has_dup = best_target < P
+
+    # resolve chains (a -> b, b -> c) with a few passes
+    bt = torch.where(has_dup, best_target, ids)
+    for _ in range(3):
+        tc = bt.clamp(0, P - 1)
+        bt = torch.where(bt < P, torch.minimum(bt, torch.where(has_dup[tc], best_target[tc], bt)),
+                         bt)
+
+    old_pt = m.kf_feat_pt
+    mapped = bt[old_pt.clamp(0, P - 1).long()]
+    new_pt = torch.where(old_pt >= 0, mapped.to(torch.int32), old_pt)
+    return dataclasses.replace(m, kf_feat_pt=new_pt, pt_valid=m.pt_valid & ~has_dup)
 
 
 def compact_points(m: MapState):

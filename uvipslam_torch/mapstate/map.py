@@ -118,6 +118,27 @@ class MapState:
             n_kf=full((), 0), n_pt=full((), 0), n_loop=full((), 0),
         )
 
+    def add_loop_edge(self, kf_i, kf_j, s, R, t) -> "MapState":
+        """Record an accepted loop closure's measured relative Sim3 (camera
+        frame, j <- i) for every later essential-graph pass. A full table
+        overwrites its last slot."""
+        dev = self.loop_i.device
+        L = self.loop_i.shape[0]
+        k = torch.clamp(self.n_loop, max=L - 1)
+
+        def i32(v):
+            return torch.as_tensor(v, device=dev).to(torch.int32)
+
+        return dataclasses.replace(
+            self,
+            loop_i=put_row(self.loop_i, k, i32(kf_i)),
+            loop_j=put_row(self.loop_j, k, i32(kf_j)),
+            loop_s=put_row(self.loop_s, k, torch.as_tensor(s, device=dev)),
+            loop_R=put_row(self.loop_R, k, R),
+            loop_t=put_row(self.loop_t, k, t),
+            n_loop=torch.clamp(self.n_loop + 1, max=L).to(torch.int32),
+        )
+
     # -------------------------------------------------------------------
     # keyframe insertion
     # -------------------------------------------------------------------
@@ -216,3 +237,56 @@ class MapState:
             n_pt=m.n_pt + n_new,
         )
         return new, ids
+
+    # -------------------------------------------------------------------
+    # covisibility / local map queries
+    # -------------------------------------------------------------------
+
+    def covisibility_with(self, pt_mask: torch.Tensor) -> torch.Tensor:
+        """[K] number of landmarks from `pt_mask` [P] observed by each
+        keyframe."""
+        has = self.kf_feat_pt >= 0
+        obs_pt = torch.where(has, self.kf_feat_pt, torch.zeros_like(self.kf_feat_pt)).long()
+        seen = pt_mask[obs_pt] & has & self.kf_feat_valid
+        return torch.sum(seen, dim=1)
+
+    def covisibility_matrix(self) -> torch.Tensor:
+        """[K, K] shared-landmark counts (f32) of the valid keyframes, zero
+        diagonal: a [K, P] 0/1 incidence and one float32 matmul, exact for
+        any count a table can hold. The incidence is a scatter-max, so
+        duplicate observations and the order of writes do not matter."""
+        K, P = self.kf_cap, self.pt_cap
+        dev = self.kf_feat_pt.device
+        obs_pt = self.kf_feat_pt.clamp(0, P - 1).long()
+        has = (self.kf_feat_pt >= 0) & self.kf_feat_valid
+        flat = (torch.arange(K, device=dev)[:, None] * P + obs_pt).reshape(-1)
+        inc = torch.zeros((K * P,), dtype=torch.float32, device=dev).scatter_reduce(
+            0, flat, has.reshape(-1).to(torch.float32), reduce="amax").reshape(K, P)
+        W = inc @ inc.T
+        v = self.kf_valid.to(W.dtype)
+        W = W * v[:, None] * v[None, :]
+        return W - torch.diag(torch.diagonal(W))
+
+    def points_seen_by(self, kf_mask: torch.Tensor) -> torch.Tensor:
+        """[P] bool: valid landmarks observed by any keyframe in `kf_mask`
+        [K]. Unobserved features scatter into the dump row P-1, which is
+        then set to whether it is genuinely observed."""
+        P = self.pt_cap
+        has = (self.kf_feat_pt >= 0) & self.kf_feat_valid & kf_mask[:, None]
+        pts = torch.where(has, self.kf_feat_pt, torch.full_like(self.kf_feat_pt, P - 1))
+        out = torch.zeros((P,), dtype=torch.int32, device=pts.device).scatter_reduce(
+            0, pts.reshape(-1).long(), has.reshape(-1).to(torch.int32), reduce="amax") > 0
+        genuinely = torch.any((self.kf_feat_pt == P - 1) & has)
+        out = torch.where(torch.arange(P, device=pts.device) == P - 1, genuinely, out)
+        return out & self.pt_valid
+
+    def observations_of(self, pt_ids_mask: torch.Tensor):
+        """Dense observation arrays (kf, pt clamped, uv, level, mask), all
+        [K*F], of every observation of the masked landmarks."""
+        K, F = self.kf_feat_pt.shape
+        dev = self.kf_feat_pt.device
+        obs_kf = torch.arange(K, dtype=torch.int32, device=dev)[:, None].expand(K, F).reshape(-1)
+        obs_pt = self.kf_feat_pt.reshape(-1)
+        pid = obs_pt.clamp(0, self.pt_cap - 1)
+        ok = (obs_pt >= 0) & self.kf_feat_valid.reshape(-1) & pt_ids_mask[pid.long()]
+        return obs_kf, pid, self.kf_feat_xy.reshape(K * F, 2), self.kf_feat_level.reshape(-1), ok

@@ -90,3 +90,8 @@ def window_mask(xy_a: torch.Tensor, xy_b: torch.Tensor, radius) -> torch.Tensor:
         return d2 <= float(radius) * float(radius)
     r2 = (radius * radius) if radius.dim() == 0 else (radius * radius)[:, None]
     return d2 <= r2
+
+
+def level_mask(level_a: torch.Tensor, level_b: torch.Tensor, tol: int = 1) -> torch.Tensor:
+    """[NA, NB] mask: pyramid levels within tolerance."""
+    return torch.abs(level_a[:, None] - level_b[None, :]) <= tol

@@ -3,8 +3,8 @@
 Counterpart of `uvipslam_tpu/solver/factors.py`: the visual (SE3 and
 NavState) reprojection factors, the inertial factors (preintegration,
 bias random walk, marginal prior), the pressure factors (unary depth and
-the paper's depth-projected ternary) and the two VIO-init edges. The
-Sim3 factors of loop closing belong to a later slice.
+the paper's depth-projected ternary), the two VIO-init edges and the
+Sim3 factors of loop closing.
 
 Conventions: NavState PVR increments P <- P + R dP, V <- V + dV,
 R <- R Exp(dPhi) with error order [rP, rV, rPhi]; bias increments
@@ -213,3 +213,62 @@ def scale_depth_edge(scale, dz_map, dz_meas):
     r = |dz_meas| - s |dz_map|. Returns (r [.., 1], J_s [.., 1, 1])."""
     r = (torch.abs(dz_meas) - scale * torch.abs(dz_map))[..., None]
     return r, (-torch.abs(dz_map))[..., None, None]
+
+
+# ---------------------------------------------------------------------------
+# Sim3 factors (loop closure)
+# ---------------------------------------------------------------------------
+
+
+def sim3_reproj(s, R, t, pw, uv, fx, fy, cx, cy):
+    """Reprojection of a point through a Sim3 (s, R, t): pc = s R pw + t,
+    projected ideal-pinhole; left-multiplicative sim3 increment
+    [rho, phi, sigma]. Returns (r [.., 2], J_sim3 [.., 2, 7],
+    J_point [.., 2, 3])."""
+    s = torch.as_tensor(s, dtype=pw.dtype, device=pw.device)
+    pc = s[..., None] * mv(R, pw) + t
+    r, J_uv_pc = _proj_jac(pc, uv, fx, fy, cx, cy)
+    batch = pc.shape[:-1]
+    eye = torch.eye(3, dtype=pc.dtype, device=pc.device).expand(batch + (3, 3))
+    # pc' = e^sigma Exp(phi) pc + rho: d/drho = I, d/dphi = -hat(pc), d/dsigma = pc
+    J_pc_sim3 = torch.cat([eye, -lie.hat(pc), pc[..., None]], dim=-1)
+    J_sim3 = -mm(J_uv_pc, J_pc_sim3)
+    J_point = -mm(J_uv_pc, s[..., None, None] * R.expand(batch + (3, 3)))
+    return r, J_sim3, J_point
+
+
+def _sim3_relative_residual(xi, s_i, R_i, t_i, s_j, R_j, t_j, s_m, R_m, t_m):
+    dsi, dRi, dti = lie.sim3_exp(xi[..., :7])
+    dsj, dRj, dtj = lie.sim3_exp(xi[..., 7:])
+    Si = lie.sim3_compose(dsi, dRi, dti, s_i, R_i, t_i)
+    Sj = lie.sim3_compose(dsj, dRj, dtj, s_j, R_j, t_j)
+    Sij = lie.sim3_compose(*Si, *lie.sim3_inverse(*Sj))
+    return lie.sim3_log(*lie.sim3_compose(s_m, R_m, t_m, *Sij))
+
+
+def sim3_relative(s_i, R_i, t_i, s_j, R_j, t_j, s_m, R_m, t_m):
+    """Sim3-Sim3 pose-graph edge of the essential graph:
+    r = log(S_m S_i S_j^-1), S_i and S_j the world->keyframe estimates and
+    S_m the measured relative Sim3.
+
+    The Jacobians w.r.t. the left-multiplicative increments of S_i and S_j
+    are forward-mode derivatives at zero, as the reference takes them: one
+    `torch.func.jvp` with the 14 basis directions stacked in front of the
+    edge dimension (`jacfwd` under `vmap` would turn every per-edge scalar
+    into a 0-dim tensor, which type promotion then lifts to float64).
+    Returns (r [.., 7], J_i [.., 7, 7], J_j [.., 7, 7])."""
+    args = (s_i, R_i, t_i, s_j, R_j, t_j, s_m, R_m, t_m)
+    single = s_i.dim() == 0
+    if single:
+        args = tuple(a[None] for a in args)
+    E = args[0].shape[0]
+    dtype, dev = args[2].dtype, args[2].device
+    basis = torch.eye(14, dtype=dtype, device=dev)[:, None, :].expand(14, E, 14)
+    xi0 = torch.zeros((14, E, 14), dtype=dtype, device=dev)
+    rep = tuple(a[None].expand((14,) + a.shape) for a in args)
+    r14, Jt = torch.func.jvp(lambda xi: _sim3_relative_residual(xi, *rep), (xi0,), (basis,))
+    r = r14[0]
+    J = Jt.permute(1, 2, 0)                     # [E, 7, 14]
+    if single:
+        r, J = r[0], J[0]
+    return r, J[..., :7], J[..., 7:]

@@ -1,11 +1,12 @@
-"""Full-map visual bundle adjustment.
+"""Full-map bundle adjustment, visual and visual-inertial-pressure.
 
-Counterpart of `uvipslam_tpu/solver/global_ba.py::global_ba_visual` (and
-its helpers `_all_observations`, `_writeback`): the window BA machinery
-of `solver/local_ba.py` applied to the first `kf_window` keyframe slots
-with the lowest valid slot fixed as the gauge. VIO init runs it before
-its solves. The NavState variant (`global_ba_navstate`) belongs to the
-loop-closing slice.
+Counterpart of `uvipslam_tpu/solver/global_ba.py`: the window BA
+machinery of `solver/local_ba.py` applied to the whole keyframe table
+(or its first `kf_window` slots) with the lowest valid slot fixed as the
+gauge. VIO init runs the visual form before its solves; loop closing
+polishes the corrected map with either form. The NavState form first
+re-integrates every keyframe's stored raw IMU window at the bias of its
+previous keyframe.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import torch
 
 from uvipslam_torch.frontend.tracker import _cam_pose_to_ns, _ns_to_cam_pose
 from uvipslam_torch.mapstate.map import MapState
-from uvipslam_torch.solver.local_ba import local_ba_se3
+from uvipslam_torch.core.preintegration import preintegrate
+from uvipslam_torch.solver.local_ba import local_ba_navstate, local_ba_se3
 
 
 def _all_observations(m: MapState, scale_sigmas: torch.Tensor, W: int | None = None):
@@ -63,3 +65,34 @@ def global_ba_visual(m: MapState, fx, fy, cx, cy, scale_sigmas: torch.Tensor,
     ns2 = dataclasses.replace(m.kf_ns, p=torch.cat([ns2_w.p, m.kf_ns.p[W:]]),
                               R=torch.cat([ns2_w.R, m.kf_ns.R[W:]]))
     return _writeback(m, ns2, pts, inl, ok)
+
+
+def global_ba_navstate(m: MapState, gravity, Rcb, tcb, fx, fy, cx, cy, gyr_noise_sd,
+                       acc_noise_sd, gyr_bias_rw2, acc_bias_rw2, depth_inv_var,
+                       scale_sigmas: torch.Tensor, cost_out: list | None = None) -> MapState:
+    """Full-map visual-inertial-pressure BA over the keyframe NavStates:
+    reprojection edges, preintegration and bias random-walk edges along
+    the kf_prev chain, and the pressure depth factors. The preintegrated
+    terms are rebuilt from each keyframe's raw IMU window (one batched
+    pass over all K windows). `cost_out` as in `local_ba_navstate`."""
+    K = m.kf_cap
+    dev = m.pt_xyz.device
+    obs_kf, obs_pt, obs_uv, inv_sig, ok = _all_observations(m, scale_sigmas)
+
+    prev = m.kf_prev.clamp(0, K - 1).long()
+    pre = preintegrate(m.kf_imu_omg, m.kf_imu_acc, m.kf_imu_dt, m.kf_imu_mask,
+                       m.kf_ns.bg[prev], m.kf_ns.ba[prev], gyr_noise_sd, acc_noise_sd)
+    pre_j = torch.arange(K, device=dev)
+    pre_mask = (m.kf_prev >= 0) & m.kf_valid & (pre.dt > 1e-6) & m.kf_valid[prev]
+
+    first = torch.argmax(m.kf_valid.to(torch.int32))   # lowest valid slot
+    fixed = pre_j == first
+    depth_info = torch.where(m.kf_depth_valid & m.kf_valid,
+                             torch.full_like(m.kf_depth, depth_inv_var),
+                             torch.zeros_like(m.kf_depth))
+    ns2, pts2, inl = local_ba_navstate(
+        m.kf_ns, fixed, m.kf_valid, m.pt_xyz, m.pt_valid, obs_kf, obs_pt, obs_uv, inv_sig, ok,
+        prev, pre_j, pre, pre_mask, gravity, Rcb, tcb, fx, fy, cx, cy, gyr_bias_rw2,
+        acc_bias_rw2, m.kf_depth, depth_info, n_iters=8, rounds=2, p_active=4096,
+        cost_out=cost_out)
+    return _writeback(m, ns2, pts2, inl, ok)

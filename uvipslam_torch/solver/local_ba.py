@@ -234,13 +234,15 @@ def _reproj_blocks_navstate(kf_ns, pts_w, obs_kf, obs_pt, obs_uv, Rcb, tcb, fx, 
 def local_ba_navstate(kf_ns, kf_fixed, kf_valid, pts_w, pt_valid, obs_kf, obs_pt, obs_uv,
                       obs_inv_sigma2, obs_mask, pre_i, pre_j, pre, pre_mask, gravity, Rcb, tcb,
                       fx, fy, cx, cy, gyr_bias_rw2, acc_bias_rw2, depth_meas, depth_info,
-                      n_iters: int = 5, rounds: int = 2, p_active: int = 2048):
+                      n_iters: int = 5, rounds: int = 2, p_active: int = 2048,
+                      cost_out: list | None = None):
     """VI(P) window BA over [K, 15] keyframe states (PVR + bias) and the
     observed landmarks: reprojection edges, preintegration and bias
     random-walk edges along the (pre_i, pre_j) pairs, the depth-projected
     pressure ternary along the same pairs, and a unary depth prior on
     keyframes no active ternary covers. Returns (kf_ns', pts_w',
-    obs_inlier)."""
+    obs_inlier). A list given as `cost_out` receives, per round, the
+    objective at the round's start and end (device scalars)."""
     dtype, dev = pts_w.dtype, pts_w.device
     K = kf_ns.p.shape[0]
     C = K * 15
@@ -379,6 +381,7 @@ def local_ba_navstate(kf_ns, kf_fixed, kf_valid, pts_w, pt_valid, obs_kf, obs_pt
 
     def lm_rounds(state, obs_inlier, robust, iters, pt_free):
         eqs, chi2 = build(state, obs_inlier, robust, pt_free)
+        chi2_start = chi2
         lam = torch.full((), 1e-4, dtype=dtype, device=dev)
         st = state
         for _ in range(iters):
@@ -394,6 +397,8 @@ def local_ba_navstate(kf_ns, kf_fixed, kf_valid, pts_w, pt_valid, obs_kf, obs_pt
             eqs = tree_map(sel, eqs, eqs_new)
             lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-9, 1e6)
             chi2 = torch.where(accept, chi2_new, chi2)
+        if cost_out is not None:
+            cost_out.append((chi2_start, chi2))
         return st
 
     state, obs_in = (kf_ns, pts_w), obs_mask
