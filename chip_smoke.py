@@ -18,7 +18,12 @@ result):
      N 400, real templates on a sub-pixel shifted image, the same probe
      points, some tracks invalid), within the tolerances of
      `refine_phase`. Median times as called, alone and of the plain
-     versions over 20 runs (CUDA events), and each kernel's bound;
+     versions over 20 runs (CUDA events), and each kernel's bound; then
+     both kernels over 8 streams in one launch (512x640 and 256x320, N
+     400, the same psizes and iterations, the border, outside and
+     non-finite points in different rows of each stream) against the
+     plain versions with the same tolerances, and one row against its
+     single-stream launch;
   4. small-input agreement: the first frame of a 120x160 sequence through
      the step on the card and on the CPU (plain versions) gives the same
      tracks;
@@ -27,13 +32,12 @@ result):
      with the kernel launch counters reset just before: >= 80% of frames
      WORKING, Sim3-aligned ATE < 2% of the trajectory span, no LOST
      frame, and exactly the launches of each kernel the path's branches
-     imply.
-     Two more runs of the same sequence repeat the timing (the step is
-     host-bound and its ms/frame spreads between runs of one process) and
-     must give the same states and poses bit for bit;
+     imply (`MONO_REPEATS` more runs would repeat the timing and have to
+     give the same states and poses bit for bit; 0 since the fleet phases
+     joined, the mono stream's two runs of phase 10 hold that);
   6. a replay of the first frames under torch.cuda sync-debug mode counts
      every host synchronization the step really makes;
-  7. torch.profiler over a few WORKING frames: device time per frame,
+  7. torch.profiler over two WORKING frames: device time per frame,
      kernels and launches per frame, host and device time per phase of the
      step (its `step.*` spans, `step.propagate` on a line of its own),
      the hand kernels' device time per launch, the top operators (the
@@ -45,12 +49,13 @@ result):
      its branches imply;
   9. the VIP step (IMU preintegration, pressure-scale VIO init, the VI
      solves and window BA) at bench.py's VIP settings (512x640, 400
-     tracks, 120 frames, kf_cap 64, pt_cap 8192), three runs that must be
-     bitwise equal: VIO initializes, >= 80% of frames WORKING, metric ATE
+     tracks, 120 frames, kf_cap 64, pt_cap 8192; `REPEATS` more runs would
+     have to be bitwise equal, 0 since phase 12 runs the VIP fleet twice):
+     VIO initializes, >= 80% of frames WORKING, metric ATE
      (no scale alignment) over the WORKING frames from VIO init + 3 on
      below 5% of the trajectory span; the VIO-init frame's own ms, host
      reads, kernel launches, peak memory, a sync audit over the first 30
-     frames and a profile split by phase over six VI frames after VIO
+     frames and a profile split by phase over two VI frames after VIO
      init (table in chiprun_out/profile_vip.txt).
  10. the mono stream with loop closing (`frontend.stream.DeviceStream`,
      mode "mono", `loop_closing=True`) fed one frame at a time over a
@@ -69,7 +74,25 @@ result):
      `global_ba_navstate` alone on the final map, on the card and on the
      CPU from the same state: the same keyframe positions within
      NAVSTATE_BA_TOL of the extent, and an objective that does not rise
-     in either round.
+ 12. batched replay of the VIP step (`parallel.replay.batched_replay_vip`):
+     8 streams over 8 distinct scenes in lockstep at phase 9's settings
+     (512x640, 400 tracks, kf_cap 64, pt_cap 8192, 60 frames), twice:
+     more than half the streams initialize VIO and track with metric ATE
+     (WORKING frames from VIO init + 3 on, at least 8) below 12% of the
+     span, the second run is bitwise equal, kernel launches as the
+     streams' states imply (one launch serves every stream that takes a
+     stage). Under torch.profiler over the first frame on which every stream
+     is WORKING with VIO up: launches of that batched frame below 3x a single
+     stream's (phase 9's profile). Prints per stream the bench's own gates,
+     ms per batched frame and per stream-frame, host reads per batched
+     frame, device busy share and peak memory;
+ 13. batched replay of the mono step (`batched_replay`): 4 streams, 40
+     frames, 512x640, phase 5's settings: more than half the streams
+     WORKING on >= 60% of frames with >= 3 keyframes and Sim3-aligned ATE
+     below 5% of the span, kernel launches as the states imply.
+
+`--only stream,vip_stream,fleet_kernels,fleet_vip,fleet_mono` (any
+subset) runs those phases alone after the build and prints no result line.
 
 The last three lines of standard output are the steps' JSON record, the
 per-kernel JSON record (launches per path, times, errors, bounds) and
@@ -89,8 +112,10 @@ import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_FRAMES = 60
-REPEATS = 2      # timing repeats of the VIP step after the gated run
-MONO_REPEATS = 1  # and of the mono step (one since the stream phases joined the script)
+REPEATS = 0      # timing repeats of the VIP step after the gated run (two before the fleet
+                 # phases joined; run-to-run equality of the VIP step is now held by the fleet's
+                 # two runs and the VIP stream, of the mono step by the mono stream's two runs)
+MONO_REPEATS = 0  # and of the mono step
 BATCH = 50
 VIP_FRAMES = 120
 VIP_AUDIT_FRAMES = 30
@@ -656,7 +681,8 @@ def vip_phase(torch, np, tklt, dev, smi):
         where.items(), key=lambda kv: -kv[1])[:12]))
 
     mark("vip_audit")
-    # the profile window: six VI frames after VIO init. The init frame
+    # the profile window: two VI frames after VIO init (six before the
+    # fleet phases joined the script). The init frame
     # alone launches ~0.4M kernels, whose profiler events take minutes to
     # post-process; its own time is the timed run's VIO-init frame ms
     start = init_f + 1
@@ -664,7 +690,7 @@ def vip_phase(torch, np, tklt, dev, smi):
     for f in range(start):
         st_p, _ = step_p(st_p, bundles[f])
     log("phase VIP profile:")
-    profile = profile_phase(torch, step_p, st_p, bundles, start, 6, "profile_vip.txt")
+    profile = profile_phase(torch, step_p, st_p, bundles, start, 2, "profile_vip.txt")
     profile["device_idle_share"] = 1.0 - profile["device_ms_per_frame"] / med
     mark("vip_profile")
     log(f"  device busy {profile['device_ms_per_frame']:.2f} ms/frame in the window; idle "
@@ -960,6 +986,380 @@ def stream_vip_phase(torch, np, tklt, dev, smi):
     return record, launches
 
 
+FLEET_S, FLEET_FRAMES = 8, 60          # phase 12: the VIP fleet
+MONO_FLEET_S, MONO_FLEET_FRAMES = 4, 40   # phase 13: the mono fleet
+FLEET_LAUNCH_RATIO = 3.0   # batched launches per frame over a single stream's, the gate
+
+
+def batched_kernel_phase(torch, tklt, dev):
+    """Phase 3 for a fleet: both kernels at S = 8 in one launch against
+    their plain versions (extract_patches exact, anchor_refine within
+    refine_phase's tolerances), border, outside and non-finite points in
+    different streams. Returns (patch rows, refine rows, max refine err)."""
+    S, n, win = FLEET_S, 400, 13
+    prow, rrow, max_err = [], [], 0.0
+    g = torch.Generator(device=dev).manual_seed(1)
+    for (h, w), psize in (((512, 640), 35), ((512, 640), 25), ((512, 640), 19),
+                          ((256, 320), 27), ((256, 320), 19)):
+        img = torch.rand((S, h, w), generator=g, device=dev) * 255.0
+        # the special points rotate through the rows, so every stream has
+        # its own border, outside and non-finite points
+        pts = torch.stack([torch.roll(probe_points(torch, h, w, n, seed=40 + s), 7 * s, 0)
+                           for s in range(S)]).to(dev)
+        kern, lk = tklt.extract_patches_cuda(img, pts, psize)
+        plain, lp = tklt._extract_patches(img, pts, psize)
+        one, _ = tklt.extract_patches_cuda(img[3], pts[3], psize)
+        torch.cuda.synchronize()
+        if not (torch.equal(kern, plain) and torch.equal(kern[3], one) and torch.equal(
+                torch.nan_to_num(lk, 7.0, 8.0, 9.0), torch.nan_to_num(lp, 7.0, 8.0, 9.0))):
+            raise AssertionError(f"batched extract_patches != plain at S {S} {h}x{w} psize {psize}")
+        ms = time_ms(torch, lambda: tklt.extract_patches_cuda(img, pts, psize))
+        pms = time_ms(torch, lambda: tklt._extract_patches(img, pts, psize))
+        out, local = torch.empty_like(kern), torch.empty_like(lk)
+
+        def kern_only():
+            for _ in range(BATCH):
+                tklt.launch_extract_patches(img, pts, psize, out, local)
+
+        kms = time_ms(torch, kern_only) / BATCH
+        nbytes = sum(4 * window_pixels(torch, tklt, img[s], pts[s], psize) for s in range(S)) \
+            + S * (4 * n * psize * psize + 16 * n)
+        bms, by = bound(nbytes, 0)
+        prow.append(dict(streams=S, shape=[h, w], psize=psize, n=n, ms=ms, plain_ms=pms,
+                         alone_ms=kms, bytes=nbytes, bound_ms=bms, bound_by=by))
+        log(f"  extract_patches S {S} {h}x{w} psize {psize} N {n}: exact, one launch; as called "
+            f"kernel {ms:.4f} ms vs plain {pms:.4f} ms; alone {kms:.4f} ms; bound "
+            f"{bms * 1e3:.3f} us ({nbytes} B)")
+    for i, ((h, w), iters, mc, mr) in enumerate([((256, 320), 10, 5.0, 45.0),
+                                                 ((512, 640), 8, 4.0, 32.0)]):
+        a = torch.stack([wave_image(torch, h, w, dev, 0.3 * s, -0.2 * s) for s in range(S)])
+        b = torch.stack([wave_image(torch, h, w, dev, 0.3 * s + 0.7, -0.2 * s - 0.4)
+                         for s in range(S)])
+        pts = torch.stack([torch.roll(probe_points(torch, h, w, n, seed=60 + s), 7 * s, 0)
+                           for s in range(S)]).to(dev)
+        T, Tx, Ty = tklt.extract_templates_fast(a, torch.nan_to_num(pts), win)
+        valid = (torch.rand((S, n), generator=torch.Generator().manual_seed(i)) > 0.05).to(dev)
+        args = (b, T, Tx, Ty, pts, valid)
+        kw = dict(win=win, iters=iters, max_correction=mc, max_residual=mr)
+        out, acc = tklt.anchor_refine_cuda(*args, **kw)
+        p_out, p_acc = tklt._anchor_refine_plain(*args, **kw)
+        one = tklt.anchor_refine_cuda(*(t[5] for t in args), **kw)
+        _, local, good, resid, corr = tklt._refine_terms(b, T, Tx, Ty, pts, win, iters, mc)
+        torch.cuda.synchronize()
+        near = ((corr - mc).abs() < 1e-3) | ((resid - mr).abs() < 1e-3)
+        flips = int(((acc != p_acc) & ~near).sum())
+        both = acc & p_acc
+        err = (out[both] - p_out[both]).abs().max().item()
+        outside = ~torch.isfinite(pts).all(-1) | (pts[..., 0] < -5) | (pts[..., 1] < -5) | (
+            pts[..., 0] > w + 5) | (pts[..., 1] > h + 5)
+        edge_ok = not bool((acc & outside).any()) and torch.equal(
+            torch.nan_to_num(out[outside], 7.0, 8.0, 9.0),
+            torch.nan_to_num(pts[outside], 7.0, 8.0, 9.0))
+        row_ok = torch.equal(torch.nan_to_num(one[0]), torch.nan_to_num(out[5])) and torch.equal(
+            one[1], acc[5])
+        share = int((acc & valid & ~outside).sum()) / int((valid & ~outside).sum())
+        psize = tklt.refine_psize(win, mc)
+        log(f"  anchor_refine S {S} {h}x{w} psize {psize} iters {iters} N {n}: one launch, accept "
+            f"flips outside the 1e-3 margins {flips}, max |out - plain| where both accept "
+            f"{err:.3e} px over {int(both.sum())} tracks, outside and non-finite points "
+            f"{'rejected with out = pts' if edge_ok else 'WRONG'}, row 5 "
+            f"{'equals' if row_ok else 'DIFFERS FROM'} its single-stream launch, valid inside "
+            f"accepted {100 * share:.1f}%")
+        if flips or not err <= 1e-3 or not edge_ok or not row_ok or share < 0.9:
+            raise AssertionError(f"batched anchor_refine disagrees at {h}x{w}")
+        max_err = max(max_err, err)
+        ms = time_ms(torch, lambda: tklt.anchor_refine_cuda(*args, **kw))
+        pms = time_ms(torch, lambda: tklt._anchor_refine_plain(*args, **kw), reps=5)
+        o2, a2 = torch.empty_like(out), torch.empty_like(acc)
+
+        def kern_only():
+            for _ in range(BATCH):
+                tklt.launch_anchor_refine(*args, win, iters, mc, mr, o2, a2)
+
+        kms = time_ms(torch, kern_only) / BATCH
+        work = valid & torch.isfinite(local).all(-1)
+        n_work, n_good = int(work.sum()), int((work & good).sum())
+        nbytes = 3 * 4 * win * win * n_work + S * n * 18 + sum(
+            4 * window_pixels(torch, tklt, b[s], pts[s], psize, (work & good)[s])
+            for s in range(S))
+        flops = win * win * (6 * n_work + (14 * iters + 12) * n_good)
+        bms, by = bound(nbytes, flops)
+        rrow.append(dict(streams=S, shape=[h, w], psize=psize, iters=iters, n=n, ms=ms,
+                         plain_ms=pms, alone_ms=kms, bytes=nbytes, flops=flops, bound_ms=bms,
+                         bound_by=by, max_abs_err=err))
+        log(f"    as called kernel {ms:.4f} ms vs plain {pms:.4f} ms; alone {kms:.4f} ms; bound "
+            f"{bms * 1e3:.3f} us by {by} ({nbytes} B, {flops} flop)")
+    return prow, rrow, max_err
+
+
+def expected_launches_fleet(states, n_orb_levels, vip: bool):
+    """Launches of each kernel for a fleet whose streams' per-frame states
+    are `states` [S][T], none LOST or in recovery: a stage is launched
+    once per batched frame when any stream takes it."""
+    from uvipslam_torch.frontend.tracker import INITIALIZING, NOT_INITIALIZED, WORKING
+
+    S, T = len(states), len(states[0])
+    pulls = refines = 0
+    prev = [NOT_INITIALIZED] * S
+    for f in range(T):
+        cur = [states[s][f] for s in range(S)]
+        if any(p in (INITIALIZING, WORKING) for p in prev):
+            refines += 2
+        if vip:
+            if any(p in (NOT_INITIALIZED, WORKING) for p in prev):
+                pulls += 2 + n_orb_levels + 1
+        else:
+            if any(p == NOT_INITIALIZED for p in prev):
+                pulls += 2 + n_orb_levels
+            if any(p == WORKING and c == WORKING for p, c in zip(prev, cur)):
+                pulls += 2 + n_orb_levels + 1
+        prev = cur
+    return {"extract_patches": pulls, "anchor_refine": refines}
+
+
+FLEET_SEQ_KW = dict(H=512, W=640, n_points=6000)
+FLEET_VIP_KW = dict(n_frames=FLEET_FRAMES, speed=1.2, gyr_noise=0.005, acc_noise=0.05,
+                    gyr_bias=(0.004, -0.006, 0.003), depth_noise=0.02, z_amp=0.5, **FLEET_SEQ_KW)
+FLEET_MONO_KW = dict(n_frames=MONO_FLEET_FRAMES, speed=0.9, **FLEET_SEQ_KW)
+
+
+def _make_sequence(kw):
+    from uvipslam_torch.io.synthetic import make_sequence
+    return make_sequence(**kw)
+
+
+def fleet_sequence_pool():
+    """Four worker processes (started fresh, so none inherits the CUDA
+    context) that render the fleets' scenes beside the main process, since
+    a sequence takes 8-12 s of numpy on one core."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    return ProcessPoolExecutor(max_workers=4, mp_context=multiprocessing.get_context("spawn"))
+
+
+def start_fleet_sequences(pool):
+    """Submit the fleets' scenes (8 VIP seeds 20.., 4 mono seeds 10..);
+    returns the futures by phase."""
+    return {"vip": [pool.submit(_make_sequence, dict(seed=20 + s, **FLEET_VIP_KW))
+                    for s in range(FLEET_S)],
+            "mono": [pool.submit(_make_sequence, dict(seed=10 + s, **FLEET_MONO_KW))
+                     for s in range(MONO_FLEET_S)]}
+
+
+def drive_fleet(torch, run, states0, feeds):
+    """One replay of the fleet; returns (outs, fleet counts, seconds to a
+    synchronize, the fleet step)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, outs, fleet = run(states0, feeds)
+    torch.cuda.synchronize()
+    return outs, fleet, time.perf_counter() - t0, run.step
+
+
+def same_outputs(torch, a, b):
+    import dataclasses
+    return all(torch.equal(torch.nan_to_num(getattr(a, f.name)), torch.nan_to_num(
+        getattr(b, f.name))) for f in dataclasses.fields(a))
+
+
+def fleet_vip_phase(torch, np, tklt, dev, smi, single, seq_jobs):
+    """Phase 12: `batched_replay_vip`, 8 streams over 8 distinct scenes at
+    full width. `single` = phase 9's record (None on a partial run);
+    `seq_jobs` = the futures of the 8 sequences."""
+    from uvipslam_torch.core.tree import tree_map
+    from uvipslam_torch.frontend.tracker import IMU_RELOC, LOST, WORKING
+    from uvipslam_torch.frontend.vip_tracker import VipConfig
+    from uvipslam_torch.frontend.device_vip import VipFleetStep
+    from uvipslam_torch.io.synthetic import ate_rmse
+    from uvipslam_torch.models.camera import CameraModel
+    from uvipslam_torch.parallel.replay import (_over_time, batched_replay_vip, fleet_bundles,
+                                                stream_generators)
+    from uvipslam_torch.frontend.device_vip import VipStepOut
+
+    S, T = FLEET_S, FLEET_FRAMES
+    t0 = time.time()
+    seqs = [j.result() for j in seq_jobs]
+    log(f"{S} sequences {T}x512x640 with IMU and pressure (rendered in worker processes "
+        f"since phase 7): waited {time.time() - t0:.1f} s for them")
+    k = seqs[0].K
+    cam = CameraModel.create(k[0, 0], k[1, 1], k[0, 2], k[1, 2], width=640, height=512)
+    cfg = VipConfig(n_tracks=400, min_init_tracks=100, local_window=8, gyr_noise_sd=0.01,
+                    acc_noise_sd=0.1, depth_noise_sd=0.05, vio_init_min_kfs=6,
+                    vio_init_min_time=1.0)
+    make_states, run = batched_replay_vip(cam, cfg, kf_cap=64, pt_cap=8192, device=dev)
+    feeds = fleet_bundles(seqs, device=dev)
+    states0 = make_states(S)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(tklt)
+    outs, fleet, secs, step = drive_fleet(torch, run, states0, feeds)
+    launches = read_launches(tklt)
+    peak = torch.cuda.max_memory_allocated()
+    syncs = step.host_syncs
+    states = outs.state.cpu().numpy()
+    vios = outs.vio_ok.cpu().numpy()
+    # the profile frame: the first on which every stream is WORKING with
+    # VIO up and none makes a keyframe, the branch phase 9's profile window
+    # holds (its two frames after VIO init cannot be keyframes)
+    all_vi = (states == WORKING).all(0) & vios.all(0)
+    no_kf = (outs.new_kf < 0).all(0).cpu().numpy()
+    starts = [f + 1 for f in range(T - 1) if all_vi[f] and all_vi[f + 1] and no_kf[f + 1]]
+    if not starts:
+        raise AssertionError("no keyframe-free frame with every stream WORKING and VIO up")
+    start = starts[0]
+    # the second run, frame by frame as `run` does it, so that the state
+    # the profile starts from can be kept on the way
+    step2 = VipFleetStep(cam, cfg, 64, device=dev)
+    gens = stream_generators(S, 0, dev)
+    frames = [tree_map(lambda a: a[:, f], feeds) for f in range(T)]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    st, outs2, st_prof = states0, [], None
+    for f in range(T):
+        if f == start:
+            st_prof, gen_states = st, [g.get_state() for g in gens]
+        st, o = step2(st, frames[f], gens)
+        outs2.append(o)
+    torch.cuda.synchronize()
+    secs2 = time.perf_counter() - t1
+    if not same_outputs(torch, outs, _over_time(outs2, VipStepOut)):
+        raise AssertionError("a second run of the VIP fleet differs from the first")
+    del outs2
+    ms_frame = 1e3 * min(secs, secs2) / T
+
+    n_vio = n_ate = n_bench = 0
+    for s in range(S):
+        C = centres(torch, np, list(outs.Rcw[s]), list(outs.tcw[s]))
+        span = float(np.linalg.norm(seqs[s].positions_w[-1] - seqs[s].positions_w[0]))
+        working = states[s] == WORKING
+        init_f = int(np.argmax(vios[s])) if vios[s].any() else -1
+        sel = np.asarray([i for i in range(T) if init_f >= 0 and i >= init_f + 3 and working[i]],
+                         dtype=np.int64)
+        ate = float("inf")
+        if len(sel) >= 8:
+            ate, _ = ate_rmse(C[sel], seqs[s].positions_w[sel], align_scale=False)
+        n_vio += init_f >= 0
+        n_ate += ate < 0.12 * span
+        bench_ok = working.sum() >= 0.8 * T and ate < 0.05 * span
+        n_bench += bench_ok
+        log(f"  stream {s}: VIO init at frame {init_f}, {int(working.sum())}/{T} WORKING, metric "
+            f"ATE {ate:.5f} m over {len(sel)} frames ({100 * ate / span:.2f}% of span "
+            f"{span:.4f} m; the bench's own gates {'pass' if bench_ok else 'fail'}), states "
+            f"{''.join(str(x) for x in states[s].tolist())}")
+    clean = not ((states == LOST) | (states == IMU_RELOC)).any()
+    expect = expected_launches_fleet(states.tolist(), orb_levels(512, 640), vip=True) \
+        if clean else None
+    single_ms = single["median_ms_per_frame"] if single else float("nan")
+    log(f"phase VIP fleet S {S} 512x640 / 400 tracks / {T} frames: {n_vio}/{S} streams "
+        f"initialized VIO, {n_ate}/{S} with metric ATE below 12% of span ({n_bench}/{S} pass the "
+        f"bench's gates), fleet counts (WORKING frames, VIO streams) "
+        f"{[int(x) for x in fleet]}; {ms_frame:.1f} ms per batched frame = {ms_frame / S:.1f} ms "
+        f"per stream-frame (whole replay to a synchronize, the faster of two runs: "
+        f"{secs:.1f} s and {secs2:.1f} s; a single stream in phase 9: {single_ms:.1f} ms/frame); "
+        f"second run (stepped frame by frame) bitwise equal; host reads {syncs / T:.2f} per batched frame ({syncs} "
+        f"total, {step.fleet_syncs} of them fleet tables); kernel launches {launches}"
+        f"{f' (expected {expect})' if expect is not None else ''}; peak allocated "
+        f"{peak / 2**20:.1f} MiB")
+    if n_vio <= S / 2 or n_ate <= S / 2:
+        raise AssertionError(f"VIP fleet: {n_vio}/{S} initialized VIO, {n_ate}/{S} below 12%")
+    if min(launches.values()) <= 0 or (expect is not None and launches != expect):
+        raise AssertionError(f"fleet kernel launches {launches}, expected {expect}")
+    mark("fleet_vip")
+
+    for g, gs in zip(gens, gen_states):
+        g.set_state(gs)
+    log("phase VIP fleet profile:")
+    # one frame: the profiler's post-processing of a fleet frame's events
+    # takes about a minute
+    profile = profile_phase(torch, lambda s_, b_: step2(s_, b_, gens), st_prof, frames, start, 1,
+                            "profile_fleet_vip.txt")
+    if "step.vi_ba" in profile["phases"] or (single and "step.vi_ba" in
+                                             single["profile"]["phases"]):
+        raise AssertionError("a profile window holds a keyframe: the launch counts compare "
+                             "unlike branches")
+    profile["device_busy_share"] = profile["device_ms_per_frame"] / ms_frame
+    # on a partial run: a single stream's keyframe-free VI frame as phase 9
+    # of a whole run of this script read it on an NVIDIA H100
+    base = single["profile"]["launches_per_frame"] if single else 23957.0
+    ratio = profile["launches_per_frame"] / base
+    profile["launch_ratio_to_single"] = ratio
+    log(f"  launches on the all-VI batched frame {start} (no stream makes a keyframe on it, as "
+        f"on the single stream's profiled frames) {profile['launches_per_frame']:.0f} = "
+        f"{ratio:.2f}x a single stream's {base:.0f} (gate {FLEET_LAUNCH_RATIO}x; a loop over "
+        f"{S} streams would be {S}x); device busy {profile['device_ms_per_frame']:.1f} ms of "
+        f"the unprofiled {ms_frame:.1f} ms batched frame = "
+        f"{100 * profile['device_busy_share']:.1f}%")
+    if not ratio < FLEET_LAUNCH_RATIO:
+        raise AssertionError(f"fleet launches per frame {ratio:.2f}x a single stream's")
+    mark("fleet_vip_profile")
+    record = {"streams": S, "n_frames": T, "vio_streams": int(n_vio), "ate_ok_streams": int(n_ate),
+              "bench_gate_streams": int(n_bench), "ms_per_batched_frame": ms_frame,
+              "ms_per_stream_frame": ms_frame / S, "run_seconds": [secs, secs2],
+              "host_reads_per_batched_frame": syncs / T, "peak_allocated_bytes": peak,
+              "profile": profile, "card": smi}
+    return record, launches
+
+
+def fleet_mono_phase(torch, np, tklt, dev, smi, single, seq_jobs):
+    """Phase 13: `batched_replay`, 4 mono streams at full width."""
+    from uvipslam_torch.frontend.tracker import LOST, WORKING, TrackerConfig
+    from uvipslam_torch.io.synthetic import ate_rmse
+    from uvipslam_torch.models.camera import CameraModel
+    from uvipslam_torch.parallel.replay import batched_replay
+
+    S, T = MONO_FLEET_S, MONO_FLEET_FRAMES
+    seqs = [j.result() for j in seq_jobs]
+    k = seqs[0].K
+    cam = CameraModel.create(k[0, 0], k[1, 1], k[0, 2], k[1, 2], width=640, height=512)
+    cfg = TrackerConfig(n_tracks=400, min_init_tracks=100, local_window=8)
+    make_states, run = batched_replay(cam, cfg, kf_cap=64, pt_cap=8192, device=dev)
+    imgs = torch.from_numpy(np.stack([s.images for s in seqs]).astype(np.float32)).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(tklt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stf, outs, fleet = run(make_states(S), imgs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches(tklt)
+    peak = torch.cuda.max_memory_allocated()
+    states = outs.state.cpu().numpy()
+    n_kf = stf.map.n_kf.cpu().numpy()
+    n_ok = 0
+    for s in range(S):
+        working = states[s] == WORKING
+        ate = float("inf")
+        if working.sum() > 5:
+            C = centres(torch, np, list(outs.Rcw[s]), list(outs.tcw[s]))
+            ate, _ = ate_rmse(C[working], seqs[s].positions_w[np.nonzero(working)[0]])
+        span = float(np.linalg.norm(seqs[s].positions_w[-1] - seqs[s].positions_w[0]))
+        ok = working.sum() >= 0.6 * T and n_kf[s] >= 3 and ate < 0.05 * span
+        n_ok += ok
+        log(f"  stream {s}: {int(working.sum())}/{T} WORKING, {int(n_kf[s])} keyframes, "
+            f"Sim3-aligned ATE {ate:.5f} m ({100 * ate / span:.2f}% of span {span:.4f} m): "
+            f"{'ok' if ok else 'not ok'}")
+    clean = not (states == LOST).any()
+    expect = expected_launches_fleet(states.tolist(), 8, vip=False) if clean else None
+    ms_frame = 1e3 * secs / T
+    single_ms = single if single else float("nan")
+    log(f"phase mono fleet S {S} 512x640 / 400 tracks / {T} frames: {n_ok}/{S} streams ok, "
+        f"fleet WORKING frames {int(fleet)}; {ms_frame:.1f} ms per batched frame = "
+        f"{ms_frame / S:.1f} ms per stream-frame (a single stream in phase 5: {single_ms:.1f} "
+        f"ms/frame); host reads {run.step.host_syncs / T:.2f} per batched frame; kernel "
+        f"launches {launches}{f' (expected {expect})' if expect is not None else ''}; peak "
+        f"allocated {peak / 2**20:.1f} MiB")
+    if n_ok <= S / 2:
+        raise AssertionError(f"mono fleet: only {n_ok}/{S} streams ok")
+    if min(launches.values()) <= 0 or (expect is not None and launches != expect):
+        raise AssertionError(f"mono fleet kernel launches {launches}, expected {expect}")
+    mark("fleet_mono")
+    record = {"streams": S, "n_frames": T, "ok_streams": int(n_ok),
+              "ms_per_batched_frame": ms_frame, "ms_per_stream_frame": ms_frame / S,
+              "host_reads_per_batched_frame": run.step.host_syncs / T,
+              "peak_allocated_bytes": peak, "card": smi}
+    return record, launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "uvipslam_torch")):
         print("chip_smoke.py must run from a checkout holding uvipslam_torch/",
@@ -992,14 +1392,29 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas: " + line.strip())
     mark("build")
+    pool = fleet_sequence_pool()
+    try:
+        return run_phases(torch, np, tklt, dev, smi, pool)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
 
+
+def run_phases(torch, np, tklt, dev, smi, pool) -> int:
+    """Phases 3-13 and the result lines."""
     if "--only" in sys.argv:
-        # development aid: the stream phases alone; prints no result line
+        seq_jobs = start_fleet_sequences(pool)
+        # development aid: the stream or fleet phases alone; prints no result line
         only = sys.argv[sys.argv.index("--only") + 1].split(",")
         if "stream" in only:
             stream_mono_phase(torch, np, tklt, dev, smi)
         if "vip_stream" in only:
             stream_vip_phase(torch, np, tklt, dev, smi)
+        if "fleet_kernels" in only:
+            batched_kernel_phase(torch, tklt, dev)
+        if "fleet_vip" in only:
+            fleet_vip_phase(torch, np, tklt, dev, smi, None, seq_jobs["vip"])
+        if "fleet_mono" in only:
+            fleet_mono_phase(torch, np, tklt, dev, smi, None, seq_jobs["mono"])
         log("partial run (--only): no result line")
         return 0
 
@@ -1008,6 +1423,9 @@ def main() -> int:
     patch_err, patch_rows = patch_phase(torch, tklt, dev)
     log("phase kernel-vs-plain: anchor_refine (1e-3 px where both accept)")
     refine_err, refine_rows = refine_phase(torch, tklt, dev)
+    log(f"phase kernel-vs-plain: both kernels over {FLEET_S} streams in one launch")
+    fleet_patch_rows, fleet_refine_rows, fleet_refine_err = batched_kernel_phase(torch, tklt, dev)
+    refine_err = max(refine_err, fleet_refine_err)
     mark("kernel_vs_plain")
 
     # -- phase 4/5 need the synthetic sequences -------------------------
@@ -1111,8 +1529,13 @@ def main() -> int:
 
     # -- phase 7: profile ---------------------------------------------------
     mark("mono_audit")
+    # the fleets' scenes render from here on, beside the profile, the
+    # relocalization and the VIP sequence's own rendering, none of which is
+    # a timing; the timed mono run is over and the timed VIP run starts
+    # after they are done (about 40 s with four workers)
+    seq_jobs = start_fleet_sequences(pool)
     log("phase profile:")
-    profile = profile_phase(torch, step_a, st_a, imgs, audit_frames, 6, "profile.txt")
+    profile = profile_phase(torch, step_a, st_a, imgs, audit_frames, 2, "profile.txt")
     mark("mono_profile")
     # device time does not depend on the profiler; the host clock does
     profile["device_idle_share"] = 1.0 - profile["device_ms_per_frame"] / med
@@ -1135,6 +1558,12 @@ def main() -> int:
     stream_record, stream_launches = stream_mono_phase(torch, np, tklt, dev, smi)
     vstream_record, vstream_launches = stream_vip_phase(torch, np, tklt, dev, smi)
 
+    # -- phases 12 and 13: batched replay ----------------------------------------
+    fleet_record, fleet_launches = fleet_vip_phase(torch, np, tklt, dev, smi, vip_record,
+                                                   seq_jobs["vip"])
+    mfleet_record, mfleet_launches = fleet_mono_phase(torch, np, tklt, dev, smi, med,
+                                                     seq_jobs["mono"])
+
     log("phase end times (s since start): " + ", ".join(f"{k} {v}" for k, v in MARKS.items()))
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "uvipslam_tpu"))
     if foreign:
@@ -1143,7 +1572,8 @@ def main() -> int:
     big = [r for r in patch_rows if r["psize"] == 35 and r["shape"] == [512, 640]][0]
     full = [r for r in refine_rows if r["shape"] == [512, 640]][0]
     by_path = {"vip": vip_launches, "mono": launches, "mono_reloc": reloc_launches,
-               "stream_mono": stream_launches, "stream_vip": vstream_launches}
+               "stream_mono": stream_launches, "stream_vip": vstream_launches,
+               "replay_vip": fleet_launches, "replay_mono": mfleet_launches}
     # the VIP step is the system's main path; every path's own counts are
     # read from zero just before it and just after it. No single PyTorch
     # call computes either function (library_ms null)
@@ -1163,6 +1593,7 @@ def main() -> int:
         "bound_by": big["bound_by"],
         "library_ms": None,
         "shapes": patch_rows,
+        "fleet_shapes": fleet_patch_rows,
     }, {
         "name": "anchor_refine",
         "route": "cuda",
@@ -1178,6 +1609,7 @@ def main() -> int:
         "bound_by": full["bound_by"],
         "library_ms": None,
         "shapes": refine_rows,
+        "fleet_shapes": fleet_refine_rows,
     }]}
     step_record = {"step": {"frames_working": int(working.sum()), "n_frames": N_FRAMES,
                             "ate_m": ate, "ate_threshold_m": 0.02 * span,
@@ -1189,7 +1621,8 @@ def main() -> int:
                    "reloc": {"frames_to_recover": n_rec, "centre_error": rec_err,
                              "launches": reloc_launches},
                    "vip": vip_record, "stream_mono": stream_record,
-                   "stream_vip": vstream_record, "phase_end_s": MARKS}
+                   "stream_vip": vstream_record, "replay_vip": fleet_record,
+                   "replay_mono": mfleet_record, "phase_end_s": MARKS}
     print(json.dumps(step_record), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

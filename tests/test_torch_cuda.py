@@ -89,6 +89,55 @@ def test_anchor_refine_kernel_matches_plain(cuda_device, size, iters, max_correc
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("psize", [19, 35])
+def test_extract_patches_kernel_serves_a_fleet_in_one_launch(cuda_device, psize):
+    """S = 4 streams, each with its own image and its own border, outside
+    and non-finite points: one launch, equal to the plain gather and to
+    the single-stream launches, also through the vmap rule."""
+    S = 4
+    img = torch.rand((S, H, W), generator=torch.Generator().manual_seed(2)) * 255.0
+    pts = torch.stack([torch.roll(_points(seed=s), 5 * s, 0) for s in range(S)])
+    plain, local_plain = klt._extract_patches(img, pts, psize)
+    ci, cp = img.to(cuda_device), pts.to(cuda_device)
+    before = klt.patch_launches
+    kern, local_kern = klt.extract_patches_any(ci, cp, psize)
+    torch.cuda.synchronize()
+    assert klt.patch_launches == before + 1
+    assert torch.equal(kern.cpu(), plain)
+    assert torch.equal(torch.nan_to_num(local_kern.cpu()), torch.nan_to_num(local_plain))
+    one, _ = klt.extract_patches_any(ci[2], cp[2], psize)
+    assert torch.equal(one, kern[2])
+    mapped, _ = torch.func.vmap(lambda i, p: klt.extract_patches_any(i, p, psize))(ci, cp)
+    assert klt.patch_launches == before + 3 and torch.equal(mapped, kern)
+
+
+@pytest.mark.cuda
+def test_anchor_refine_kernel_serves_a_fleet_in_one_launch(cuda_device):
+    S, n, win = 4, 400, 13
+    a = torch.stack([_wave_image(H, W, 0.3 * s, -0.2 * s) for s in range(S)])
+    b = torch.stack([_wave_image(H, W, 0.3 * s + 0.7, -0.2 * s - 0.4) for s in range(S)])
+    pts = torch.stack([torch.roll(_points(n, seed=10 + s), 5 * s, 0) for s in range(S)])
+    T, Tx, Ty = klt.extract_templates_fast(a, torch.nan_to_num(pts), win)
+    valid = torch.rand((S, n), generator=torch.Generator().manual_seed(3)) > 0.05
+    kw = dict(win=win, iters=8, max_correction=4.0, max_residual=32.0)
+    p_out, p_acc = klt._anchor_refine_plain(b, T, Tx, Ty, pts, valid, **kw)
+    args = [t.to(cuda_device) for t in (b, T, Tx, Ty, pts, valid)]
+    before = klt.refine_launches
+    out, acc = klt.anchor_refine_fast(*args, **kw)
+    torch.cuda.synchronize()
+    assert klt.refine_launches == before + 1
+    both = acc.cpu() & p_acc
+    assert int((acc.cpu() != p_acc).sum()) <= 2 and int(both.sum()) > 0.8 * S * n
+    assert float((out.cpu()[both] - p_out[both]).abs().max()) <= 1e-3
+    one = klt.anchor_refine_fast(*(t[1] for t in args), **kw)
+    assert torch.equal(torch.nan_to_num(one[0]), torch.nan_to_num(out[1]))
+    assert torch.equal(one[1], acc[1])
+    mapped = torch.func.vmap(lambda *x: klt.anchor_refine_fast(*x, **kw))(*args)
+    assert klt.refine_launches == before + 3
+    assert torch.equal(torch.nan_to_num(mapped[0]), torch.nan_to_num(out))
+
+
+@pytest.mark.cuda
 def test_extract_patches_kernel_rejects_cpu_tensors(cuda_device):
     with pytest.raises(ValueError):
         klt.extract_patches_cuda(torch.zeros((40, 50)), torch.zeros((3, 2)), 19)

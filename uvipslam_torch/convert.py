@@ -7,7 +7,11 @@ tensors on a given device. Fields are read by name, so this module needs
 nothing from the reference package. The reference's PRNG key has no
 torch counterpart: a converted tracker state gets a fresh generator, and
 so does a converted `LoopCloser`, whose host state (consistency groups,
-last loop frame, cluster tables) is carried over as it is.
+last loop frame, cluster tables) is carried over as it is. A batched
+reference state (every leaf with a leading stream dimension, as
+`parallel.replay.batched_replay*`'s `make_states` gives it) becomes the
+port's batched state through `tracker_fleet` / `vip_fleet`; its `gen`
+field is None, since a fleet's generators live beside the state.
 """
 
 from __future__ import annotations
@@ -33,14 +37,16 @@ def to_tensor(a, device=None) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def convert(cls, src, device=None, seed: int = 0):
-    """Build the port's `cls` from the same-named fields of `src`."""
+def convert(cls, src, device=None, seed: int | None = 0):
+    """Build the port's `cls` from the same-named fields of `src`
+    (`seed=None`: no generator, for a fleet's batched state)."""
     kw = {}
     for f in dataclasses.fields(cls):
         if f.name == "gen":
-            gen = torch.Generator(device=device)
-            gen.manual_seed(seed)
-            kw["gen"] = gen
+            kw["gen"] = None
+            if seed is not None:
+                kw["gen"] = torch.Generator(device=device)
+                kw["gen"].manual_seed(seed)
             continue
         v = getattr(src, f.name)
         if f.name in _NESTED:
@@ -58,6 +64,16 @@ def tracker_state(src, device=None, seed: int = 0) -> TrackerState:
 
 def vip_state(src, device=None, seed: int = 0) -> VipTrackerState:
     return convert(VipTrackerState, src, device, seed)
+
+
+def tracker_fleet(src, device=None) -> TrackerState:
+    """A batched reference `TrackerState` (leaves [S, ...])."""
+    return convert(TrackerState, src, device, seed=None)
+
+
+def vip_fleet(src, device=None) -> VipTrackerState:
+    """A batched reference `VipTrackerState` (leaves [S, ...])."""
+    return convert(VipTrackerState, src, device, seed=None)
 
 
 def map_state(src, device=None) -> MapState:

@@ -79,3 +79,85 @@ def full_like_scalar(v, n: int, dtype, device) -> torch.Tensor:
     if isinstance(v, torch.Tensor):
         return v.to(dtype).reshape(()).expand(n)
     return torch.full((n,), v, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# a stream dimension: stacked trees, stream subsets and vmapped stages
+# ---------------------------------------------------------------------------
+
+
+def tree_leaves(tree) -> list:
+    """The tensor leaves of `tree` in `tree_map`'s order."""
+    out = []
+    tree_map(lambda a: out.append(a) or a, tree)
+    return out
+
+
+def tree_unflatten(template, leaves):
+    """`template` with its tensor leaves replaced, in order, by `leaves`."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), template)
+
+
+def stack_streams(trees):
+    """A list of per-stream trees -> one tree with a leading [S] on every
+    tensor leaf (non-tensor fields are taken from the first)."""
+    return tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
+
+
+def unstack_streams(tree) -> list:
+    """The inverse of `stack_streams`: a list of S single-stream trees."""
+    leaves = tree_leaves(tree)
+    n = leaves[0].shape[0]
+    return [tree_unflatten(tree, [a[i] for a in leaves]) for i in range(n)]
+
+
+def take_streams(tree, idx: torch.Tensor):
+    """Rows `idx` (a [n] long tensor of distinct streams) of every leaf."""
+    return tree_map(lambda a: a.index_select(0, idx), tree)
+
+
+def put_streams(tree, idx: torch.Tensor, sub):
+    """A copy of `tree` whose stream rows `idx` are replaced by the rows
+    of `sub` (leaves [n, ...])."""
+    return tree_map(lambda a, b: a.index_copy(0, idx, b.to(a.dtype)), tree, sub)
+
+
+def over_streams(fn, *args, **kwargs):
+    """Run the single-stream stage `fn` once over a leading stream
+    dimension: every tensor leaf of `args` carries a leading [S]
+    (`torch.func.vmap`, so each of fn's operations is issued once for all
+    streams); anything else in `args` and all of `kwargs` is shared by the
+    streams. fn may return tensors, trees, tuples and dicts of them, and
+    values that are no tensors (returned as they are)."""
+    flat = [tree_leaves(a) for a in args]
+    sizes = [len(f) for f in flat]
+    out_template = []
+
+    def inner(*leaves):
+        it = iter(leaves)
+        rebuilt = [tree_unflatten(a, [next(it) for _ in range(n)])
+                   for a, n in zip(args, sizes)]
+        out = fn(*rebuilt, **kwargs)
+        out_template.append(out)
+        return tuple(_out_leaves(out))
+
+    leaves = [x for f in flat for x in f]
+    res = torch.func.vmap(inner)(*leaves)
+    return _out_rebuild(out_template[0], iter(res))
+
+
+def _out_leaves(out) -> list:
+    if isinstance(out, dict):
+        return [x for k in out for x in _out_leaves(out[k])]
+    if isinstance(out, (tuple, list)):
+        return [x for o in out for x in _out_leaves(o)]
+    return tree_leaves(out)
+
+
+def _out_rebuild(out, it):
+    if isinstance(out, dict):
+        return {k: _out_rebuild(v, it) for k, v in out.items()}
+    if isinstance(out, (tuple, list)):
+        return type(out)(_out_rebuild(o, it) for o in out)
+    return tree_map(lambda _: next(it), out)

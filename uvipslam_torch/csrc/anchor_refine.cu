@@ -33,6 +33,10 @@
 // false give accept = false and out = pts in the plain form whatever it
 // computes, so those tracks skip the work.
 //
+// A call serves S streams at once: img [S, H, W], T/Tx/Ty [S, n, win^2],
+// pts [S, n, 2], valid [S, n], out [S, n, 2], accept [S, n], stream s on
+// blockIdx.y, each stream's corners clipped to its own image.
+//
 // Launch: one warp per track, kTracks tracks per block. The warp pulls its
 // psize^2 patch (<= 27^2 floats on the main path) into shared memory, its
 // lanes on consecutive pixels of the patch's rows; each lane keeps its <= kPerLane
@@ -118,6 +122,16 @@ anchor_refine_kernel(const float* __restrict__ img, int H, int W,
   const int lane = threadIdx.x & 31;
   const int t = blockIdx.x * kTracks + warp;
   if (t >= n) return;
+  const long long s = blockIdx.y;                   // stream
+  const long long sn = s * n;
+  img += s * H * W;
+  T += sn * win * win;
+  Tx += sn * win * win;
+  Ty += sn * win * win;
+  pts += sn * 2;
+  valid += sn;
+  out += sn * 2;
+  accept += sn;
   const float ptx = pts[2 * t];
   const float pty = pts[2 * t + 1];
   const int x0 = uvip::patch_corner(ptx, W, psize);
@@ -187,14 +201,14 @@ anchor_refine_kernel(const float* __restrict__ img, int H, int W,
       }
       const float offx = px - static_cast<float>(r);
       const float offy = py - static_cast<float>(r);
-      float s = 0.f;
+      float asum = 0.f;
 #pragma unroll
       for (int m = 0; m < kPerLane; ++m) {
         if (lane + 32 * m < area) {
-          s += fabsf(sample(patch, psize, offy + fi[m], offx + fj[m]) - tv[m]);
+          asum += fabsf(sample(patch, psize, offy + fi[m], offx + fj[m]) - tv[m]);
         }
       }
-      const float resid = warp_sum(s) / static_cast<float>(area);
+      const float resid = warp_sum(asum) / static_cast<float>(area);
       const float cx = px - lx;
       const float cy = py - ly;
       const float corr = sqrtf(cx * cx + cy * cy);
@@ -210,12 +224,13 @@ anchor_refine_kernel(const float* __restrict__ img, int H, int W,
 
 }  // namespace
 
-extern "C" int uvip_anchor_refine(const float* img, int H, int W, const float* T,
+extern "C" int uvip_anchor_refine(const float* img, int S, int H, int W, const float* T,
                                   const float* Tx, const float* Ty, const float* pts,
                                   const unsigned char* valid, int n, int win, int iters,
                                   float max_correction, float max_residual, float* out,
                                   unsigned char* accept, void* stream) {
-  if (n <= 0) return 0;
+  if (n <= 0 || S <= 0) return 0;
+  if (S > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (!(max_correction >= 0.f && max_correction < 1e6f) || win <= 0 ||
       win * win > 32 * kPerLane || iters < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -226,7 +241,7 @@ extern "C" int uvip_anchor_refine(const float* img, int H, int W, const float* T
   }
   const int blocks = (n + kTracks - 1) / kTracks;
   const size_t smem = static_cast<size_t>(kTracks) * psize * psize * sizeof(float);
-  anchor_refine_kernel<<<blocks, kTracks * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+  anchor_refine_kernel<<<dim3(blocks, S), kTracks * 32, smem, static_cast<cudaStream_t>(stream)>>>(
       img, H, W, T, Tx, Ty, pts, valid, n, win, iters, psize, max_correction, max_residual,
       out, accept);
   return static_cast<int>(cudaGetLastError());

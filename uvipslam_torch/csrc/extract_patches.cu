@@ -12,6 +12,11 @@
 // (uvipslam_torch/ops/klt.py::_extract_patches) bit for bit, border,
 // outside and non-finite points included.
 //
+// A call serves S streams at once: img [S, H, W], pts [S, n, 2], out
+// [S, n, psize, psize], local [S, n, 2], stream s on blockIdx.y. Each
+// stream's corners are clipped to its own image, so a window near a border
+// never reads the neighbouring stream's pixels.
+//
 // Launch: kFeats features per block of kWarps warps. The block's
 // kFeats * psize patch rows are dealt to its warps; a warp copies one row
 // with its lanes on consecutive pixels, so each row is one coalesced load
@@ -39,6 +44,11 @@ __global__ void __launch_bounds__(kWarps * 32)
 extract_patches_kernel(const float* __restrict__ img, int H, int W,
                        const float* __restrict__ pts, int n, int psize,
                        float* __restrict__ out, float* __restrict__ local) {
+  const long long s = blockIdx.y;                   // stream
+  img += s * H * W;
+  pts += s * n * 2;
+  out += s * n * psize * psize;
+  local += s * n * 2;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int f0 = blockIdx.x * kFeats;
@@ -64,13 +74,14 @@ extract_patches_kernel(const float* __restrict__ img, int H, int W,
 
 }  // namespace
 
-extern "C" int uvip_extract_patches(const float* img, int H, int W, const float* pts,
-                                    int n, int psize, float* out, float* local,
-                                    void* stream) {
-  if (n <= 0) return 0;
+extern "C" int uvip_extract_patches(const float* img, int S, int H, int W,
+                                    const float* pts, int n, int psize, float* out,
+                                    float* local, void* stream) {
+  if (n <= 0 || S <= 0) return 0;
+  if (S > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (psize <= 0 || psize > H || psize > W) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (n + kFeats - 1) / kFeats;
-  extract_patches_kernel<<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  extract_patches_kernel<<<dim3(blocks, S), kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       img, H, W, pts, n, psize, out, local);
   return static_cast<int>(cudaGetLastError());
 }

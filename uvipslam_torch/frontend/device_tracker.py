@@ -36,7 +36,8 @@ from torch.profiler import record_function
 from uvipslam_torch.core import lie
 from uvipslam_torch.core.lie import mm, mv
 from uvipslam_torch.core.preintegration import PreintState
-from uvipslam_torch.core.tree import put_row, row, tree_map
+from uvipslam_torch.core.tree import (over_streams, put_row, put_streams, row, take_streams,
+                                      tree_map)
 from uvipslam_torch.frontend.frame import (Tracks, propagate_tracks, refill_tracks,
                                            refresh_descriptors)
 from uvipslam_torch.frontend.tracker import (INITIALIZING, LOST, NOT_INITIALIZED,
@@ -49,7 +50,7 @@ from uvipslam_torch.mapstate.map import MapState
 from uvipslam_torch.models.camera import CameraModel
 from uvipslam_torch.ops.clahe import clahe
 from uvipslam_torch.ops.klt import build_flow_pyramid
-from uvipslam_torch.ops.twoview import initialize_two_view
+from uvipslam_torch.ops.twoview import draw_uniform, initialize_two_view
 
 RING = 64
 
@@ -58,24 +59,36 @@ def _bool_read(x: torch.Tensor) -> bool:
     return bool(x.item())
 
 
-def device_hygiene(m: MapState, t: Tracks, frame_id, Rcw, tcw, fx, fy, cx, cy,
-                   compact_frac: float = 0.9, read=_bool_read):
-    """Per-keyframe map hygiene: cull weak landmarks, fuse recent
-    duplicates, sever dead track associations, and compact the landmark
-    table when it nears capacity (`read` turns that device flag into a
-    host bool)."""
+def hygiene_front(m: MapState, t: Tracks, frame_id, Rcw, tcw, fx, fy, cx, cy,
+                  compact_frac: float = 0.9):
+    """Per-keyframe map hygiene up to its one decision: cull weak
+    landmarks, fuse recent duplicates, sever dead track associations.
+    Returns (map, tracks, the device flag that the landmark table nears
+    capacity and wants `hygiene_compact`)."""
     m = cull_points(m, frame_id)
     m = fuse_duplicates_recent(m, frame_id, Rcw, tcw, fx, fy, cx, cy)
     pid = t.pt_id.clamp(0, m.pt_cap - 1).long()
     alive = (t.pt_id >= 0) & m.pt_valid[pid]
     t = dataclasses.replace(t, pt_id=torch.where(alive, t.pt_id, torch.full_like(t.pt_id, -1)))
-    if read(m.n_pt > int(compact_frac * m.pt_cap)):
-        m2, remap = compact_points(m)
-        pid = t.pt_id.clamp(0, m.pt_cap - 1).long()
-        live = (t.pt_id >= 0) & m.pt_valid[pid]
-        t = dataclasses.replace(t, pt_id=torch.where(live, remap[pid],
-                                                     torch.full_like(t.pt_id, -1)))
-        m = m2
+    return m, t, m.n_pt > int(compact_frac * m.pt_cap)
+
+
+def hygiene_compact(m: MapState, t: Tracks):
+    """Compact the landmark table and remap the tracks' associations."""
+    m2, remap = compact_points(m)
+    pid = t.pt_id.clamp(0, m.pt_cap - 1).long()
+    live = (t.pt_id >= 0) & m.pt_valid[pid]
+    t = dataclasses.replace(t, pt_id=torch.where(live, remap[pid], torch.full_like(t.pt_id, -1)))
+    return m2, t
+
+
+def device_hygiene(m: MapState, t: Tracks, frame_id, Rcw, tcw, fx, fy, cx, cy,
+                   compact_frac: float = 0.9, read=_bool_read):
+    """`hygiene_front`, then `hygiene_compact` when the flag holds (`read`
+    turns that device flag into a host bool)."""
+    m, t, full = hygiene_front(m, t, frame_id, Rcw, tcw, fx, fy, cx, cy, compact_frac)
+    if read(full):
+        m, t = hygiene_compact(m, t)
     return m, t
 
 
@@ -205,22 +218,68 @@ class MonoStep:
         return refill_tracks(tracks, img, frame_id, n_features=self.cfg.n_tracks,
                              px_distance=self.cfg.px_distance)
 
-    # -- branches (each returns the new state and its host-known label) --
-    def _not_initialized(self, st: TrackerState, img):
-        cfg = self.cfg
+    # -- the frame's shared stages (each maps over a stream dimension) ----
+    def _images(self, img):
+        img = img.to(device=self.device, dtype=torch.float32)
+        if self.cfg.enhance:
+            img = clahe(img)
+        return img, tuple(build_flow_pyramid(img, self.cfg.n_levels_klt))
+
+    def _propagate(self, st: TrackerState, pyr, u):
+        """Track propagation from the velocity-model pose; `u` are the
+        RANSAC gate's uniform draws (`twoview.draw_uniform`)."""
+        cfg, cam = self.cfg, self.cam
+        guess, guess_ok = _motion_guess(
+            st.tracks, st.map, mm(st.R_vel, st.Rcw), mv(st.R_vel, st.tcw) + st.t_vel,
+            cam.fx, cam.fy, cam.cx, cam.cy)
+        return propagate_tracks(st.tracks, st.pyr_prev, pyr, guess, guess_ok, None,
+                                win=cfg.klt_win, iters=cfg.klt_iters, levels=cfg.n_levels_klt,
+                                u=u)
+
+    def _ring_and_out(self, st: TrackerState, pyr):
+        """The pose ring (written on WORKING frames), the carried pyramid
+        and the frame's output."""
+        working = st.state == WORKING
+        slot = torch.remainder(st.frame_id, RING)
+        st = dataclasses.replace(
+            st, pyr_prev=pyr,
+            ring_R=torch.where(working, put_row(st.ring_R, slot, st.Rcw), st.ring_R),
+            ring_t=torch.where(working, put_row(st.ring_t, slot, st.tcw), st.ring_t),
+            ring_frame=torch.where(working, put_row(st.ring_frame, slot, st.frame_id),
+                                   st.ring_frame))
+        new_kf = torch.where(st.last_kf_frame == st.frame_id, st.last_kf_slot,
+                             torch.full_like(st.last_kf_slot, -1))
+        return st, StepOut(Rcw=st.Rcw, tcw=st.tcw, state=st.state,
+                           n_inliers=torch.zeros_like(st.state), new_kf=new_kf)
+
+    # -- branches: device flags, then the update of each outcome ----------
+    def _state(self, st, label: int):
+        return dataclasses.replace(st, state=torch.full_like(st.state, label))
+
+    def _not_init_detect(self, st: TrackerState, img):
         with record_function("step.refill"):
             tracks = self._undistort(self._refill(st.tracks, img, st.frame_id))
-        if not self._read_bool(torch.sum(tracks.valid) >= cfg.min_init_tracks):
-            return dataclasses.replace(st, tracks=tracks), NOT_INITIALIZED
-        tracks = dataclasses.replace(
-            tracks, birth_frame=torch.full_like(tracks.birth_frame, 0) + st.frame_id,
-            birth_xy_und=tracks.xy_und)
-        return dataclasses.replace(
-            st, tracks=tracks, state=_i32(INITIALIZING, self.device),
-            init_frame_id=st.frame_id.clone()), INITIALIZING
+        st = dataclasses.replace(st, tracks=tracks)
+        return st, torch.sum(tracks.valid) >= self.cfg.min_init_tracks
 
-    def _initializing(self, st: TrackerState, img):
-        cfg, dev = self.cfg, self.device
+    def _not_init_go(self, st: TrackerState):
+        t = st.tracks
+        t = dataclasses.replace(
+            t, birth_frame=torch.full_like(t.birth_frame, 0) + st.frame_id,
+            birth_xy_und=t.xy_und)
+        return dataclasses.replace(self._state(st, INITIALIZING), tracks=t,
+                                   init_frame_id=st.frame_id.clone())
+
+    def _not_initialized(self, st: TrackerState, img):
+        st, go = self._not_init_detect(st, img)
+        if not self._read_bool(go):
+            return st, NOT_INITIALIZED
+        return self._not_init_go(st), INITIALIZING
+
+    def _two_view(self, st: TrackerState):
+        """INITIALIZING's reconstruction (draws from `st.gen`) and its
+        (ok, stale) flags."""
+        cfg = self.cfg
         t = self._undistort(st.tracks)
         cand = t.valid & (t.birth_frame == st.init_frame_id)
         with record_function("step.two_view_init"):
@@ -229,7 +288,17 @@ class MonoStep:
         n_cand = torch.sum(cand)
         ok = rec["ok"] & (n_cand >= cfg.min_init_tracks // 2)
         stale = (n_cand < cfg.min_init_tracks // 2) | (st.frame_id - st.init_frame_id > 30)
-        ok_h, stale_h = self._read(ok, stale)
+        return (t, cand, rec), (ok, stale)
+
+    def _initializing(self, st: TrackerState, img, pre=None, decided=None):
+        """`pre`, `decided`: the reconstruction and its flags as read, when
+        the caller has them already (the fleet reads every stream's in one
+        table)."""
+        dev = self.device
+        if pre is None:
+            pre, flags = self._two_view(st)
+            decided = self._read(*flags)
+        (t, cand, rec), (ok_h, stale_h) = pre, decided
         if not ok_h:
             label = NOT_INITIALIZED if stale_h else INITIALIZING
             return dataclasses.replace(st, tracks=t, state=_i32(label, dev)), label
@@ -270,7 +339,9 @@ class MonoStep:
             n_ref_tracked=torch.sum(good).to(torch.int32),
             state=_i32(WORKING, dev)), WORKING
 
-    def _working(self, st: TrackerState, img):
+    def _working_solve(self, st: TrackerState):
+        """The pose + local-map solve from the velocity-model seed and the
+        (lost, need-keyframe) flags."""
         cfg, cam = self.cfg, self.cam
         t = self._undistort(st.tracks)
         Rp = mm(st.R_vel, st.Rcw)
@@ -282,10 +353,10 @@ class MonoStep:
         need_kf = (since >= cfg.kf_min_interval) & (
             (since >= cfg.kf_max_interval)
             | (n_in < cfg.kf_track_ratio * torch.clamp(st.n_ref_tracked, min=1)))
-        lost, need = self._read(n_in < cfg.min_tracked, need_kf)
-        if lost:
-            return dataclasses.replace(st, state=_i32(LOST, self.device)), LOST
+        return (R1, t1, t2), (n_in < cfg.min_tracked, need_kf)
 
+    def _working_apply(self, st: TrackerState, ml, img):
+        R1, t1, t2 = ml
         Rcw = lie.normalize_rotation(R1)
         Rinv, tinv = lie.se3_inverse(st.Rcw, st.tcw)
         R_vel, t_vel = lie.se3_compose(R1, t1, Rinv, tinv)
@@ -295,14 +366,24 @@ class MonoStep:
         newborn = tracks.birth_frame == st.frame_id
         tracks = dataclasses.replace(tracks, birth_xy_und=torch.where(
             newborn[:, None], tracks.xy_und, tracks.birth_xy_und))
-        st = dataclasses.replace(st, tracks=tracks, Rcw=Rcw, tcw=t1,
-                                 R_vel=lie.normalize_rotation(R_vel), t_vel=t_vel)
+        return dataclasses.replace(st, tracks=tracks, Rcw=Rcw, tcw=t1,
+                                   R_vel=lie.normalize_rotation(R_vel), t_vel=t_vel)
+
+    def _working(self, st: TrackerState, img):
+        ml, flags = self._working_solve(st)
+        lost, need = self._read(*flags)
+        if lost:
+            return self._state(st, LOST), LOST
+        st = self._working_apply(st, ml, img)
         if need:
             with record_function("step.keyframe"):
                 st = self._create_kf(st)
         return st, WORKING
 
-    def _create_kf(self, st: TrackerState) -> TrackerState:
+    def _kf_front(self, st: TrackerState):
+        """Triangulation, the keyframe, the window BA, its pose adopted,
+        and the map hygiene up to its compaction flag (returned beside the
+        state)."""
         cam = self.cam
         m, t = _triangulate_new(st.map, st.tracks, st.ring_R, st.ring_t, st.ring_frame,
                                 st.Rcw, st.tcw, cam.fx, cam.fy, cam.cx, cam.cy,
@@ -313,13 +394,29 @@ class MonoStep:
                               self.zero_preint, st.last_kf_slot)
         m = self._run_local_ba(m)
         Rcw, tcw = _ns_to_cam_pose(_nav_row(m.kf_ns, k))
+        compact = torch.zeros_like(st.state, dtype=torch.bool)
         if self.cfg.map_hygiene:
-            m, t = device_hygiene(m, t, st.frame_id, Rcw, tcw, cam.fx, cam.fy, cam.cx,
-                                  cam.cy, read=self._read_bool)
-        return dataclasses.replace(
+            m, t, compact = hygiene_front(m, t, st.frame_id, Rcw, tcw, cam.fx, cam.fy, cam.cx,
+                                          cam.cy)
+        st = dataclasses.replace(
             st, tracks=t, map=m, Rcw=Rcw, tcw=tcw, last_kf_slot=k.to(torch.int32),
-            last_kf_frame=st.frame_id.clone(),
-            n_ref_tracked=torch.sum(t.valid & (t.pt_id >= 0)).to(torch.int32))
+            last_kf_frame=st.frame_id.clone())
+        return st, compact
+
+    def _compact(self, st: TrackerState):
+        m, t = hygiene_compact(st.map, st.tracks)
+        return dataclasses.replace(st, map=m, tracks=t)
+
+    def _kf_finish(self, st: TrackerState):
+        t = st.tracks
+        return dataclasses.replace(
+            st, n_ref_tracked=torch.sum(t.valid & (t.pt_id >= 0)).to(torch.int32))
+
+    def _create_kf(self, st: TrackerState) -> TrackerState:
+        st, compact = self._kf_front(st)
+        if self.cfg.map_hygiene and self._read_bool(compact):
+            st = self._compact(st)
+        return self._kf_finish(st)
 
     def _relocalize(self, st, img):
         """A fresh detection, relocalized against the map
@@ -348,47 +445,164 @@ class MonoStep:
     # ------------------------------------------------------------------
     def __call__(self, st: TrackerState, img: torch.Tensor):
         """One frame. The RANSAC minimal samples draw from `st.gen`."""
-        cfg, cam = self.cfg, self.cam
-        img = img.to(device=self.device, dtype=torch.float32)
-        frame_id = st.frame_id + 1
-        if cfg.enhance:
-            img = clahe(img)
-        pyr = tuple(build_flow_pyramid(img, cfg.n_levels_klt))
-        st = dataclasses.replace(st, frame_id=frame_id)
+        img, pyr = self._images(img)
+        st = dataclasses.replace(st, frame_id=st.frame_id + 1)
 
         state = self._read(st.state)
         if state in (INITIALIZING, WORKING):
             with record_function("step.propagate"):
-                guess, guess_ok = _motion_guess(
-                    st.tracks, st.map, mm(st.R_vel, st.Rcw), mv(st.R_vel, st.tcw) + st.t_vel,
-                    cam.fx, cam.fy, cam.cx, cam.cy)
-                tracks = propagate_tracks(st.tracks, st.pyr_prev, pyr, guess, guess_ok,
-                                          st.gen, win=cfg.klt_win, iters=cfg.klt_iters,
-                                          levels=cfg.n_levels_klt)
-            st = dataclasses.replace(st, tracks=tracks)
+                u = draw_uniform(st.gen, 200, self.cfg.n_tracks, self.device)
+                st = dataclasses.replace(st, tracks=self._propagate(st, pyr, u))
 
         if state == NOT_INITIALIZED:
-            st, label = self._not_initialized(st, img)
+            st, _ = self._not_initialized(st, img)
         elif state == INITIALIZING:
-            st, label = self._initializing(st, img)
+            st, _ = self._initializing(st, img)
         elif state == WORKING:
-            st, label = self._working(st, img)
+            st, _ = self._working(st, img)
         else:
-            st, label = self._lost(st, img)
+            st, _ = self._lost(st, img)
+        return self._ring_and_out(st, pyr)
 
-        st = dataclasses.replace(st, pyr_prev=pyr)
-        if label == WORKING:
-            slot = torch.remainder(frame_id, RING)
-            st = dataclasses.replace(
-                st, ring_R=put_row(st.ring_R, slot, st.Rcw),
-                ring_t=put_row(st.ring_t, slot, st.tcw),
-                ring_frame=put_row(st.ring_frame, slot, frame_id))
-        new_kf = torch.where(st.last_kf_frame == frame_id, st.last_kf_slot,
-                             torch.full_like(st.last_kf_slot, -1))
-        out = StepOut(Rcw=st.Rcw, tcw=st.tcw, state=st.state,
-                      n_inliers=torch.zeros((), dtype=torch.int32, device=self.device),
-                      new_kf=new_kf)
-        return st, out
+
+class Fleet:
+    """What the fleet steps share: the host reads of per-stream flag
+    tables and the stream subsets (rows gathered for a stage, scattered
+    back after it)."""
+
+    def __init__(self, one):
+        self.one = one                    # the single-stream step: constants and stages
+        self.cfg, self.device = one.cfg, one.device
+        self.fleet_syncs = 0
+        self._ix_cache: dict = {}
+
+    @property
+    def host_syncs(self) -> int:
+        """Host reads: the fleet's tables plus the per-stream branches'."""
+        return self.fleet_syncs + self.one.host_syncs
+
+    def _read(self, *flags: torch.Tensor) -> list:
+        """One host sync for an [n] column per flag -> n rows of ints."""
+        self.fleet_syncs += 1
+        return torch.stack([f.to(torch.int64) for f in flags], dim=-1).tolist()
+
+    def _ix(self, ids) -> torch.Tensor:
+        """Device index tensor of a stream subset (cached: a subset seen
+        before costs no host-to-device copy)."""
+        key = tuple(ids)
+        if key not in self._ix_cache:
+            self._ix_cache[key] = torch.tensor(key, dtype=torch.long).to(self.device)
+        return self._ix_cache[key]
+
+    def _take(self, tree, ids, of):
+        """The rows of streams `ids` out of a tree that holds streams `of`
+        (both ascending; the whole tree when they are the same)."""
+        if len(ids) == len(of):
+            return tree
+        pos = {s: p for p, s in enumerate(of)}
+        return take_streams(tree, self._ix([pos[i] for i in ids]))
+
+    def _put(self, tree, ids, sub, of):
+        """`tree` (streams `of`) with the rows of streams `ids` replaced."""
+        if len(ids) == len(of):
+            return sub
+        pos = {s: p for p, s in enumerate(of)}
+        return put_streams(tree, self._ix([pos[i] for i in ids]), sub)
+
+    def _row(self, tree, i: int, gen=None):
+        """Stream i's single-stream tree (views), with its generator."""
+        r = tree_map(lambda a: a[i], tree)
+        return dataclasses.replace(r, gen=gen) if gen is not None else r
+
+    def _put_row(self, tree, i: int, r):
+        return put_streams(tree, self._ix([i]), tree_map(lambda a: a[None], r))
+
+
+class MonoFleetStep(Fleet):
+    """The mono step over a fleet of S streams in lockstep:
+    `st, out = step(st, imgs, gens)` with a leading [S] on every tensor
+    leaf and one `torch.Generator` per stream held beside the state.
+
+    Per frame one host read of the [S] states; the streams are grouped by
+    state and every stage of `MonoStep` runs once over the streams that
+    take it (`tree.over_streams`), each branch decision one read of an
+    [n, k] table. INITIALIZING's two-view reconstruction and LOST's
+    relocalization run per stream through `MonoStep`'s own code."""
+
+    def __init__(self, cam: CameraModel, cfg: TrackerConfig, device="cuda"):
+        super().__init__(MonoStep(cam, cfg, device=device))
+
+    def __call__(self, st: TrackerState, imgs: torch.Tensor, gens):
+        one, cfg, dev = self.one, self.cfg, self.device
+        S = st.state.shape[0]
+        every = list(range(S))
+
+        imgs, pyr = over_streams(one._images, imgs)
+        st = dataclasses.replace(st, frame_id=st.frame_id + 1)
+        s = [f[0] for f in self._read(st.state)]
+
+        def group(*states):
+            return [i for i in every if s[i] in states]
+
+        g = group(INITIALIZING, WORKING)
+        if g:
+            with record_function("step.propagate"):
+                u = torch.stack([draw_uniform(gens[i], 200, cfg.n_tracks, dev) for i in g])
+                sub = over_streams(one._propagate, self._take(st, g, every),
+                                   self._take(pyr, g, every), u)
+            st = dataclasses.replace(st, tracks=self._put(st.tracks, g, sub, every))
+
+        g = group(NOT_INITIALIZED)
+        if g:
+            sub, go = over_streams(one._not_init_detect, self._take(st, g, every),
+                                   self._take(imgs, g, every))
+            g_go = [i for i, f in zip(g, self._read(go)) if f[0]]
+            if g_go:
+                sub = self._put(sub, g_go, over_streams(one._not_init_go,
+                                                        self._take(sub, g_go, g)), g)
+            st = self._put(st, g, sub, every)
+
+        g = group(INITIALIZING)
+        if g:
+            pres = [one._two_view(self._row(st, i, gens[i])) for i in g]
+            dec = self._read(torch.stack([f[0] for _, f in pres]),
+                             torch.stack([f[1] for _, f in pres]))
+            for i, (pre, _), d in zip(g, pres, dec):
+                r, _ = one._initializing(self._row(st, i, gens[i]), imgs[i], pre, tuple(d))
+                st = self._put_row(st, i, r)
+
+        g = group(WORKING)
+        if g:
+            sub = self._take(st, g, every)
+            ml, fl = over_streams(one._working_solve, sub)
+            dec = self._read(*fl)
+            live = [i for i, d in zip(g, dec) if not d[0]]
+            lost = [i for i, d in zip(g, dec) if d[0]]
+            if lost:
+                sub = self._put(sub, lost, over_streams(one._state, self._take(sub, lost, g),
+                                                        label=LOST), g)
+            if live:
+                new = over_streams(one._working_apply, self._take(sub, live, g),
+                                   self._take(ml, live, g), self._take(imgs, live, every))
+                kf = [i for i, d in zip(g, dec) if not d[0] and d[1]]
+                if kf:
+                    with record_function("step.keyframe"):
+                        k_new, compact = over_streams(one._kf_front, self._take(new, kf, live))
+                        if cfg.map_hygiene:
+                            full = [i for i, f in zip(kf, self._read(compact)) if f[0]]
+                            if full:
+                                k_new = self._put(k_new, full, over_streams(
+                                    one._compact, self._take(k_new, full, kf)), kf)
+                        k_new = over_streams(one._kf_finish, k_new)
+                    new = self._put(new, kf, k_new, live)
+                sub = self._put(sub, live, new, g)
+            st = self._put(st, g, sub, every)
+
+        for i in group(LOST):
+            r, _ = one._lost(self._row(st, i, gens[i]), imgs[i])
+            st = self._put_row(st, i, r)
+
+        return over_streams(one._ring_and_out, st, pyr)
 
 
 def relocalize_pose(tracks, m: MapState, gen, cam: CameraModel, scale_sigmas):

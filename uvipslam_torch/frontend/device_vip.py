@@ -43,10 +43,10 @@ from uvipslam_torch.core.lie import mm, mv
 from uvipslam_torch.core.preintegration import (PreintState, bias_correct, preintegrate,
                                                 preintegrate_continue)
 from uvipslam_torch.core.state import NavState
-from uvipslam_torch.core.tree import put_row, row, tree_map
-from uvipslam_torch.frontend.device_tracker import (RING, _i32, _nanmedian, _nav_row,
-                                                    device_hygiene, relocalize_pose,
-                                                    step_device)
+from uvipslam_torch.core.tree import over_streams, put_row, row, tree_map
+from uvipslam_torch.frontend.device_tracker import (RING, Fleet, _i32, _nanmedian, _nav_row,
+                                                    hygiene_compact, hygiene_front,
+                                                    relocalize_pose, step_device)
 from uvipslam_torch.frontend.frame import (Tracks, propagate_tracks, refill_tracks,
                                            refresh_descriptors)
 from uvipslam_torch.frontend.tracker import (IMU_RELOC, INITIALIZING, LOST, NOT_INITIALIZED,
@@ -60,7 +60,7 @@ from uvipslam_torch.mapstate.map import MapState
 from uvipslam_torch.models.camera import CameraModel
 from uvipslam_torch.ops.clahe import clahe
 from uvipslam_torch.ops.klt import build_flow_pyramid
-from uvipslam_torch.ops.twoview import initialize_two_view
+from uvipslam_torch.ops.twoview import draw_uniform, initialize_two_view
 from uvipslam_torch.solver.global_ba import global_ba_visual
 from uvipslam_torch.vio import init as vio_init
 
@@ -210,6 +210,7 @@ class VipStep:
         self.eye3 = torch.eye(3, **f32).to(dev)
         self.zero3 = torch.zeros(3, **f32).to(dev)
         self.zero_preint = PreintState.zero((), device=dev)
+        self.empty_tracks = Tracks.empty(cfg.n_tracks, device=dev)
         self.ft_min = max(20, round(0.15 * cfg.n_tracks))
         self.reloc_min = max(10, round(0.0625 * cfg.n_tracks))   # >= 25/400 inliers
         self.host_syncs = 0
@@ -394,28 +395,123 @@ class VipStep:
             vio_ok=torch.ones((), dtype=torch.bool, device=dev), H_prior=self.H0)
         return st_ok, ok
 
-    # -- state branches ------------------------------------------------
-    def _not_initialized(self, st):
+    # -- the frame's shared stages ---------------------------------------
+    # Each takes one stream's tensors and makes no host read, so the fleet
+    # fleet step runs it once over a stream dimension (`tree.over_streams`).
+    def _images(self, b: FrameBundle):
+        """The frame's image on the device, enhanced when asked, and its
+        flow pyramid."""
+        img = b.img.to(device=self.device, dtype=torch.float32)
+        if self.cfg.enhance:
+            img = clahe(img)
+        return dataclasses.replace(b, img=img), tuple(build_flow_pyramid(img,
+                                                                         self.cfg.n_levels_klt))
+
+    def _preintegrate(self, st, b: FrameBundle):
+        st = dataclasses.replace(st, frame_id=st.frame_id + 1)
+        st, pre_frame = self._accumulate(st, b)
+        ns_pred = self._predict(st.ns, pre_frame)
+        Rcw_pred, tcw_pred = self._cam_pose(ns_pred)
+        return st, pre_frame, ns_pred, Rcw_pred, tcw_pred
+
+    def _propagate(self, st, pyr, Rcw_pred, tcw_pred, u):
+        """Track propagation from the motion-model pose: the IMU
+        prediction after VIO init, the velocity model before. `u` are the
+        RANSAC gate's uniform draws (`twoview.draw_uniform`)."""
+        cfg, cam = self.cfg, self.cam
+        Rp = torch.where(st.vio_ok, Rcw_pred, mm(st.R_vel, st.Rcw))
+        tp = torch.where(st.vio_ok, tcw_pred, mv(st.R_vel, st.tcw) + st.t_vel)
+        guess, guess_ok = _motion_guess(st.tracks, st.map, Rp, tp, cam.fx, cam.fy, cam.cx, cam.cy)
+        return propagate_tracks(st.tracks, st.pyr_prev, pyr, guess, guess_ok, None,
+                                win=cfg.klt_win, iters=cfg.klt_iters, levels=cfg.n_levels_klt,
+                                u=u)
+
+    def _detect(self, st, img):
+        """Shared detection: LOST and a new recovery anchor restart from
+        an empty table; NOT_INITIALIZED and WORKING top up dead slots."""
         cfg = self.cfg
+        fresh = (st.state == LOST) | ((st.state == IMU_RELOC) & (st.rec_frame < 0))
+        base = tree_map(lambda t, e: torch.where(fresh, e, t), st.tracks, self.empty_tracks)
+        tracks = refill_tracks(base, img, st.frame_id, n_features=cfg.n_tracks,
+                               px_distance=cfg.px_distance)
+        return refresh_descriptors(tracks, img)
+
+    def _finish_tracks(self, st, tracks):
+        tracks = self._undistort(tracks)
+        newborn = tracks.birth_frame == st.frame_id
+        tracks = dataclasses.replace(tracks, birth_xy_und=torch.where(
+            newborn[:, None], tracks.xy_und, tracks.birth_xy_und))
+        return dataclasses.replace(st, tracks=tracks)
+
+    def _two_view(self, st, s: int):
+        """Shared two-view reconstruction (init and the recovery
+        re-anchor); draws from `st.gen`."""
+        tracks = st.tracks
+        anchor = st.rec_frame if s == IMU_RELOC else st.init_frame_id
+        cand_tv = tracks.valid & (tracks.birth_frame == anchor)
+        with record_function("step.two_view_init"):
+            rec = initialize_two_view(st.gen, tracks.birth_xy_und, tracks.xy_und, cand_tv,
+                                      self.K, sigma=1.0)
+        return rec, cand_tv
+
+    def _mono_seed_solve(self, st):
+        """Pose + local-map solve from the motion-model seed."""
+        cam = self.cam
+        R, t, _, n, tr = _pose_and_localmap(st.tracks, st.map, mm(st.R_vel, st.Rcw),
+                                            mv(st.R_vel, st.tcw) + st.t_vel, cam.fx, cam.fy,
+                                            cam.cx, cam.cy, self.scale_sigmas)
+        return R, t, n, tr
+
+    def _ring_and_out(self, st, pyr):
+        """The pose ring (written on WORKING frames), the carried pyramid
+        and the frame's output."""
+        working = st.state == WORKING
+        slot = torch.remainder(st.frame_id, RING)
+        st = dataclasses.replace(
+            st, pyr_prev=pyr,
+            ring_R=torch.where(working, put_row(st.ring_R, slot, st.Rcw), st.ring_R),
+            ring_t=torch.where(working, put_row(st.ring_t, slot, st.tcw), st.ring_t),
+            ring_frame=torch.where(working, put_row(st.ring_frame, slot, st.frame_id),
+                                   st.ring_frame))
+        new_kf = torch.where(st.last_kf_frame == st.frame_id, st.last_kf_slot,
+                             torch.full_like(st.last_kf_slot, -1))
+        return st, VipStepOut(Rcw=st.Rcw, tcw=st.tcw, p_w=st.ns.p, state=st.state,
+                              vio_ok=st.vio_ok, new_kf=new_kf)
+
+    # -- state branches: device flags, then the update of each outcome ----
+    def _state(self, st, label: int):
+        return dataclasses.replace(st, state=torch.full_like(st.state, label))
+
+    def _not_init_flag(self, st):
+        return torch.sum(st.tracks.valid) >= self.cfg.min_init_tracks
+
+    def _not_init_go(self, st):
         t = st.tracks
-        st = self._zero_kf_accumulators(st)
-        if not self._read_bool(torch.sum(t.valid) >= cfg.min_init_tracks):
-            return st, NOT_INITIALIZED, _Ctl()
         t = dataclasses.replace(t, birth_frame=torch.full_like(t.birth_frame, 0) + st.frame_id,
                                 birth_xy_und=t.xy_und)
-        return dataclasses.replace(st, tracks=t, state=_i32(INITIALIZING, self.device),
+        return dataclasses.replace(self._state(st, INITIALIZING), tracks=t,
                                    init_frame_id=st.frame_id.clone(),
-                                   init_time=st.frame_time.clone()), INITIALIZING, _Ctl()
+                                   init_time=st.frame_time.clone())
 
-    def _initializing(self, st, b, rec, cand_tv):
-        cfg, dev = self.cfg, self.device
+    def _not_initialized(self, st):
+        st = self._zero_kf_accumulators(st)
+        if not self._read_bool(self._not_init_flag(st)):
+            return st, NOT_INITIALIZED, _Ctl()
+        return self._not_init_go(st), INITIALIZING, _Ctl()
+
+    def _initializing_flags(self, st, rec, cand_tv):
+        cfg = self.cfg
         n_cand = torch.sum(cand_tv)
-        ok_h, stale_h = self._read(rec["ok"] & (n_cand >= cfg.min_init_tracks // 2),
-                                   (n_cand < cfg.min_init_tracks // 2)
-                                   | (st.frame_id - st.init_frame_id > 30))
+        return (rec["ok"] & (n_cand >= cfg.min_init_tracks // 2),
+                (n_cand < cfg.min_init_tracks // 2) | (st.frame_id - st.init_frame_id > 30))
+
+    def _initializing(self, st, b, rec, cand_tv, decided=None):
+        """`decided` = the (ok, stale) flags when the caller has read them
+        already (the fleet reads every stream's in one table)."""
+        ok_h, stale_h = decided or self._read(*self._initializing_flags(st, rec, cand_tv))
         if not ok_h:
             label = NOT_INITIALIZED if stale_h else INITIALIZING
-            return dataclasses.replace(st, state=_i32(label, dev)), label, _Ctl()
+            return self._state(st, label), label, _Ctl()
         t = st.tracks
         good = rec["good"]
         z = rec["points"][:, 2]
@@ -456,59 +552,76 @@ class VipStep:
         return _Ctl(want_kf=need, want_ba=need, want_hyg=need and self.cfg.map_hygiene,
                     want_trigger=trigger)
 
-    def _mono_working(self, st, ml):
-        R_ml, t_ml, n_ml, tr_ml = ml
-        lost, need = self._read(n_ml < self.cfg.min_tracked, self._need_kf(st, n_ml))
-        if lost:
-            return dataclasses.replace(st, state=_i32(LOST, self.device)), LOST, _Ctl()
+    def _mono_flags(self, st, ml):
+        n_ml = ml[2]
+        return n_ml < self.cfg.min_tracked, self._need_kf(st, n_ml)
+
+    def _mono_apply(self, st, ml):
+        R_ml, t_ml, _, tr_ml = ml
         Rinv, tinv = lie.se3_inverse(st.Rcw, st.tcw)
         R_vel, t_vel = lie.se3_compose(R_ml, t_ml, Rinv, tinv)
-        st = dataclasses.replace(st, tracks=tr_ml, Rcw=lie.normalize_rotation(R_ml), tcw=t_ml,
-                                 R_vel=lie.normalize_rotation(R_vel), t_vel=t_vel)
-        return st, WORKING, self._kf_ctl(bool(need), trigger=bool(need))
+        return dataclasses.replace(st, tracks=tr_ml, Rcw=lie.normalize_rotation(R_ml), tcw=t_ml,
+                                   R_vel=lie.normalize_rotation(R_vel), t_vel=t_vel)
 
-    def _vi_working(self, st, b, ns_pred, Rcw_pred, tcw_pred, pre_frame):
+    def _mono_working(self, st, ml):
+        lost, need = self._read(*self._mono_flags(st, ml))
+        if lost:
+            return self._state(st, LOST), LOST, _Ctl()
+        return self._mono_apply(st, ml), WORKING, self._kf_ctl(bool(need), trigger=bool(need))
+
+    def _vi_solve(self, st, tracks, b, ns_pred, pre_frame):
         cfg, cam = self.cfg, self.cam
         depth_info = torch.where(b.depth_valid, torch.full_like(b.depth, self.depth_info),
                                  torch.zeros_like(b.depth))
+        return _vi_track(tracks, st.map, ns_pred, st.ns, pre_frame, self.gravity, cam.fx,
+                         cam.fy, cam.cx, cam.cy, self.scale_sigmas, cfg.gyr_bias_rw2,
+                         cfg.acc_bias_rw2, b.depth, depth_info, st.H_prior, self.Rcb, self.tcb)
 
-        def solve(tk):
-            with record_function("step.vi_track"):
-                return _vi_track(tk, st.map, ns_pred, st.ns, pre_frame, self.gravity, cam.fx,
-                                 cam.fy, cam.cx, cam.cy, self.scale_sigmas, cfg.gyr_bias_rw2,
-                                 cfg.acc_bias_rw2, b.depth, depth_info, st.H_prior, self.Rcb,
-                                 self.tcb)
+    def _vi_lane0(self, st, b, ns_pred, pre_frame):
+        """Lane 0, the normal associations: the solve and its (ok,
+        need-keyframe) flags."""
+        out = self._vi_solve(st, st.tracks, b, ns_pred, pre_frame)
+        return out, (out[2] >= self.cfg.min_tracked, self._need_kf(st, out[2]))
 
-        # lane 0: the normal associations; lane 1 (only when lane 0
-        # fails): the first-try relocalization associations, which force
-        # a keyframe
-        out = solve(st.tracks)
-        ok, need = self._read(out[2] >= cfg.min_tracked, self._need_kf(st, out[2]))
-        if not ok:
-            with record_function("step.first_try"):
-                ft_pid, ft_nm = first_try_associations(
-                    st.tracks, st.map, torch.clamp(st.last_kf_slot, 0, self.kf_cap - 1),
-                    Rcw_pred, tcw_pred, cam.fx, cam.fy, cam.cx, cam.cy,
-                    min_matches=self.ft_min)
-                ft_gate = (ft_nm >= self.ft_min) & (st.last_kf_slot >= 0) & cfg.reloc_first_try
-                tracks_ft = dataclasses.replace(
-                    st.tracks, pt_id=torch.where(ft_gate, ft_pid, torch.full_like(ft_pid, -1)))
-            out = solve(tracks_ft)
-            ok = need = self._read_bool(out[2] >= self.reloc_min)
-        if not ok:
-            # IMU dead-reckoning with the pressure-z override; the anchor
-            # (fresh detection + stash) is captured on the next frame
-            st = dataclasses.replace(self._dead_reckon(st, b, ns_pred),
-                                     state=_i32(IMU_RELOC, self.device),
-                                     rec_frame=_i32(-1, self.device), H_prior=self.H0)
-            return st, IMU_RELOC, _Ctl()
+    def _vi_apply(self, st, out):
         ns_opt, _, _, tracks2, H_post = out
         tr = torch.trace(H_post) / 15.0
         H_new = (H_post + torch.eye(15, dtype=torch.float32, device=self.device) * 1e-3) * \
             torch.clamp(1e6 / torch.clamp(tr, min=1e-6), max=1.0)
         Rcw, tcw = self._cam_pose(ns_opt)
-        st = dataclasses.replace(st, tracks=tracks2, ns=ns_opt, Rcw=Rcw, tcw=tcw, H_prior=H_new)
-        return st, WORKING, self._kf_ctl(bool(need), trigger=False)
+        return dataclasses.replace(st, tracks=tracks2, ns=ns_opt, Rcw=Rcw, tcw=tcw,
+                                   H_prior=H_new)
+
+    def _vi_lane1(self, st, b, ns_pred, Rcw_pred, tcw_pred, pre_frame):
+        """Lane 1 (only when lane 0 fails): the first-try relocalization
+        associations, which force a keyframe; on their failure IMU
+        dead-reckoning with the pressure-z override (the anchor, a fresh
+        detection + stash, is captured on the next frame)."""
+        cam, cfg = self.cam, self.cfg
+        with record_function("step.first_try"):
+            ft_pid, ft_nm = first_try_associations(
+                st.tracks, st.map, torch.clamp(st.last_kf_slot, 0, self.kf_cap - 1),
+                Rcw_pred, tcw_pred, cam.fx, cam.fy, cam.cx, cam.cy,
+                min_matches=self.ft_min)
+            ft_gate = (ft_nm >= self.ft_min) & (st.last_kf_slot >= 0) & cfg.reloc_first_try
+            tracks_ft = dataclasses.replace(
+                st.tracks, pt_id=torch.where(ft_gate, ft_pid, torch.full_like(ft_pid, -1)))
+        with record_function("step.vi_track"):
+            out = self._vi_solve(st, tracks_ft, b, ns_pred, pre_frame)
+        if self._read_bool(out[2] >= self.reloc_min):
+            return self._vi_apply(st, out), WORKING, self._kf_ctl(True, trigger=False)
+        st = dataclasses.replace(self._dead_reckon(st, b, ns_pred),
+                                 state=_i32(IMU_RELOC, self.device),
+                                 rec_frame=_i32(-1, self.device), H_prior=self.H0)
+        return st, IMU_RELOC, _Ctl()
+
+    def _vi_working(self, st, b, ns_pred, Rcw_pred, tcw_pred, pre_frame):
+        with record_function("step.vi_track"):
+            out, flags = self._vi_lane0(st, b, ns_pred, pre_frame)
+        ok, need = self._read(*flags)
+        if not ok:
+            return self._vi_lane1(st, b, ns_pred, Rcw_pred, tcw_pred, pre_frame)
+        return self._vi_apply(st, out), WORKING, self._kf_ctl(bool(need), trigger=False)
 
     def _dead_reckon(self, st, b, ns_pred):
         p = ns_pred.p.clone()
@@ -615,56 +728,91 @@ class VipStep:
                               imu_dt=st.kf_dt, imu_mask=st.kf_mask)
         return dataclasses.replace(st, tracks=t, map=m), k
 
-    def _ba_and_adopt(self, st, ctl: _Ctl, vio_ok: bool):
-        """One windowed BA (mono xor VI), pose adoption of keyframe
-        `ctl.adopt`, hygiene, the WORKING transition and the VIO-init
-        trigger."""
-        cam, cfg = self.cam, self.cfg
+    def _ba_front(self, st, k, vio_ok: bool, hygiene: bool):
+        """One windowed BA (mono xor VI), pose adoption of keyframe `k`,
+        the WORKING transition, and the map hygiene up to its compaction
+        flag (returned beside the state)."""
+        cam = self.cam
         if vio_ok:
             with record_function("step.vi_ba"):
                 m = self._vi_ba(st.map)
         else:
             with record_function("step.local_ba"):
                 m = self._mono_ba(st.map)
-        k = ctl.adopt
         ns_k = _nav_row(m.kf_ns, k)
         Rcw, tcw = self._cam_pose(ns_k) if vio_ok else _ns_to_cam_pose(ns_k)
         t = st.tracks
-        if ctl.want_hyg:
-            m, t = device_hygiene(m, t, st.frame_id, Rcw, tcw, cam.fx, cam.fy, cam.cx, cam.cy,
-                                  read=self._read_bool)
+        compact = torch.zeros_like(st.vio_ok)
+        if hygiene:
+            m, t, compact = hygiene_front(m, t, st.frame_id, Rcw, tcw, cam.fx, cam.fy, cam.cx,
+                                          cam.cy)
         st = dataclasses.replace(
-            st, tracks=t, map=m, ns=ns_k if vio_ok else st.ns, Rcw=Rcw, tcw=tcw,
-            last_kf_slot=k.to(torch.int32), last_kf_frame=st.frame_id.clone(),
-            n_ref_tracked=torch.sum(t.valid & (t.pt_id >= 0)).to(torch.int32),
-            H_prior=self.H0, state=_i32(WORKING, self.device))
-        st = self._zero_kf_accumulators(st)
-        if ctl.want_trigger and not vio_ok:
-            t_span = row(m.kf_time, torch.clamp(m.n_kf - 1, min=0)) - m.kf_time[0]
-            if self._read_bool((m.n_kf >= cfg.vio_init_min_kfs)
-                               & (t_span >= cfg.vio_init_min_time)):
-                with record_function("step.vio_init"):
-                    st_ok, ok = self._try_init_vio(st)
-                if self._read_bool(ok):
-                    st = st_ok
+            self._state(st, WORKING), tracks=t, map=m, ns=ns_k if vio_ok else st.ns, Rcw=Rcw,
+            tcw=tcw, last_kf_slot=k.to(torch.int32), last_kf_frame=st.frame_id.clone(),
+            H_prior=self.H0)
+        return st, compact
+
+    def _compact(self, st):
+        m, t = hygiene_compact(st.map, st.tracks)
+        return dataclasses.replace(st, map=m, tracks=t)
+
+    def _ba_finish(self, st):
+        t = st.tracks
+        st = dataclasses.replace(
+            st, n_ref_tracked=torch.sum(t.valid & (t.pt_id >= 0)).to(torch.int32))
+        return self._zero_kf_accumulators(st)
+
+    def _trigger_flag(self, st):
+        """The VIO-init trigger: enough keyframes over enough time."""
+        cfg, m = self.cfg, st.map
+        t_span = row(m.kf_time, torch.clamp(m.n_kf - 1, min=0)) - m.kf_time[0]
+        return (m.n_kf >= cfg.vio_init_min_kfs) & (t_span >= cfg.vio_init_min_time)
+
+    def _ba_and_adopt(self, st, ctl: _Ctl, vio_ok: bool):
+        """Stage D of one stream: BA and adoption, hygiene with its
+        compaction, and the VIO-init trigger."""
+        st, compact = self._ba_front(st, ctl.adopt, vio_ok, ctl.want_hyg)
+        if ctl.want_hyg and self._read_bool(compact):
+            st = self._compact(st)
+        st = self._ba_finish(st)
+        if ctl.want_trigger and not vio_ok and self._read_bool(self._trigger_flag(st)):
+            with record_function("step.vio_init"):
+                st_ok, ok = self._try_init_vio(st)
+            if self._read_bool(ok):
+                st = st_ok
         return st
 
     # ------------------------------------------------------------------
+    def _branch(self, st, b, s: int, vio_ok: bool, has_anchor: bool, ns_pred, Rcw_pred,
+                tcw_pred, pre_frame):
+        """One stream's state branch with the stages only it runs (the
+        two-view reconstruction, the mono solve, the relocalization).
+        Returns (state, label, ctl)."""
+        rec = cand_tv = None
+        if s == INITIALIZING or (s == IMU_RELOC and has_anchor):
+            rec, cand_tv = self._two_view(st, s)
+        if s == NOT_INITIALIZED:
+            return self._not_initialized(st)
+        if s == INITIALIZING:
+            return self._initializing(st, b, rec, cand_tv)
+        if s == WORKING and vio_ok:
+            return self._vi_working(st, b, ns_pred, Rcw_pred, tcw_pred, pre_frame)
+        if s == WORKING:
+            with record_function("step.pose_localmap"):
+                ml = self._mono_seed_solve(st)
+            return self._mono_working(st, ml)
+        if s == LOST:
+            with record_function("step.relocalize"):
+                ml = relocalize_pose(st.tracks, st.map, st.gen, self.cam, self.scale_sigmas)
+            return self._lost(st, ml)
+        return self._recovery(st, b, ns_pred, rec, cand_tv, has_anchor)
+
     def __call__(self, st: VipTrackerState, b: FrameBundle):
         """One frame bundle. RANSAC minimal samples draw from `st.gen`."""
-        cfg, cam, dev = self.cfg, self.cam, self.device
-        img = b.img.to(device=dev, dtype=torch.float32)
-        if cfg.enhance:
-            img = clahe(img)
-        b = dataclasses.replace(b, img=img)
-        frame_id = st.frame_id + 1
-        pyr = tuple(build_flow_pyramid(img, cfg.n_levels_klt))
-        st = dataclasses.replace(st, frame_id=frame_id)
-
+        cfg = self.cfg
+        b, pyr = self._images(b)
         with record_function("step.preintegrate"):
-            st, pre_frame = self._accumulate(st, b)
-            ns_pred = self._predict(st.ns, pre_frame)
-            Rcw_pred, tcw_pred = self._cam_pose(ns_pred)
+            st, pre_frame, ns_pred, Rcw_pred, tcw_pred = self._preintegrate(st, b)
 
         s, vio_ok, has_anchor = self._read(st.state, st.vio_ok, st.rec_frame >= 0)
         vio_ok, has_anchor = bool(vio_ok), bool(has_anchor)
@@ -672,92 +820,202 @@ class VipStep:
         tracks = st.tracks
         if s in (INITIALIZING, WORKING, IMU_RELOC):
             with record_function("step.propagate"):
-                # motion-model pose: the IMU prediction after VIO init, the
-                # velocity model before
-                if vio_ok:
-                    Rp, tp = Rcw_pred, tcw_pred
-                else:
-                    Rp, tp = mm(st.R_vel, st.Rcw), mv(st.R_vel, st.tcw) + st.t_vel
-                guess, guess_ok = _motion_guess(tracks, st.map, Rp, tp, cam.fx, cam.fy, cam.cx,
-                                                cam.cy)
-                tracks = propagate_tracks(tracks, st.pyr_prev, pyr, guess, guess_ok, st.gen,
-                                          win=cfg.klt_win, iters=cfg.klt_iters,
-                                          levels=cfg.n_levels_klt)
-
-        # shared detection: LOST and a new recovery anchor restart from an
-        # empty table; NOT_INITIALIZED and WORKING top up dead slots
+                u = draw_uniform(st.gen, 200, cfg.n_tracks, self.device)
+                tracks = self._propagate(st, pyr, Rcw_pred, tcw_pred, u)
         need_fresh = s == LOST or (s == IMU_RELOC and not has_anchor)
         if need_fresh or s in (NOT_INITIALIZED, WORKING):
             with record_function("step.refill_refresh"):
-                base = Tracks.empty(cfg.n_tracks, device=dev) if need_fresh else tracks
-                tracks = refill_tracks(base, b.img, st.frame_id, n_features=cfg.n_tracks,
-                                       px_distance=cfg.px_distance)
-                tracks = refresh_descriptors(tracks, b.img)
-        tracks = self._undistort(tracks)
-        newborn = tracks.birth_frame == st.frame_id
-        tracks = dataclasses.replace(tracks, birth_xy_und=torch.where(
-            newborn[:, None], tracks.xy_und, tracks.birth_xy_und))
-        st = dataclasses.replace(st, tracks=tracks)
+                tracks = self._detect(dataclasses.replace(st, tracks=tracks), b.img)
+        st = self._finish_tracks(st, tracks)
 
-        # shared two-view reconstruction (init and the recovery re-anchor)
-        rec = cand_tv = None
-        if s == INITIALIZING or (s == IMU_RELOC and has_anchor):
-            anchor = st.rec_frame if s == IMU_RELOC else st.init_frame_id
-            cand_tv = tracks.valid & (tracks.birth_frame == anchor)
-            with record_function("step.two_view_init"):
-                rec = initialize_two_view(st.gen, tracks.birth_xy_und, tracks.xy_und, cand_tv,
-                                          self.K, sigma=1.0)
-
-        # shared mono pose + local-map solve: the motion-model seed on a
-        # mono WORKING frame; (PnP seed, best retrieved keyframe) when LOST
-        ml = None
-        if (s == WORKING and not vio_ok) or s == LOST:
-            ml = self._mono_solve(st, tracks, relocalize=s == LOST)
-
-        if s == NOT_INITIALIZED:
-            st, label, ctl = self._not_initialized(st)
-        elif s == INITIALIZING:
-            st, label, ctl = self._initializing(st, b, rec, cand_tv)
-        elif s == WORKING and vio_ok:
-            st, label, ctl = self._vi_working(st, b, ns_pred, Rcw_pred, tcw_pred, pre_frame)
-        elif s == WORKING:
-            st, label, ctl = self._mono_working(st, ml)
-        elif s == LOST:
-            st, label, ctl = self._lost(st, ml)
-        else:
-            st, label, ctl = self._recovery(st, b, ns_pred, rec, cand_tv, has_anchor)
-
+        st, _, ctl = self._branch(st, b, s, vio_ok, has_anchor, ns_pred, Rcw_pred, tcw_pred,
+                                  pre_frame)
         if ctl.want_kf:
             with record_function("step.keyframe"):
                 st, ctl.adopt = self._create_kf(st, b, vio_ok)
         if ctl.want_ba:
             st = self._ba_and_adopt(st, ctl, vio_ok)
+        return self._ring_and_out(st, pyr)
 
-        st = dataclasses.replace(st, pyr_prev=pyr)
-        if label == WORKING:
-            slot = torch.remainder(frame_id, RING)
-            st = dataclasses.replace(
-                st, ring_R=put_row(st.ring_R, slot, st.Rcw),
-                ring_t=put_row(st.ring_t, slot, st.tcw),
-                ring_frame=put_row(st.ring_frame, slot, frame_id))
-        new_kf = torch.where(st.last_kf_frame == frame_id, st.last_kf_slot,
-                             torch.full_like(st.last_kf_slot, -1))
-        return st, VipStepOut(Rcw=st.Rcw, tcw=st.tcw, p_w=st.ns.p, state=st.state,
-                              vio_ok=st.vio_ok, new_kf=new_kf)
 
-    def _mono_solve(self, st, tracks, relocalize: bool):
-        """Pose + local-map solve from the motion-model seed, or, when
-        relocalizing, from the two relocalization seeds
-        (`device_tracker.relocalize_pose`)."""
-        cam = self.cam
-        if relocalize:
-            with record_function("step.relocalize"):
-                return relocalize_pose(tracks, st.map, st.gen, cam, self.scale_sigmas)
-        with record_function("step.pose_localmap"):
-            R, t, _, n, tr = _pose_and_localmap(tracks, st.map, mm(st.R_vel, st.Rcw),
-                                                mv(st.R_vel, st.tcw) + st.t_vel, cam.fx, cam.fy,
-                                                cam.cx, cam.cy, self.scale_sigmas)
-        return R, t, n, tr
+class VipFleetStep(Fleet):
+    """The VIP step over a fleet of S streams in lockstep:
+    `st, out = step(st, bundle, gens)` with a leading [S] on every tensor
+    leaf of the state, the bundle and the output, and one
+    `torch.Generator` per stream held beside the state.
+
+    Lockstep with grouped dispatch: per frame one host read of the
+    [S, 3] table (state, vio_ok, recovery anchor set); the streams are
+    then grouped by branch and every stage of `VipStep` runs once over
+    the streams that take it (their rows gathered, the single-stream
+    stage mapped over the stream dimension by `tree.over_streams`, the
+    rows scattered back). Each branch decision is one read of an [n, k]
+    table for its n streams. The rare, heavy branches run per stream
+    through `VipStep`'s own code on that stream's row: the two-view
+    reconstruction of INITIALIZING, the relocalization of LOST, the
+    first-try lane after a failed VI solve and IMU_RELOC's recovery.
+
+    Stream i of a fleet computes what a single `VipStep` run computes on
+    stream i's inputs with generator i: same branches, same draws in the
+    same order (to the rounding of the batched matrix products)."""
+
+    def __init__(self, cam: CameraModel, cfg: VipConfig, kf_cap: int, device="cuda"):
+        super().__init__(VipStep(cam, cfg, kf_cap, device=device))
+
+    # ------------------------------------------------------------------
+    def __call__(self, st: VipTrackerState, b: FrameBundle, gens):
+        one, cfg, dev = self.one, self.cfg, self.device
+        S = st.state.shape[0]
+        every = list(range(S))
+
+        def group(pred):
+            return [i for i in every if pred(i)]
+
+        def on(ids, fn, *trees, **kw):
+            """fn over the rows of streams `ids` of full-fleet trees."""
+            return over_streams(fn, *(self._take(t, ids, every) for t in trees), **kw)
+
+        b, pyr = over_streams(one._images, b)
+        with record_function("step.preintegrate"):
+            st, pre_frame, ns_pred, Rcw_pred, tcw_pred = over_streams(one._preintegrate, st, b)
+        flags = self._read(st.state, st.vio_ok, st.rec_frame >= 0)
+        s = [f[0] for f in flags]
+        vio = [bool(f[1]) for f in flags]
+        anchor = [bool(f[2]) for f in flags]
+
+        tracks = st.tracks
+        g = group(lambda i: s[i] in (INITIALIZING, WORKING, IMU_RELOC))
+        if g:
+            with record_function("step.propagate"):
+                u = torch.stack([draw_uniform(gens[i], 200, cfg.n_tracks, dev) for i in g])
+                sub = over_streams(one._propagate, *(self._take(t, g, every) for t in
+                                                     (st, pyr, Rcw_pred, tcw_pred)), u)
+                tracks = self._put(tracks, g, sub, every)
+        g = group(lambda i: s[i] in (NOT_INITIALIZED, WORKING, LOST)
+                  or (s[i] == IMU_RELOC and not anchor[i]))
+        if g:
+            with record_function("step.refill_refresh"):
+                tracks = self._put(tracks, g, on(g, one._detect,
+                                                 dataclasses.replace(st, tracks=tracks), b.img),
+                                   every)
+        st = over_streams(one._finish_tracks, st, tracks)
+
+        ctl = {i: _Ctl() for i in every}
+        adopt = torch.zeros((S,), dtype=torch.long, device=dev)
+
+        def rows(i):
+            """Stream i's state (with its generator) and frame context."""
+            return [self._row(st, i, gens[i])] + [
+                self._row(t, i) for t in (b, ns_pred, Rcw_pred, tcw_pred, pre_frame)]
+
+        def settle(i, result):
+            """Write back what a per-stream branch returned."""
+            nonlocal st, adopt
+            r, _, ctl[i] = result
+            st = self._put_row(st, i, r)
+            if ctl[i].adopt is not None:
+                adopt = adopt.index_copy(0, self._ix([i]), ctl[i].adopt.reshape(1).long())
+
+        # NOT_INITIALIZED
+        g = group(lambda i: s[i] == NOT_INITIALIZED)
+        if g:
+            sub = on(g, one._zero_kf_accumulators, st)
+            go = self._read(over_streams(one._not_init_flag, sub))
+            g_go = [i for i, f in zip(g, go) if f[0]]
+            if g_go:
+                sub = self._put(sub, g_go, over_streams(one._not_init_go,
+                                                        self._take(sub, g_go, g)), g)
+            st = self._put(st, g, sub, every)
+
+        # INITIALIZING: the reconstruction per stream, one read for all
+        g = group(lambda i: s[i] == INITIALIZING)
+        if g:
+            recs = [one._two_view(self._row(st, i, gens[i]), s[i]) for i in g]
+            fl = [one._initializing_flags(self._row(st, i), *rc) for i, rc in zip(g, recs)]
+            dec = self._read(torch.stack([f[0] for f in fl]), torch.stack([f[1] for f in fl]))
+            for i, (rec, cand_tv), d in zip(g, recs, dec):
+                r, b_i = rows(i)[:2]
+                settle(i, one._initializing(r, b_i, rec, cand_tv, decided=tuple(d)))
+
+        # WORKING before VIO init: the mono pose + local-map solve
+        g = group(lambda i: s[i] == WORKING and not vio[i])
+        if g:
+            sub = self._take(st, g, every)
+            with record_function("step.pose_localmap"):
+                ml = over_streams(one._mono_seed_solve, sub)
+            dec = self._read(*over_streams(one._mono_flags, sub, ml))
+            live = [i for i, d in zip(g, dec) if not d[0]]
+            lost = [i for i, d in zip(g, dec) if d[0]]
+            if live:
+                sub = self._put(sub, live, over_streams(
+                    one._mono_apply, self._take(sub, live, g), self._take(ml, live, g)), g)
+            if lost:
+                sub = self._put(sub, lost, over_streams(one._state, self._take(sub, lost, g),
+                                                        label=LOST), g)
+            st = self._put(st, g, sub, every)
+            for i, d in zip(g, dec):
+                if not d[0]:
+                    ctl[i] = one._kf_ctl(bool(d[1]), trigger=bool(d[1]))
+
+        # WORKING after VIO init: lane 0 for all, lane 1 per failed stream
+        g = group(lambda i: s[i] == WORKING and vio[i])
+        if g:
+            sub = self._take(st, g, every)
+            with record_function("step.vi_track"):
+                out, fl = over_streams(one._vi_lane0, sub, self._take(b, g, every),
+                                       self._take(ns_pred, g, every),
+                                       self._take(pre_frame, g, every))
+            dec = self._read(*fl)
+            good = [i for i, d in zip(g, dec) if d[0]]
+            if good:
+                sub = self._put(sub, good, over_streams(
+                    one._vi_apply, self._take(sub, good, g), self._take(out, good, g)), g)
+                st = self._put(st, g, sub, every)
+            for i, d in zip(g, dec):
+                if d[0]:
+                    ctl[i] = one._kf_ctl(bool(d[1]), trigger=False)
+                else:
+                    settle(i, one._vi_lane1(*rows(i)))
+
+        # LOST and IMU_RELOC: per stream
+        for i in group(lambda i: s[i] in (LOST, IMU_RELOC)):
+            r, b_i, *pred = rows(i)
+            settle(i, one._branch(r, b_i, s[i], vio[i], anchor[i], *pred))
+
+        # stage C: keyframes, grouped by the inertial mode
+        for v in (False, True):
+            g = group(lambda i: ctl[i].want_kf and vio[i] == v)
+            if g:
+                with record_function("step.keyframe"):
+                    sub, k = on(g, one._create_kf, st, b, vio_ok=v)
+                st = self._put(st, g, sub, every)
+                adopt = adopt.index_copy(0, self._ix(g), k.long())
+        # stage D: BA, adoption, hygiene, the VIO-init trigger, grouped by
+        # what the stream asked for
+        keys = sorted({(vio[i], ctl[i].want_hyg, ctl[i].want_trigger)
+                       for i in every if ctl[i].want_ba})
+        for v, hyg, trig in keys:
+            g = group(lambda i: ctl[i].want_ba
+                      and (vio[i], ctl[i].want_hyg, ctl[i].want_trigger) == (v, hyg, trig))
+            sub, compact = on(g, one._ba_front, st, adopt, vio_ok=v, hygiene=hyg)
+            if hyg:
+                full = [i for i, f in zip(g, self._read(compact)) if f[0]]
+                if full:
+                    sub = self._put(sub, full, over_streams(one._compact,
+                                                            self._take(sub, full, g)), g)
+            sub = over_streams(one._ba_finish, sub)
+            st = self._put(st, g, sub, every)
+            if trig and not v:
+                fire = [i for i, f in zip(g, self._read(over_streams(one._trigger_flag, sub)))
+                        if f[0]]
+                if fire:
+                    with record_function("step.vio_init"):
+                        st_ok, ok = over_streams(one._try_init_vio, self._take(st, fire, every))
+                    done = [i for i, f in zip(fire, self._read(ok)) if f[0]]
+                    if done:
+                        st = self._put(st, done, self._take(st_ok, done, fire), every)
+
+        return over_streams(one._ring_and_out, st, pyr)
 
 
 def build_vip_tracker(cam: CameraModel, cfg: VipConfig, kf_cap: int, pt_cap: int,

@@ -72,10 +72,11 @@ class Tracks:
 
 def propagate_tracks(tracks: Tracks, pyr_prev, pyr_cur, guess_xy, guess_ok,
                      gen: torch.Generator, win: int = 21, iters: int = 10,
-                     levels: int = 5) -> Tracks:
+                     levels: int = 5, u: torch.Tensor | None = None) -> Tracks:
     """Propagate all tracks prev -> cur: global shift for capture range,
     half-res then full-res anchor refinement, then an F-RANSAC gate
-    (draws from `gen`)."""
+    (draws from `gen`, or the uniform draws `u` made from it beforehand:
+    `twoview.draw_uniform(gen, 200, n_slots, device)`)."""
     lvl = min(3, len(pyr_prev) - 1)
     shift = global_shift(pyr_prev[lvl], pyr_cur[lvl], radius=8) * float(2 ** lvl)
     start = torch.where(guess_ok[:, None], guess_xy, tracks.xy + shift[None, :])
@@ -91,7 +92,7 @@ def propagate_tracks(tracks: Tracks, pyr_prev, pyr_cur, guess_xy, guess_ok,
         mid, tracks.valid, win=Tracks.TPL_WIN, max_correction=4.0, max_residual=32.0)
     ok = tracks.valid & ok_f
 
-    _, _, inl = find_fundamental(gen, tracks.xy, nxt, ok, sigma=1.0)
+    _, _, inl = find_fundamental(gen, tracks.xy, nxt, ok, sigma=1.0, u=u)
     survived = ok & inl
     return dataclasses.replace(
         tracks,

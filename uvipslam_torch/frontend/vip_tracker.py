@@ -83,7 +83,7 @@ def _vi_track(tracks, m: MapState, ns_pred, ns_ref, pre_frame, gravity, fx, fy, 
                                        max_dist=hamming.TH_HIGH, ratio=0.9)
     INF = 1e9
     tgt = torch.where(ok, idx, torch.full_like(idx, m.pt_cap - 1)).long()
-    best_per_pt = torch.full((m.pt_cap,), INF, dtype=dtype, device=tcb.device).scatter_reduce_(
+    best_per_pt = torch.full((m.pt_cap,), INF, dtype=dtype, device=tcb.device).scatter_reduce(
         0, tgt, torch.where(ok, dist, torch.full_like(dist, INF)), reduce="amin",
         include_self=True)
     keep = ok & (dist <= best_per_pt[idx.long()])

@@ -113,11 +113,12 @@ def load():
         if _lib is None:
             lib = ctypes.CDLL(build())
             ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            # img, H, W, pts, n, psize, out, local, stream
-            lib.uvip_extract_patches.argtypes = [ptr, i32, i32, ptr, i32, i32, ptr, ptr, ptr]
-            # img, H, W, T, Tx, Ty, pts, valid, n, win, iters, max_correction,
+            # img, S, H, W, pts, n, psize, out, local, stream (S streams)
+            lib.uvip_extract_patches.argtypes = [ptr, i32, i32, i32, ptr, i32, i32, ptr, ptr,
+                                                 ptr]
+            # img, S, H, W, T, Tx, Ty, pts, valid, n, win, iters, max_correction,
             # max_residual, out, accept, stream
-            lib.uvip_anchor_refine.argtypes = [ptr, i32, i32, ptr, ptr, ptr, ptr, ptr, i32,
+            lib.uvip_anchor_refine.argtypes = [ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, i32,
                                                i32, i32, f32, f32, ptr, ptr, ptr]
             for fn in (lib.uvip_extract_patches, lib.uvip_anchor_refine):
                 fn.restype = ctypes.c_int

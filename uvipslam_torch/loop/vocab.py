@@ -19,7 +19,7 @@ def bow_vector(desc: torch.Tensor, valid: torch.Tensor, codebook: torch.Tensor,
     D = hamming_matrix(desc, codebook)
     word = torch.argmin(D, dim=1)
     W = codebook.shape[0]
-    v = torch.zeros((W,), dtype=torch.float32, device=desc.device).index_add_(
+    v = torch.zeros((W,), dtype=torch.float32, device=desc.device).index_add(
         0, word, valid.to(torch.float32))
     v = v * idf
     return v / torch.clamp(torch.sum(torch.abs(v)), min=1e-9)

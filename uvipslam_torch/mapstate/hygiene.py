@@ -41,7 +41,7 @@ def _obs_counts(m: MapState, obs_ok: torch.Tensor) -> torch.Tensor:
     P = m.pt_cap
     idx = torch.where(obs_ok, m.kf_feat_pt.clamp(0, P - 1),
                       torch.full_like(m.kf_feat_pt, P - 1)).reshape(-1)
-    return torch.zeros((P,), dtype=torch.int32, device=idx.device).index_add_(
+    return torch.zeros((P,), dtype=torch.int32, device=idx.device).index_add(
         0, idx.long(), obs_ok.reshape(-1).to(torch.int32))
 
 
@@ -185,13 +185,11 @@ def fuse_duplicates_recent(m: MapState, frame_id, Rcw, tcw, fx, fy, cx, cy,
     best_target = torch.min(target, dim=1).values
     has_dup = best_target < P
 
-    bt = ids.clone()
-    bt[rid] = torch.where(has_dup, best_target, rid)
+    bt = ids.scatter(0, rid, torch.where(has_dup, best_target, rid))   # rid: distinct slots
     bt = bt[bt]
 
     old_pt = m.kf_feat_pt
     mapped = bt[old_pt.clamp(0, P - 1).long()]
     new_pt = torch.where(old_pt >= 0, mapped.to(torch.int32), old_pt)
-    fused = torch.zeros((P,), dtype=torch.bool, device=dev)
-    fused[rid] = has_dup
+    fused = torch.zeros((P,), dtype=torch.bool, device=dev).scatter(0, rid, has_dup)
     return dataclasses.replace(m, kf_feat_pt=new_pt, pt_valid=m.pt_valid & ~fused)

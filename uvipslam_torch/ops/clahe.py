@@ -30,7 +30,10 @@ def clahe(img: torch.Tensor, clip_limit: float = 4.0, tiles: tuple = (12, 12)) -
     T = ty * tx
     tile_of = (torch.arange(Hp, device=dev) // th)[:, None] * tx + \
         (torch.arange(Wp, device=dev) // tw)[None, :]
-    hist = torch.bincount((tile_of * 256 + iv).reshape(-1), minlength=T * 256).reshape(T, 256)
+    # integer counts by one scatter-add (exact in any order)
+    bins = (tile_of * 256 + iv).reshape(-1)
+    hist = torch.zeros((T * 256,), dtype=torch.int64, device=dev).scatter_add(
+        0, bins, torch.ones_like(bins)).reshape(T, 256)
 
     # OpenCV: limit max(int(clip*area/256), 1); the excess goes evenly to
     # every bin, the residual one count at a time on bins 0, s, 2s, ...

@@ -69,7 +69,7 @@ def rotation_consistency(angle_a, angle_b, idx_ab, ok, n_keep_bins: int = 3,
     rot = torch.fmod(rot, two_pi)               # jnp.mod: the sign of the divisor
     rot = torch.where((rot != 0) & (rot < 0), rot + two_pi, rot)
     bins = torch.clamp((rot * (HISTO_BINS / two_pi)).to(torch.int32), 0, HISTO_BINS - 1)
-    hist = torch.zeros((HISTO_BINS,), dtype=torch.float32, device=rot.device).index_add_(
+    hist = torch.zeros((HISTO_BINS,), dtype=torch.float32, device=rot.device).index_add(
         0, bins.long(), ok.to(torch.float32))
     n_wide = min(2 * n_keep_bins, HISTO_BINS)
     srt = torch.sort(hist, descending=True, stable=True)

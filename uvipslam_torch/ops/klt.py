@@ -20,6 +20,15 @@ and raises if it cannot.
   `anchor_refine_fast`. The template and ORB pulls use it.
 - `anchor_refine_fast`: `csrc/anchor_refine.cu`, the patch pull fused
   with the whole Gauss-Newton loop, or `_anchor_refine_plain`.
+
+Every function here that takes an image takes a fleet of them as well:
+img [S, H, W] with pts [S, N, 2] (and T/Tx/Ty [S, N, win^2], valid
+[S, N]), one stream per leading index, each stream's corners clipped to
+its own image. On the card the S streams share one kernel launch; the
+plain versions map themselves over the leading dimension. Under
+`torch.func.vmap` (how the fleet's stages get their stream dimension) the
+two wrappers batch through `_PatchOp` / `_RefineOp`, whose vmap rules
+hand the stacked tensors to the same single launch.
 """
 
 from __future__ import annotations
@@ -114,7 +123,10 @@ def patch_corners(pts: torch.Tensor, H: int, W: int, psize: int):
 
 def _extract_patches(img: torch.Tensor, pts: torch.Tensor, psize: int):
     """Plain torch patch pull: per-feature [psize, psize] windows at the
-    clipped corners (one gather). Returns (patches [N, P, P], local)."""
+    clipped corners (one gather). Returns (patches [N, P, P], local); with
+    a leading stream dimension on both inputs, on both outputs too."""
+    if img.dim() == 3:
+        return torch.func.vmap(lambda i, p: _extract_patches(i, p, psize))(img, pts)
     H, W = img.shape
     x0, y0, local = patch_corners(pts, H, W, psize)
     d = torch.arange(psize, device=img.device)
@@ -124,16 +136,17 @@ def _extract_patches(img: torch.Tensor, pts: torch.Tensor, psize: int):
 
 
 def _check_patch_args(img: torch.Tensor, pts: torch.Tensor, psize: int):
-    if img.dim() != 2 or pts.dim() != 2 or pts.shape[1] != 2:
-        raise ValueError(f"expected img [H, W] and pts [N, 2], got "
-                         f"{tuple(img.shape)} and {tuple(pts.shape)}")
+    if (img.dim() not in (2, 3) or pts.dim() != img.dim() or pts.shape[-1] != 2
+            or pts.shape[:-2] != img.shape[:-2]):
+        raise ValueError(f"expected img [H, W] and pts [N, 2], or [S, H, W] and [S, N, 2], "
+                         f"got {tuple(img.shape)} and {tuple(pts.shape)}")
     if img.dtype != torch.float32 or pts.dtype != torch.float32:
         raise TypeError(f"expected float32, got {img.dtype} and {pts.dtype}")
     if img.device != pts.device:
         raise ValueError(f"img on {img.device}, pts on {pts.device}")
     if not img.is_contiguous():
         raise ValueError("img must be contiguous (row-major [H, W])")
-    H, W = img.shape
+    H, W = img.shape[-2:]
     if not 0 < psize <= min(H, W) or psize > 127:
         raise ValueError(f"psize {psize} outside (0, min(H, W)={min(H, W)}] "
                          f"or above 127")
@@ -153,17 +166,19 @@ def launch_extract_patches(img: torch.Tensor, pts: torch.Tensor, psize: int,
     """Raw launch of csrc/extract_patches.cu on the current stream of
     img's device (made the current device for the launch): contiguous
     CUDA img [H, W] f32 and pts [N, 2] f32, outputs out [N, psize, psize]
-    and local [N, 2] f32, all on one device. Not counted."""
-    H, W = img.shape
-    N = pts.shape[0]
-    if N == 0:
+    and local [N, 2] f32, all on one device; or all four with a leading
+    [S], one launch for the S streams. Not counted."""
+    H, W = img.shape[-2:]
+    N = pts.shape[-2]
+    S = img.shape[0] if img.dim() == 3 else 1
+    if N == 0 or S == 0:
         return
     if not (pts.device == out.device == local.device == img.device):
         raise ValueError("img, pts, out and local must be on one device")
     lib = kernels.load()
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = lib.uvip_extract_patches(_ptr(img), H, W, _ptr(pts), N, psize, _ptr(out),
+        err = lib.uvip_extract_patches(_ptr(img), S, H, W, _ptr(pts), N, psize, _ptr(out),
                                        _ptr(local), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"extract_patches kernel launch failed: cudaError {err}")
@@ -171,22 +186,52 @@ def launch_extract_patches(img: torch.Tensor, pts: torch.Tensor, psize: int,
 
 def extract_patches_cuda(img: torch.Tensor, pts: torch.Tensor, psize: int):
     """The kernel path of `extract_patches_any` on CUDA tensors: one
-    counted launch that computes the corners, `local` and the patches."""
+    counted launch that computes the corners, `local` and the patches,
+    for one stream or for all S of a fleet."""
     global patch_launches
     _check_patch_args(img, pts, psize)
     _require_cuda("extract_patches_cuda", img)
-    N = pts.shape[0]
-    out = torch.empty((N, psize, psize), dtype=torch.float32, device=img.device)
-    local = torch.empty((N, 2), dtype=torch.float32, device=img.device)
-    if N > 0:
+    lead = tuple(pts.shape[:-1])
+    out = torch.empty(lead + (psize, psize), dtype=torch.float32, device=img.device)
+    local = torch.empty(lead + (2,), dtype=torch.float32, device=img.device)
+    if out.numel() > 0:
         launch_extract_patches(img, pts.contiguous(), psize, out, local)
         patch_launches += 1
     return out, local
 
 
+class _PatchOp(torch.autograd.Function):
+    """`_patches_by_device` as one operation that `torch.func.vmap` can
+    batch: the rule stacks the streams and makes the one call."""
+
+    @staticmethod
+    def forward(img, pts, psize):
+        return _patches_by_device(img, pts, psize)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, img, pts, psize):
+        img, pts = _stream_first(info, in_dims[:2], (img, pts))
+        return _PatchOp.apply(img.contiguous(), pts, psize), (0, 0)
+
+
+def _stream_first(info, in_dims, tensors):
+    """The vmapped dimension of each tensor moved to the front (a tensor
+    the map does not cover is repeated for every stream)."""
+    return tuple(t.unsqueeze(0).expand((info.batch_size,) + tuple(t.shape)) if d is None
+                 else t.movedim(d, 0) for t, d in zip(tensors, in_dims))
+
+
 def extract_patches_any(img: torch.Tensor, pts: torch.Tensor, psize: int):
     """Device dispatch: the CUDA kernel for CUDA tensors, the plain gather
     for CPU tensors."""
+    return _PatchOp.apply(img, pts, psize)
+
+
+def _patches_by_device(img: torch.Tensor, pts: torch.Tensor, psize: int):
     if img.device.type == "cuda":
         return extract_patches_cuda(img, pts, psize)
     if img.device.type != "cpu":
@@ -198,7 +243,12 @@ def extract_patches_any(img: torch.Tensor, pts: torch.Tensor, psize: int):
 def _sample_patch(patches: torch.Tensor, center: torch.Tensor, win: int) -> torch.Tensor:
     """Bilinear-sample a [win, win] window centered at fractional `center`
     [N, 2] (patch coords) from [N, Py, Px] patches: two interpolation
-    matmuls. Returns [N, win, win]."""
+    matmuls. Returns [N, win, win]. A leading stream dimension on both
+    inputs is kept."""
+    if patches.dim() == 4:
+        S, N = patches.shape[:2]
+        return _sample_patch(patches.reshape((S * N,) + tuple(patches.shape[2:])),
+                             center.reshape(S * N, 2), win).reshape(S, N, win, win)
     Py = patches.shape[-2]
     Px = patches.shape[-1]
     r = win // 2
@@ -218,6 +268,9 @@ def _refine_terms(img, T, Tx, Ty, pts, win: int, iters: int, max_correction: flo
     """The plain form's Gauss-Newton loop: returns the refined patch
     position p, `local`, good_G, the mean absolute residual and the
     correction norm, each per track."""
+    if img.dim() == 3:
+        return torch.func.vmap(lambda *a: _refine_terms(*a, win, iters, max_correction))(
+            img, T, Tx, Ty, pts)
     N = pts.shape[0]
     psize = refine_psize(win, max_correction)
     _check_patch_args(img, pts, psize)
@@ -263,20 +316,21 @@ def _anchor_refine_plain(img, T, Tx, Ty, pts, valid, win: int = 13, iters: int =
                                                   max_correction)
     accept = valid & good_G & (corr <= max_correction) & (resid < max_residual)
     out_pts = pts + (p - local)
-    out = torch.where(accept[:, None], out_pts, pts)
+    out = torch.where(accept[..., None], out_pts, pts)
     return out, accept
 
 
 def _check_refine_args(img, T, Tx, Ty, pts, valid, win: int, iters: int,
                        max_correction: float):
     _check_patch_args(img, pts, refine_psize(win, max_correction))
-    N = pts.shape[0]
+    lead = tuple(pts.shape[:-1])        # (N,) or (S, N)
     for name, t in (("T", T), ("Tx", Tx), ("Ty", Ty)):
-        if t.shape != (N, win * win) or t.dtype != torch.float32 or t.device != img.device:
-            raise ValueError(f"{name} must be float32 [{N}, {win * win}] on {img.device}, "
-                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if valid.shape != (N,) or valid.dtype != torch.bool or valid.device != img.device:
-        raise ValueError(f"valid must be bool [{N}] on {img.device}")
+        if (tuple(t.shape) != lead + (win * win,) or t.dtype != torch.float32
+                or t.device != img.device):
+            raise ValueError(f"{name} must be float32 {list(lead) + [win * win]} on "
+                             f"{img.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if tuple(valid.shape) != lead or valid.dtype != torch.bool or valid.device != img.device:
+        raise ValueError(f"valid must be bool {list(lead)} on {img.device}")
     if not 0 < win * win <= 256 or iters < 0 or not 0.0 <= max_correction < 1e6:
         raise ValueError(f"win {win} (win^2 <= 256), iters {iters} or max_correction "
                          f"{max_correction} out of range")
@@ -289,16 +343,18 @@ def launch_anchor_refine(img, T, Tx, Ty, pts, valid, win: int, iters: int,
                          out: torch.Tensor, accept: torch.Tensor) -> None:
     """Raw launch of csrc/anchor_refine.cu on the current stream of img's
     device: contiguous CUDA inputs as `anchor_refine_fast` takes them,
-    outputs out [N, 2] f32 and accept [N] bool. Not counted."""
-    H, W = img.shape
-    N = pts.shape[0]
-    if N == 0:
+    outputs out [N, 2] f32 and accept [N] bool; or every tensor with a
+    leading [S], one launch for the S streams. Not counted."""
+    H, W = img.shape[-2:]
+    N = pts.shape[-2]
+    S = img.shape[0] if img.dim() == 3 else 1
+    if N == 0 or S == 0:
         return
     lib = kernels.load()
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
         err = lib.uvip_anchor_refine(
-            _ptr(img), H, W, _ptr(T), _ptr(Tx), _ptr(Ty), _ptr(pts), _ptr(valid), N, win,
+            _ptr(img), S, H, W, _ptr(T), _ptr(Tx), _ptr(Ty), _ptr(pts), _ptr(valid), N, win,
             iters, max_correction, max_residual, _ptr(out), _ptr(accept),
             ctypes.c_void_p(stream))
     if err != 0:
@@ -308,14 +364,15 @@ def launch_anchor_refine(img, T, Tx, Ty, pts, valid, win: int, iters: int,
 def anchor_refine_cuda(img, T, Tx, Ty, pts, valid, win: int = 13, iters: int = 8,
                        max_correction: float = 4.0, max_residual: float = 32.0):
     """The kernel path of `anchor_refine_fast` on CUDA tensors: one counted
-    launch that pulls each patch and runs the whole refinement."""
+    launch that pulls each patch and runs the whole refinement, for one
+    stream or for all S of a fleet."""
     global refine_launches
     _check_refine_args(img, T, Tx, Ty, pts, valid, win, iters, max_correction)
     _require_cuda("anchor_refine_cuda", img)
-    N = pts.shape[0]
-    out = torch.empty((N, 2), dtype=torch.float32, device=img.device)
-    accept = torch.empty((N,), dtype=torch.bool, device=img.device)
-    if N > 0:
+    lead = tuple(pts.shape[:-1])
+    out = torch.empty(lead + (2,), dtype=torch.float32, device=img.device)
+    accept = torch.empty(lead, dtype=torch.bool, device=img.device)
+    if accept.numel() > 0:
         launch_anchor_refine(img, T.contiguous(), Tx.contiguous(), Ty.contiguous(),
                              pts.contiguous(), valid.contiguous(), win, iters,
                              max_correction, max_residual, out, accept)
@@ -331,6 +388,11 @@ def anchor_refine_fast(img, T, Tx, Ty, pts, valid, win: int = 13,
     iterations with bilinear sampling. CUDA tensors take the fused kernel,
     CPU tensors the plain torch form.
     Returns (pts_refined [N, 2], accepted [N] bool)."""
+    return _RefineOp.apply(img, T, Tx, Ty, pts, valid, win, iters, max_correction,
+                           max_residual)
+
+
+def _refine_by_device(img, T, Tx, Ty, pts, valid, win, iters, max_correction, max_residual):
     kw = dict(win=win, iters=iters, max_correction=max_correction, max_residual=max_residual)
     if img.device.type == "cuda":
         return anchor_refine_cuda(img, T, Tx, Ty, pts, valid, **kw)
@@ -339,15 +401,35 @@ def anchor_refine_fast(img, T, Tx, Ty, pts, valid, win: int = 13,
     return _anchor_refine_plain(img, T, Tx, Ty, pts, valid, **kw)
 
 
+class _RefineOp(torch.autograd.Function):
+    """`_refine_by_device` as one operation that `torch.func.vmap` can
+    batch (see `_PatchOp`)."""
+
+    @staticmethod
+    def forward(img, T, Tx, Ty, pts, valid, win, iters, max_correction, max_residual):
+        return _refine_by_device(img, T, Tx, Ty, pts, valid, win, iters, max_correction,
+                                 max_residual)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, img, T, Tx, Ty, pts, valid, *consts):
+        img, T, Tx, Ty, pts, valid = _stream_first(info, in_dims[:6],
+                                                   (img, T, Tx, Ty, pts, valid))
+        return _RefineOp.apply(img.contiguous(), T, Tx, Ty, pts, valid, *consts), (0, 0)
+
+
 def extract_templates_fast(img: torch.Tensor, pts: torch.Tensor, win: int = 13):
     """Template + central-difference gradients per feature: patch pull +
     interpolation-matmul sampling of a (win+2) window.
-    Returns (T, Tx, Ty), each [N, win*win]."""
-    N = pts.shape[0]
+    Returns (T, Tx, Ty), each [N, win*win] ([S, N, win*win] for a fleet)."""
+    lead = tuple(pts.shape[:-1])
     psize = win + 6
     patches, local = extract_patches_any(img, pts, psize)
     big = _sample_patch(patches, local, win + 2)
-    T = big[:, 1:-1, 1:-1]
-    Tx = 0.5 * (big[:, 1:-1, 2:] - big[:, 1:-1, :-2])
-    Ty = 0.5 * (big[:, 2:, 1:-1] - big[:, :-2, 1:-1])
-    return T.reshape(N, -1), Tx.reshape(N, -1), Ty.reshape(N, -1)
+    T = big[..., 1:-1, 1:-1]
+    Tx = 0.5 * (big[..., 1:-1, 2:] - big[..., 1:-1, :-2])
+    Ty = 0.5 * (big[..., 2:, 1:-1] - big[..., :-2, 1:-1])
+    return (T.reshape(lead + (-1,)), Tx.reshape(lead + (-1,)), Ty.reshape(lead + (-1,)))

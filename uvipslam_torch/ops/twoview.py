@@ -45,12 +45,21 @@ def normalize_points(x: torch.Tensor, valid: torch.Tensor):
     return xn, T
 
 
+def draw_uniform(gen: torch.Generator, n_iters: int, n: int, device) -> torch.Tensor:
+    """The [n_iters, n] uniform draws one RANSAC over n slots takes from
+    `gen`. A fleet draws them per stream, each from its own generator,
+    and hands the stack to the stage it runs over all streams."""
+    return torch.rand((n_iters, n), generator=gen, device=device)
+
+
 def _sample_minimal(gen: torch.Generator, n_iters: int, k: int,
-                    valid: torch.Tensor) -> torch.Tensor:
+                    valid: torch.Tensor, u: torch.Tensor | None = None) -> torch.Tensor:
     """[n_iters, k] indices of distinct valid correspondences by
-    Gumbel-top-k (ties and invalid slots ordered by index)."""
+    Gumbel-top-k (ties and invalid slots ordered by index), from the
+    uniform draws `u` or, without them, from `gen`."""
     n = valid.shape[0]
-    u = torch.rand((n_iters, n), generator=gen, device=valid.device)
+    if u is None:
+        u = draw_uniform(gen, n_iters, n, valid.device)
     u = torch.clamp(u, min=torch.finfo(u.dtype).tiny)
     g = -torch.log(-torch.log(u))
     g = torch.where(valid[None, :], g, torch.full_like(g, -float("inf")))
@@ -144,13 +153,16 @@ def _pick(scores, *arrays):
 
 
 def find_fundamental(gen, xa, xb, valid, sigma: float = 1.0,
-                     n_iters: int = 200, idx: torch.Tensor | None = None):
-    """RANSAC fundamental matrix with all-inlier refinement.
+                     n_iters: int = 200, idx: torch.Tensor | None = None,
+                     u: torch.Tensor | None = None):
+    """RANSAC fundamental matrix with all-inlier refinement; the minimal
+    samples are `idx`, or come from the uniform draws `u`
+    (`draw_uniform`), or from `gen`.
     Returns (F, score, inliers [N] bool)."""
     xan, Ta = normalize_points(xa, valid)
     xbn, Tb = normalize_points(xb, valid)
     if idx is None:
-        idx = _sample_minimal(gen, n_iters, 8, valid)
+        idx = _sample_minimal(gen, n_iters, 8, valid, u=u)
     Fs = fundamental_from_8pt(xan[idx], xbn[idx])
     F_full = mm(Tb.T[None], mm(Fs, Ta[None]))
     d_a, d_b = _epipolar_errors(F_full, xa, xb)

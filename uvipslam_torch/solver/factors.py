@@ -164,10 +164,12 @@ def depth_projected(ns_i_p, ns_i_v, ns_i_R, ns_j_p, dbg_i, dba_i, M_dP, M_J_P_bg
     batch = r.shape[:-1]
     e3 = torch.zeros(batch + (3,), dtype=dtype, device=dev)
     e3[..., 2].fill_(1.0)
-    J_i = torch.zeros(batch + (1, 9), dtype=dtype, device=dev)
-    J_i[..., 0, 2] = 2.0 * (1.0 - shi) - 1.0
-    J_i[..., 0, 5] = -dTij
-    J_i[..., 0, 6:9] = mv(lie.hat(mv(ns_i_R, dp_corr)).transpose(-1, -2), e3)
+    # assembled column by column (no write into a fresh buffer, so the
+    # function maps over a stream dimension)
+    z = torch.zeros_like(r)
+    J_i = torch.cat([z, z, z + (2.0 * (1.0 - shi) - 1.0)[..., None], z, z, z - dTij[..., None],
+                     mv(lie.hat(mv(ns_i_R, dp_corr)).transpose(-1, -2), e3)],
+                    dim=-1)[..., None, :]
     J_j = torch.zeros(batch + (1, 9), dtype=dtype, device=dev)
     J_j[..., 0, 2].fill_(-1.0)
     Rig = -mm(ns_i_R, M_J_P_bg)

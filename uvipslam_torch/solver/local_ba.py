@@ -200,7 +200,7 @@ def local_ba_se3(kf_R, kf_t, kf_fixed, kf_valid, pts_w, pt_valid, obs_kf,
     state = (kf_R, kf_t, pts_w)
     for rd in range(rounds):
         robust = 1.0 if rd < rounds - 1 else 0.0
-        n_obs = torch.zeros((P,), dtype=torch.int32, device=dev).index_add_(
+        n_obs = torch.zeros((P,), dtype=torch.int32, device=dev).index_add(
             0, obs_pt.reshape(-1), obs_in.reshape(-1).to(torch.int32))
         pt_free = pt_valid & (n_obs >= 2)
         state = lm_rounds(state, obs_in, robust, n_iters, pt_free)
@@ -405,7 +405,7 @@ def local_ba_navstate(kf_ns, kf_fixed, kf_valid, pts_w, pt_valid, obs_kf, obs_pt
     for rd in range(rounds):
         robust = 1.0 if rd < rounds - 1 else 0.0
         # a landmark moves only with >= 2 live observations
-        n_obs = torch.zeros((P,), dtype=torch.int32, device=dev).index_add_(
+        n_obs = torch.zeros((P,), dtype=torch.int32, device=dev).index_add(
             0, obs_pt.reshape(-1), obs_in.reshape(-1).to(torch.int32))
         state = lm_rounds(state, obs_in, robust, n_iters, pt_valid & (n_obs >= 2))
         kf, pts = state
