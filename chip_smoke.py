@@ -90,8 +90,19 @@ result):
      frames, 512x640, phase 5's settings: more than half the streams
      WORKING on >= 60% of frames with >= 3 keyframes and Sim3-aligned ATE
      below 5% of the span, kernel launches as the states imply.
+ 14. the application entry point (`uvipslam_torch.app.main`, as
+     `python -m uvipslam_torch.app` runs it) from a rosbag of phase 9's
+     first 80 frames (images, IMU, pressure; tests/_bagwrite.py) with a
+     settings YAML in the reference's schema (640x512, 400 features,
+     window 8): `--device` VIP, `--device` MONO and the host MonoTracker,
+     each held to the gates of the reference's app tests (VIP: >= 12
+     keyframes matched, posyaw ATE below 12% of the span, VIO up; MONO:
+     >= 8 matched, Sim3 ATE below 5%) and required to launch both hand
+     kernels. Prints each run's FPS line, ms per frame, host reads per
+     frame, launches and peak memory, and the IMU sample steps per frame
+     of the bag's 64-sample windows against phase 9's.
 
-`--only stream,vip_stream,fleet_kernels,fleet_vip,fleet_mono` (any
+`--only stream,vip_stream,fleet_kernels,fleet_vip,fleet_mono,app` (any
 subset) runs those phases alone after the build and prints no result line.
 
 The last three lines of standard output are the steps' JSON record, the
@@ -599,18 +610,45 @@ def expected_launches_vip(states, n_orb_levels):
     return {"extract_patches": pulls, "anchor_refine": refines}
 
 
+class PreintCounter:
+    """Counts the calls of `core.preintegration.preint_step` (one IMU
+    sample of a running preintegration, a fixed set of launches) while
+    active."""
+
+    def __enter__(self):
+        from uvipslam_torch.core import preintegration as pre
+
+        self.mod, self.real, self.calls = pre, pre.preint_step, 0
+
+        def counted(*a, **kw):
+            self.calls += 1
+            return self.real(*a, **kw)
+
+        pre.preint_step = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.preint_step = self.real
+
+
+def vip_sequence():
+    from uvipslam_torch.io.synthetic import make_sequence
+    return make_sequence(n_frames=VIP_FRAMES, H=512, W=640, n_points=6000, seed=7, speed=1.2,
+                         gyr_noise=0.005, acc_noise=0.05, gyr_bias=(0.004, -0.006, 0.003),
+                         depth_noise=0.02, z_amp=0.5)
+
+
 def vip_phase(torch, np, tklt, dev, smi):
-    """Phase 9. Returns (the step record, launches on the VIP path)."""
+    """Phase 9. Returns (the step record, launches on the VIP path, the
+    sequence)."""
     from uvipslam_torch.frontend.device_vip import build_vip_tracker, make_bundles
     from uvipslam_torch.frontend.tracker import IMU_RELOC, LOST, WORKING
     from uvipslam_torch.frontend.vip_tracker import VipConfig
-    from uvipslam_torch.io.synthetic import ate_rmse, make_sequence
+    from uvipslam_torch.io.synthetic import ate_rmse
     from uvipslam_torch.models.camera import CameraModel
 
     t0 = time.time()
-    seq = make_sequence(n_frames=VIP_FRAMES, H=512, W=640, n_points=6000, seed=7, speed=1.2,
-                        gyr_noise=0.005, acc_noise=0.05, gyr_bias=(0.004, -0.006, 0.003),
-                        depth_noise=0.02, z_amp=0.5)
+    seq = vip_sequence()
     mark("vip_sequence")
     log(f"sequence {VIP_FRAMES}x512x640 with IMU and pressure generated in "
         f"{time.time() - t0:.1f} s")
@@ -627,7 +665,8 @@ def vip_phase(torch, np, tklt, dev, smi):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(tklt)
-    first = drive(torch, new_tracker, bundles)
+    with PreintCounter() as preint:
+        first = drive(torch, new_tracker, bundles)
     launches = read_launches(tklt)
     step, states, Rs, ts, vios, frame_ms = first
     syncs = step.host_syncs
@@ -658,7 +697,8 @@ def vip_phase(torch, np, tklt, dev, smi):
         f"frames 3-{VIP_FRAMES}; run medians {' / '.join(f'{m:.2f}' for m in run_meds)}; "
         f"states and poses bitwise equal across runs; first frame {frame_ms[0]:.1f} ms), "
         f"VIO-init frame {init_ms:.1f} ms, host reads {syncs / VIP_FRAMES:.2f}/frame "
-        f"({syncs} total), kernel launches {launches}"
+        f"({syncs} total), IMU sample steps {preint.calls / VIP_FRAMES:.1f}/frame (windows of "
+        f"{seq.imu_mask.shape[1]}), kernel launches {launches}"
         f"{f' (expected {expect})' if expect is not None else ''}, "
         f"peak allocated {peak / 2**20:.1f} MiB")
     log(f"  states {''.join(str(s) for s in states.tolist())}")
@@ -702,8 +742,10 @@ def vip_phase(torch, np, tklt, dev, smi):
               "run_medians_ms": run_meds, "vio_init_frame_ms": init_ms,
               "host_reads_per_frame": syncs / VIP_FRAMES,
               "sync_calls_per_frame_audit": len(real) / VIP_AUDIT_FRAMES,
+              "preint_steps_per_frame": preint.calls / VIP_FRAMES,
+              "imu_window": int(seq.imu_mask.shape[1]),
               "peak_allocated_bytes": peak, "profile": profile, "card": smi}
-    return record, launches
+    return record, launches, seq
 
 
 def drive_stream(torch, new_stream, feeds):
@@ -1208,24 +1250,27 @@ def fleet_vip_phase(torch, np, tklt, dev, smi, single, seq_jobs):
         raise AssertionError("no keyframe-free frame with every stream WORKING and VIO up")
     start = starts[0]
     # the second run, frame by frame as `run` does it, so that the state
-    # the profile starts from can be kept on the way
+    # the profile starts from can be kept on the way; since phase 14 joined
+    # it stops after the profile frame (frames 0..start, VIO init included:
+    # it held all 60 frames bitwise equal in every run before)
     step2 = VipFleetStep(cam, cfg, 64, device=dev)
     gens = stream_generators(S, 0, dev)
     frames = [tree_map(lambda a: a[:, f], feeds) for f in range(T)]
+    n2 = start + 1
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     st, outs2, st_prof = states0, [], None
-    for f in range(T):
+    for f in range(n2):
         if f == start:
             st_prof, gen_states = st, [g.get_state() for g in gens]
         st, o = step2(st, frames[f], gens)
         outs2.append(o)
     torch.cuda.synchronize()
     secs2 = time.perf_counter() - t1
-    if not same_outputs(torch, outs, _over_time(outs2, VipStepOut)):
+    if not same_outputs(torch, tree_map(lambda a: a[:, :n2], outs), _over_time(outs2, VipStepOut)):
         raise AssertionError("a second run of the VIP fleet differs from the first")
     del outs2
-    ms_frame = 1e3 * min(secs, secs2) / T
+    ms_frame = 1e3 * secs / T
 
     n_vio = n_ate = n_bench = 0
     for s in range(S):
@@ -1254,9 +1299,9 @@ def fleet_vip_phase(torch, np, tklt, dev, smi, single, seq_jobs):
         f"initialized VIO, {n_ate}/{S} with metric ATE below 12% of span ({n_bench}/{S} pass the "
         f"bench's gates), fleet counts (WORKING frames, VIO streams) "
         f"{[int(x) for x in fleet]}; {ms_frame:.1f} ms per batched frame = {ms_frame / S:.1f} ms "
-        f"per stream-frame (whole replay to a synchronize, the faster of two runs: "
-        f"{secs:.1f} s and {secs2:.1f} s; a single stream in phase 9: {single_ms:.1f} ms/frame); "
-        f"second run (stepped frame by frame) bitwise equal; host reads {syncs / T:.2f} per batched frame ({syncs} "
+        f"per stream-frame (whole replay to a synchronize: {secs:.1f} s; a single stream in "
+        f"phase 9: {single_ms:.1f} ms/frame); second run (stepped frame by frame over frames "
+        f"0-{n2 - 1}, {secs2:.1f} s) bitwise equal; host reads {syncs / T:.2f} per batched frame ({syncs} "
         f"total, {step.fleet_syncs} of them fleet tables); kernel launches {launches}"
         f"{f' (expected {expect})' if expect is not None else ''}; peak allocated "
         f"{peak / 2**20:.1f} MiB")
@@ -1295,6 +1340,7 @@ def fleet_vip_phase(torch, np, tklt, dev, smi, single, seq_jobs):
     record = {"streams": S, "n_frames": T, "vio_streams": int(n_vio), "ate_ok_streams": int(n_ate),
               "bench_gate_streams": int(n_bench), "ms_per_batched_frame": ms_frame,
               "ms_per_stream_frame": ms_frame / S, "run_seconds": [secs, secs2],
+              "second_run_frames": n2,
               "host_reads_per_batched_frame": syncs / T, "peak_allocated_bytes": peak,
               "profile": profile, "card": smi}
     return record, launches
@@ -1360,6 +1406,204 @@ def fleet_mono_phase(torch, np, tklt, dev, smi, single, seq_jobs):
     return record, launches
 
 
+APP_FRAMES = 80     # phase 14: the first frames of phase 9's sequence, as a bag
+APP_T_BASE = 1000.0
+
+
+def write_app_inputs(seq, out_dir):
+    """Phase 14's inputs: the first APP_FRAMES frames of `seq` as a rosbag
+    (images, the IMU stream, pressure), a settings YAML in the reference's
+    schema at phase 9's width and the IMU and pressure noise of
+    tests/test_parity_harness.py, and the groundtruth as TUM. Returns the
+    paths."""
+    import importlib.util
+    import types
+
+    from uvipslam_torch.io.evaluate import save_tum_groundtruth
+
+    # the repo's bag writer, loaded by its path: a `tests` package installed
+    # elsewhere would shadow the checkout's `tests/` directory
+    spec = importlib.util.spec_from_file_location(
+        "_bagwrite", os.path.join(HERE, "tests", "_bagwrite.py"))
+    bagwrite = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bagwrite)
+
+    n = APP_FRAMES
+    sub = types.SimpleNamespace(images=seq.images[:n], timestamps=seq.timestamps[:n],
+                                imu_omg=seq.imu_omg[:n], imu_acc=seq.imu_acc[:n],
+                                imu_dt=seq.imu_dt[:n], imu_mask=seq.imu_mask[:n])
+    imu_ts, omg, acc = bagwrite.imu_stream_from_sequence(sub)
+    valid = seq.depth_valid[:n]
+    os.makedirs(out_dir, exist_ok=True)
+    bag = os.path.join(out_dir, "seq.bag")
+    bagwrite.write_bag(bag, sub.images, sub.timestamps, imu_ts=imu_ts, imu_omg=omg, imu_acc=acc,
+              pressure_ts=sub.timestamps[valid], pressure=seq.depth[:n][valid],
+              t_base=APP_T_BASE)
+    gt = os.path.join(out_dir, "stamped_groundtruth.txt")
+    save_tum_groundtruth(gt, sub.timestamps + APP_T_BASE, seq.positions_w[:n])
+    K = seq.K
+    yaml = os.path.join(out_dir, "settings.yaml")
+    with open(yaml, "w") as f:
+        f.write(f"""%YAML:1.0
+Camera.fx: {K[0, 0]}
+Camera.fy: {K[1, 1]}
+Camera.cx: {K[0, 2]}
+Camera.cy: {K[1, 2]}
+Camera.col: {seq.images.shape[2]}
+Camera.row: {seq.images.shape[1]}
+Camera.fps: 20.0
+gyr.noise: 0.01
+acc.noise: 0.1
+gyr.rw: 5.0e-5
+acc.rw: 1.0e-3
+depth.noise: 0.05
+ORBextractor.nFeatures: 400
+LocalMapping.LocalWindowSize: 8
+Mode: 2
+Enhance: 0
+LoopC: 0
+time.Init: 1.0
+Init_mode: 2
+imagetopic: "/camera/image_raw"
+imutopic: "/imu"
+depthtopic: "/depth"
+""")
+    return bag, yaml, gt
+
+
+def preint_cost(torch, dev, widths):
+    """Launches of one IMU sample step on the card (torch.profiler), and
+    the host-clock ms of one preintegration over a window of each width
+    (median of 5, each ending in a synchronize)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from uvipslam_torch.core.preintegration import PreintState, preint_step, preintegrate
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    st = PreintState.zero((), device=dev)
+    w, a = torch.full((3,), 0.1, **f32), torch.full((3,), 9.8, **f32)
+    dt = torch.full((), 5e-3, **f32)
+    gyr, acc = torch.eye(3, **f32) * 1e-4, torch.eye(3, **f32) * 1e-2
+    preint_step(st, w, a, dt, gyr, acc)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(10):
+            preint_step(st, w, a, dt, gyr, acc)
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages() if e.key in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")) / 10
+    ms = {}
+    for width in widths:
+        om = torch.full((width, 3), 0.1, **f32)
+        ac = torch.full((width, 3), 9.8, **f32)
+        dts = torch.full((width,), 5e-3, **f32)
+        mask = (torch.arange(width, device=dev) < 10).to(torch.float32)
+        zero = torch.zeros(3, **f32)
+        runs = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            preintegrate(om, ac, dts, mask, zero, zero, 0.01, 0.1)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        ms[width] = statistics.median(runs[1:])
+    return launches, ms
+
+
+def app_phase(torch, np, tklt, dev, smi, seq, vip_record):
+    """Phase 14: the application entry point, `uvipslam_torch.app.main`,
+    from a 512x640 bag of phase 9's sequence, three runs on the card:
+    (a) `--device` VIP, (b) `--device` MONO, (c) the host MonoTracker
+    (MONO without `--device`). Gates, the reference's app tests'
+    (tests/test_parity_harness.py): VIP at least 12 keyframes matched,
+    posyaw ATE below 12% of the span, VIO up; MONO at least 8 matched and
+    Sim3 ATE below 5%. Each run must launch both hand kernels. Returns
+    (the record, launches by path)."""
+    from uvipslam_torch import app
+
+    out_dir = os.path.join(HERE, "chiprun_out", "app")
+    t0 = time.time()
+    bag, yaml, gt = write_app_inputs(seq, out_dir)
+    log(f"phase app: {APP_FRAMES} frames of phase 9's sequence written as a bag "
+        f"({os.path.getsize(bag) / 2**20:.1f} MiB) in {time.time() - t0:.1f} s")
+    runs = {"app_vip": ["--mode", "2", "--device"], "app_mono": ["--mode", "0", "--device"],
+            "host_mono": ["--mode", "0"]}
+    record, by_path = {}, {}
+    real_kf = app._kf_trajectory
+    for name, extra in runs.items():
+        metrics = os.path.join(out_dir, f"metrics_{name}.jsonl")
+        out = os.path.join(out_dir, f"est_{name}.txt")
+        seen = {}
+
+        def kf_trajectory(m, vio_ok, Tbc, stamps):
+            seen["vio_ok"] = bool(vio_ok)
+            return real_kf(m, vio_ok, Tbc, stamps)
+
+        app._kf_trajectory = kf_trajectory
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(tklt)
+        t1 = time.time()
+        try:
+            with PreintCounter() as preint:
+                res = app.main(["--settings", yaml, "--bag", bag, "--gt", gt, "--out", out,
+                                "--metrics", metrics] + extra)
+        finally:
+            app._kf_trajectory = real_kf
+        torch.cuda.synchronize()
+        secs = time.time() - t1
+        launches = read_launches(tklt)
+        peak = torch.cuda.max_memory_allocated()
+        rows = [json.loads(ln) for ln in open(metrics)]
+        end = [r for r in rows if r["kind"] == "run_end"][0]
+        names = {"NOT_INITIALIZED": "0", "INITIALIZING": "1", "WORKING": "2", "LOST": "3"}
+        states = "".join(names.get(r["state"], r["state"][-1])
+                         for r in rows if r["kind"] == "frame")
+        vip = name == "app_vip"
+        rec = dict(ate=res, fps=end["fps"], ms_per_frame=1e3 * end["run_s"] / APP_FRAMES,
+                   host_reads_per_frame=end["host_reads"] / APP_FRAMES,
+                   n_keyframes=end["n_keyframes"], vio_ok=seen.get("vio_ok"),
+                   launches=launches, peak_allocated_bytes=peak, main_seconds=secs, card=smi,
+                   frames_working=states.count("2"),
+                   preint_steps_per_frame=preint.calls / APP_FRAMES)
+        log(f"  {name}: {rec['frames_working']}/{APP_FRAMES} WORKING, {res['n_matched']} "
+            f"keyframes matched, {res['align']} ATE {res['ate_rmse_m']:.5f} m "
+            f"({100 * res['ate_rmse_m'] / res['gt_span_m']:.2f}% of span "
+            f"{res['gt_span_m']:.4f} m){', VIO up' if rec['vio_ok'] else ''}; FPS {rec['fps']} "
+            f"= {rec['ms_per_frame']:.1f} ms/frame, host reads "
+            f"{rec['host_reads_per_frame']:.2f}/frame, kernel launches {launches}, IMU sample "
+            f"steps {rec['preint_steps_per_frame']:.1f}/frame, peak allocated "
+            f"{peak / 2**20:.1f} MiB, main() {secs:.1f} s")
+        log(f"    states {states}")
+        if vip:
+            ok = res["n_matched"] >= 12 and res["ate_rmse_m"] < 0.12 * res["gt_span_m"] \
+                and rec["vio_ok"]
+        else:
+            ok = res["n_matched"] >= 8 and res["ate_rmse_m"] < 0.05 * res["gt_span_m"]
+        if not ok:
+            raise AssertionError(f"app run {name} fails its gates: {res}, VIO {rec['vio_ok']}")
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"app run {name} launched {launches}")
+        record[name] = rec
+        by_path[name] = launches
+        mark(name)
+    # the IMU window trap: the bag's bundles pad every frame's IMU window to
+    # 64 samples, and the preintegration steps through every sample
+    width = int(vip_record["imu_window"]) if vip_record else int(seq.imu_mask.shape[1])
+    per_step, ms = preint_cost(torch, dev, (width, 64))
+    steps9 = vip_record["preint_steps_per_frame"] if vip_record else float("nan")
+    stepsa = record["app_vip"]["preint_steps_per_frame"]
+    record["preintegration"] = dict(launches_per_sample_step=per_step,
+                                    window_ms={str(k): v for k, v in ms.items()},
+                                    steps_per_frame_app=stepsa, steps_per_frame_phase9=steps9)
+    log(f"  IMU windows: the bag's bundles pad to 64 samples, phase 9's to {width}; IMU sample "
+        f"steps per frame (VIO-init frame included) {stepsa:.1f} (app VIP) against {steps9:.1f} "
+        f"(phase 9), {per_step:.0f} launches each: preintegration launches per frame "
+        f"{stepsa * per_step:.0f} against {steps9 * per_step:.0f}; one preintegration over a "
+        f"window of {width} takes {ms[width]:.2f} ms, of 64 {ms[64]:.2f} ms (host clock)")
+    return record, by_path
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "uvipslam_torch")):
         print("chip_smoke.py must run from a checkout holding uvipslam_torch/",
@@ -1400,11 +1644,12 @@ def main() -> int:
 
 
 def run_phases(torch, np, tklt, dev, smi, pool) -> int:
-    """Phases 3-13 and the result lines."""
+    """Phases 3-14 and the result lines."""
     if "--only" in sys.argv:
-        seq_jobs = start_fleet_sequences(pool)
-        # development aid: the stream or fleet phases alone; prints no result line
+        # development aid: the stream, fleet or app phases alone; prints no result line
         only = sys.argv[sys.argv.index("--only") + 1].split(",")
+        if {"fleet_vip", "fleet_mono"} & set(only):
+            seq_jobs = start_fleet_sequences(pool)
         if "stream" in only:
             stream_mono_phase(torch, np, tklt, dev, smi)
         if "vip_stream" in only:
@@ -1415,6 +1660,8 @@ def run_phases(torch, np, tklt, dev, smi, pool) -> int:
             fleet_vip_phase(torch, np, tklt, dev, smi, None, seq_jobs["vip"])
         if "fleet_mono" in only:
             fleet_mono_phase(torch, np, tklt, dev, smi, None, seq_jobs["mono"])
+        if "app" in only:
+            app_phase(torch, np, tklt, dev, smi, vip_sequence(), None)
         log("partial run (--only): no result line")
         return 0
 
@@ -1552,7 +1799,7 @@ def run_phases(torch, np, tklt, dev, smi, pool) -> int:
         f"on (expected {reloc_expect})")
 
     # -- phase 9: the VIP step ------------------------------------------------
-    vip_record, vip_launches = vip_phase(torch, np, tklt, dev, smi)
+    vip_record, vip_launches, vip_seq = vip_phase(torch, np, tklt, dev, smi)
 
     # -- phases 10 and 11: the streams with loop closing -----------------------
     stream_record, stream_launches = stream_mono_phase(torch, np, tklt, dev, smi)
@@ -1564,6 +1811,9 @@ def run_phases(torch, np, tklt, dev, smi, pool) -> int:
     mfleet_record, mfleet_launches = fleet_mono_phase(torch, np, tklt, dev, smi, med,
                                                      seq_jobs["mono"])
 
+    # -- phase 14: the application entry point from a bag ------------------------
+    app_record, app_launches = app_phase(torch, np, tklt, dev, smi, vip_seq, vip_record)
+
     log("phase end times (s since start): " + ", ".join(f"{k} {v}" for k, v in MARKS.items()))
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "uvipslam_tpu"))
     if foreign:
@@ -1573,7 +1823,7 @@ def run_phases(torch, np, tklt, dev, smi, pool) -> int:
     full = [r for r in refine_rows if r["shape"] == [512, 640]][0]
     by_path = {"vip": vip_launches, "mono": launches, "mono_reloc": reloc_launches,
                "stream_mono": stream_launches, "stream_vip": vstream_launches,
-               "replay_vip": fleet_launches, "replay_mono": mfleet_launches}
+               "replay_vip": fleet_launches, "replay_mono": mfleet_launches, **app_launches}
     # the VIP step is the system's main path; every path's own counts are
     # read from zero just before it and just after it. No single PyTorch
     # call computes either function (library_ms null)
@@ -1622,7 +1872,7 @@ def run_phases(torch, np, tklt, dev, smi, pool) -> int:
                              "launches": reloc_launches},
                    "vip": vip_record, "stream_mono": stream_record,
                    "stream_vip": vstream_record, "replay_vip": fleet_record,
-                   "replay_mono": mfleet_record, "phase_end_s": MARKS}
+                   "replay_mono": mfleet_record, "app": app_record, "phase_end_s": MARKS}
     print(json.dumps(step_record), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,265 @@
+"""The port's application entry point (`uvipslam_torch.app`) on the CPU,
+against the reference's `uvipslam_tpu.app`.
+
+Two rendered 120x160 sequences (seed 3, 800 points) go through the
+reference's protocol of tests/test_parity_harness.py: rendered sequence ->
+rosbag bytes (tests/_bagwrite.py) -> native decoder -> settings YAML ->
+`main` -> TUM estimate -> ATE against the rendered groundtruth. The MONO
+bag runs `--device` (the device mono step) and the host `MonoTracker`;
+the VIP bag carries IMU, pressure and a body-camera extrinsic Tbc != I
+(~15 degrees, ~10 cm) and runs `--device` (the device VIP step). Each
+result is held to the gates of the reference's app tests: MONO at least 8
+keyframes matched and Sim3-aligned ATE below 5% of the span, VIP at least
+12 and posyaw-aligned ATE below 12%, with VIO up. The final map's keyframe
+trajectory (`_kf_trajectory`) equals the reference's on the same map
+within 1e-12 (float64), with and without the extrinsic; the app's
+per-frame states equal a direct run of the port's VIP step on the same
+bundles. A `slow` test runs the reference's app and the port's on the
+same bags and holds both to the gates.
+"""
+
+import json
+import os
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from tests._bagwrite import imu_stream_from_sequence, write_bag
+from tests._isolate import isolated
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
+from uvipslam_torch import app
+from uvipslam_torch.frontend import tracker as ttr
+from uvipslam_torch.io.evaluate import save_tum_groundtruth
+from uvipslam_torch.io.synthetic import _so3_exp_np, make_sequence
+from uvipslam_torch.io.trajectory import load_tum_trajectory
+
+H, W = 120, 160
+T_BASE = 1000.0
+FRAMES = {"mono": 40, "vip": 60}
+TBC = np.eye(4)
+TBC[:3, :3] = _so3_exp_np(np.array([0.15, -0.10, 0.20]))     # tests/test_parity_harness.py:163
+TBC[:3, 3] = [0.08, -0.05, 0.07]
+
+
+def _write_case(d, kind):
+    """Bag, settings YAML and groundtruth of one sequence; returns the
+    paths and the sequence."""
+    vip = kind == "vip"
+    seq = make_sequence(n_frames=FRAMES[kind], H=H, W=W, n_points=800, seed=3, speed=1.2,
+                        gyr_noise=0.005, acc_noise=0.05, gyr_bias=(0.004, -0.006, 0.003),
+                        acc_bias=(0.0, 0.0, 0.0), depth_noise=0.02, z_amp=0.5,
+                        Tbc=TBC if vip else None)
+    imu_ts, omg, acc = imu_stream_from_sequence(seq)
+    bag = os.path.join(d, f"{kind}.bag")
+    write_bag(bag, seq.images, seq.timestamps, imu_ts=imu_ts, imu_omg=omg, imu_acc=acc,
+              pressure_ts=seq.timestamps[seq.depth_valid], pressure=seq.depth[seq.depth_valid],
+              t_base=T_BASE)
+    gt = os.path.join(d, f"gt_{kind}.txt")
+    save_tum_groundtruth(gt, seq.timestamps + T_BASE, seq.positions_w)
+    K = seq.K
+    tbc = ", ".join(f"{v}" for v in (TBC if vip else np.eye(4)).reshape(-1))
+    yaml = os.path.join(d, f"{kind}.yaml")
+    with open(yaml, "w") as f:
+        f.write(f"""%YAML:1.0
+Camera.fx: {K[0, 0]}
+Camera.fy: {K[1, 1]}
+Camera.cx: {K[0, 2]}
+Camera.cy: {K[1, 2]}
+Camera.col: {W}
+Camera.row: {H}
+Camera.fps: 20.0
+Camera.Tbc: !!opencv-matrix
+   rows: 4
+   cols: 4
+   dt: d
+   data: [{tbc}]
+gyr.noise: 0.01
+acc.noise: 0.1
+gyr.rw: 5.0e-5
+acc.rw: 1.0e-3
+depth.noise: 0.05
+ORBextractor.nFeatures: 100
+LocalMapping.LocalWindowSize: 6
+Mode: {2 if vip else 0}
+Enhance: 0
+LoopC: 0
+time.Init: 1.0
+Init_mode: 2
+imagetopic: "/camera/image_raw"
+imutopic: "/imu"
+depthtopic: "/depth"
+""")
+    return dict(bag=bag, yaml=yaml, gt=gt, seq=seq)
+
+
+def _gate(res, kind):
+    """The reference app tests' gates (tests/test_parity_harness.py)."""
+    assert res is not None, kind
+    if kind == "vip":
+        assert res["n_matched"] >= 12 and res["align"] == "posyaw", res
+        assert res["ate_rmse_m"] < 0.12 * res["gt_span_m"], res
+    else:
+        assert res["n_matched"] >= 8 and res["align"] == "sim3", res
+        assert res["ate_rmse_m"] < 0.05 * res["gt_span_m"], res
+
+
+def _run(case, d, name, device_flag):
+    """`main` on the CPU; returns (ATE result, estimate path, metrics
+    rows, the `_kf_trajectory` call's arguments)."""
+    out = os.path.join(d, f"est_{name}.txt")
+    metrics = os.path.join(d, f"metrics_{name}.jsonl")
+    argv = ["--settings", case["yaml"], "--bag", case["bag"], "--gt", case["gt"], "--out", out,
+            "--metrics", metrics] + (["--device"] if device_flag else [])
+    calls = []
+    real = app._kf_trajectory
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(app, "_kf_trajectory", lambda *a: calls.append(a) or real(*a))
+        res = app.main(argv, device="cpu")
+    rows = [json.loads(ln) for ln in open(metrics)]
+    return dict(res=res, out=out, rows=rows, kf_args=calls[0])
+
+
+@pytest.fixture(scope="module")
+def cases(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("app"))
+    return d, {k: _write_case(d, k) for k in FRAMES}
+
+
+@pytest.fixture(scope="module")
+def runs(cases):
+    d, c = cases
+    return {"mono_device": _run(c["mono"], d, "mono_device", True),
+            "mono_host": _run(c["mono"], d, "mono_host", False),
+            "vip_device": _run(c["vip"], d, "vip_device", True)}
+
+
+@pytest.mark.parametrize("name", ["mono_device", "mono_host", "vip_device"])
+def test_main_gates_and_tum_export(cases, runs, name):
+    """The returned ATE passes the reference's gates; the TUM file holds
+    one line per keyframe of the final map, stamped with the bag's
+    times, and gives back the exported camera centres."""
+    _, c = cases
+    kind = name.split("_")[0]
+    r = runs[name]
+    _gate(r["res"], kind)
+    ts, pos, quat = load_tum_trajectory(r["out"])
+    m, vio_ok, Tbc, stamps = r["kf_args"]
+    t2, R2, tv2 = app._kf_trajectory(m, vio_ok, Tbc, stamps)
+    assert len(ts) == len(t2) == int(m.n_kf) == r["res"]["n_est"]
+    np.testing.assert_allclose(ts, t2, atol=1e-6, rtol=0)
+    frame_t = c[kind]["seq"].timestamps + T_BASE
+    assert np.abs(ts[:, None] - frame_t[None, :]).min(axis=1).max() < 1e-5
+    C = np.stack([-R.T @ tv for R, tv in zip(R2, tv2)])
+    np.testing.assert_allclose(pos, C, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(np.linalg.norm(quat, axis=1), 1.0, atol=1e-6)
+    assert bool(vio_ok) == (kind == "vip")
+    np.testing.assert_array_equal(Tbc, TBC if kind == "vip" else np.eye(4))
+    frames = [row for row in r["rows"] if row["kind"] == "frame"]
+    assert len(frames) == FRAMES[kind]
+    end = [row for row in r["rows"] if row["kind"] == "run_end"][0]
+    assert end["n_keyframes"] == int(m.n_kf) and end["fps"] > 0 and end["host_reads"] > 0
+
+
+@pytest.mark.parametrize("vio_ok", [True, False])
+@pytest.mark.parametrize("name", ["mono_device", "vip_device"])
+def test_kf_trajectory_equals_reference(runs, name, vio_ok):
+    """`_kf_trajectory` of the final map against the reference's on the
+    same map (numpy leaves), with the run's Tbc: float64 to 1e-12."""
+    from uvipslam_tpu.app import _kf_trajectory as j_kf_trajectory
+
+    m, _, Tbc, stamps = runs[name]["kf_args"]
+
+    # the map with numpy leaves, as the reference reads it
+    m_np = types.SimpleNamespace(kf_valid=m.kf_valid.numpy(), kf_frame_id=m.kf_frame_id.numpy(),
+                                 kf_ns=types.SimpleNamespace(p=m.kf_ns.p.numpy(),
+                                                             R=m.kf_ns.R.numpy()))
+    t = app._kf_trajectory(m, vio_ok, Tbc, stamps)
+    j = j_kf_trajectory(m_np, vio_ok, Tbc, stamps)
+    assert len(t[0]) == len(j[0]) > 5
+    for a, b in zip(t, j):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-12, rtol=0)
+    if name == "vip_device":
+        # the extrinsic moves the exported centres once VIO is up
+        moved = [np.linalg.norm(-R.T @ tv - (-Rm.T @ tm))
+                 for R, tv, Rm, tm in zip(t[1], t[2], *app._kf_trajectory(
+                     m, vio_ok, np.eye(4), stamps)[1:])]
+        assert (min(moved) > 0.05) == vio_ok
+
+
+def test_app_states_equal_a_direct_step_run(cases, runs):
+    """The app's `--device` VIP branch is the port's VIP step over the
+    bag's bundles: its per-frame states equal a direct run's."""
+    from uvipslam_torch.frontend.device_vip import build_vip_tracker, make_bundles
+    from uvipslam_torch.frontend.vip_tracker import VipConfig
+    from uvipslam_torch.io.bag import make_frame_bundles, read_bag
+    from uvipslam_torch.io.config import load_settings
+    from uvipslam_torch.models.camera import CameraModel
+
+    _, c = cases
+    s = load_settings(c["vip"]["yaml"])
+    b = make_frame_bundles(read_bag(c["vip"]["bag"], s.image_topic, s.imu_topic, s.depth_topic))
+    assert b["imu_mask"].shape[1] == 64 and b["imu_mask"].sum(1).max() < 16
+    cam = CameraModel.create(s.fx, s.fy, s.cx, s.cy, width=s.width, height=s.height)
+    cfg = VipConfig(n_tracks=s.n_features, px_distance=s.px_distance,
+                    local_window=s.local_window_size, enhance=bool(s.enhance),
+                    gyr_noise_sd=s.gyr_noise, acc_noise_sd=s.acc_noise,
+                    gyr_bias_rw2=s.gyr_rw ** 2, acc_bias_rw2=s.acc_rw ** 2,
+                    depth_noise_sd=s.depth_noise, vio_init_min_time=s.init_time,
+                    init_mode=s.init_mode, Tbc=tuple(map(tuple, s.Tbc.tolist())))
+    st, step = build_vip_tracker(cam, cfg, kf_cap=128, pt_cap=8192, device="cpu")
+    states = []
+    for x in make_bundles(types.SimpleNamespace(**b), device="cpu"):
+        st, out = step(st, x)
+        states.append(int(out.state))
+    app_states = [row["state"] for row in runs["vip_device"]["rows"] if row["kind"] == "frame"]
+    assert app_states == ["WORKING" if s == ttr.WORKING else f"state{s}" for s in states]
+    assert bool(st.vio_ok) and app_states.count("WORKING") >= 0.8 * FRAMES["vip"]
+
+
+def test_host_vip_stops_and_names_device(cases, capsys):
+    _, c = cases
+    with pytest.raises(SystemExit):
+        app.main(["--settings", c["vip"]["yaml"], "--bag", c["vip"]["bag"]], device="cpu")
+    assert "--device" in capsys.readouterr().err
+
+
+def test_main_runs_on_the_card_by_default(cases):
+    """Without a card the default device raises; nothing falls back to
+    the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    _, c = cases
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        app.main(["--settings", c["mono"]["yaml"], "--bag", c["mono"]["bag"], "--device"])
+
+
+def _reference_and_port(tmp_path, kind):
+    from uvipslam_tpu.app import main as j_main
+
+    case = _write_case(str(tmp_path), kind)
+    res = {}
+    for name, main in (("reference", j_main), ("port", lambda a: app.main(a, device="cpu"))):
+        out = str(tmp_path / f"est_{name}.txt")
+        argv = ["--settings", case["yaml"], "--bag", case["bag"], "--gt", case["gt"],
+                "--out", out] + (["--device"] if kind == "vip" else [])
+        res[name] = main(argv)
+        _gate(res[name], kind)
+    assert abs(res["reference"]["n_est"] - res["port"]["n_est"]) <= 3, res
+
+
+@pytest.mark.slow
+@isolated
+def test_reference_and_port_apps_on_the_vip_bag(tmp_path):
+    """The reference's app and the port's on the same VIP bag through
+    `--device`, both held to the gates."""
+    _reference_and_port(tmp_path, "vip")
+
+
+@pytest.mark.slow
+@isolated
+def test_reference_and_port_apps_on_the_mono_bag(tmp_path):
+    """The reference's host MonoTracker app and the port's on the same
+    MONO bag, both held to the gates."""
+    _reference_and_port(tmp_path, "mono")

@@ -24,6 +24,7 @@ from tests.test_loop_closer import build_looped_map, build_two_loop_map
 from tests.test_torch_stream import CAM4, _np, _port
 from uvipslam_tpu.loop import closer as jcl
 from uvipslam_torch.loop import closer as tcl
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -196,3 +196,26 @@ def test_vip_frame_on_card_matches_cpu(cuda_device):
     for f in ("dP", "dV", "dR", "cov", "dt"):
         for a, b in ((card1.preint_kf, cpu1.preint_kf), (card_pre, cpu_pre)):
             torch.testing.assert_close(getattr(a, f).cpu(), getattr(b, f), atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_app_synthetic_mono_device_on_card(cuda_device, tmp_path):
+    """`python -m uvipslam_torch.app --synthetic 45 --mode 0 --device` on
+    the card: the sim3 ATE gate of the reference's app tests, and two runs
+    write byte-equal TUM files (runs repeat bit for bit on the card; the
+    card's and the CPU's generators draw different RANSAC samples, so no
+    pose-by-pose comparison with the CPU)."""
+    from uvipslam_torch.app import main
+    from uvipslam_torch.io.evaluate import save_tum_groundtruth
+    from uvipslam_torch.io.synthetic import make_sequence
+
+    seq = make_sequence(n_frames=45, H=240, W=320, n_points=4000, speed=1.2, z_amp=0.5,
+                        depth_noise=0.02)
+    gt = str(tmp_path / "gt.txt")
+    save_tum_groundtruth(gt, seq.timestamps, seq.positions_w)
+    outs = [str(tmp_path / f"est_{i}.txt") for i in range(2)]
+    for out in outs:
+        res = main(["--synthetic", "45", "--mode", "0", "--device", "--gt", gt, "--out", out])
+        assert res["n_matched"] >= 8 and res["ate_rmse_m"] < 0.05 * res["gt_span_m"], res
+    with open(outs[0], "rb") as a, open(outs[1], "rb") as b:
+        assert a.read() == b.read()

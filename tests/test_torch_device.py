@@ -12,6 +12,7 @@ from uvipslam_torch.frontend.vip_tracker import VipConfig
 from uvipslam_torch.loop.closer import LoopCloser
 from uvipslam_torch.models.camera import CameraModel
 from uvipslam_torch.parallel import replay
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 CAM = CameraModel.create(100.0, 100.0, 80.0, 60.0, width=160, height=120)
 

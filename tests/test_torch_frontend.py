@@ -28,6 +28,7 @@ from uvipslam_tpu.ops import orb as jorb, twoview as jtv
 from uvipslam_torch.frontend import frame as tframe
 from uvipslam_torch.ops import fast as tfast, hamming as tham, image as timg
 from uvipslam_torch.ops import orb as torb, twoview as ttv
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

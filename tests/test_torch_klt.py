@@ -16,6 +16,7 @@ import torch
 
 from uvipslam_tpu.ops import klt as jklt
 from uvipslam_torch.ops import klt as tklt
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-4
 

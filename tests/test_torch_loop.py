@@ -33,6 +33,7 @@ from uvipslam_torch.loop import vocab as tvocab
 from uvipslam_torch.mapstate import hygiene as thyg
 from uvipslam_torch.ops import hamming as tham
 from uvipslam_torch.solver import factors as tfac
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 FX, FY, CX, CY = 400.0, 400.0, 320.0, 240.0
 DTYPES = {"f32": (np.float32, torch.float32, False), "f64": (np.float64, torch.float64, True)}

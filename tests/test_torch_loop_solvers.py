@@ -23,6 +23,7 @@ from uvipslam_torch.solver import essential_graph as teg
 from uvipslam_torch.solver import global_ba as tgba
 
 from tests.test_torch_loop import CX, CY, DTYPES, FX, FY, _np, _rot, _t, _tree_np
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -32,7 +32,8 @@ def test_import_every_module_without_jax():
     for m in ("kernels", "frontend.device_tracker", "frontend.device_vip", "frontend.vip_tracker",
               "vio.init", "ops.pnp", "ops.clahe", "solver.global_ba", "loop.reloc",
               "frontend.stream", "loop.closer", "loop.clusters", "loop.dbscan", "ops.sim3solver",
-              "solver.essential_graph", "parallel", "parallel.replay"):
+              "solver.essential_graph", "parallel", "parallel.replay", "app", "io.config",
+              "io.bag", "io.trajectory", "io.evaluate", "io.checkpoint", "utils.metrics"):
         assert "uvipslam_torch." + m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke']!r}: importlib.import_module(m)\n"

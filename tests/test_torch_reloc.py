@@ -39,6 +39,7 @@ from uvipslam_torch.loop import reloc as treloc
 from uvipslam_torch.models.camera import CameraModel as TCam
 from uvipslam_torch.ops import clahe as tclahe
 from uvipslam_torch.ops import pnp as tpnp
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 CFG = dict(n_tracks=100, min_init_tracks=60, local_window=8)
 KF_CAP, PT_CAP = 16, 1024

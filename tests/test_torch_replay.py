@@ -38,6 +38,7 @@ from uvipslam_torch.frontend.vip_tracker import VipConfig as TVipConfig
 from uvipslam_torch.models.camera import CameraModel as TCam
 from uvipslam_torch.ops import klt as tklt
 from uvipslam_torch.parallel import replay as treplay
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 S3 = 3
 

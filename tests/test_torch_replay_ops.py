@@ -37,6 +37,7 @@ from uvipslam_torch.ops import clahe as cl
 from uvipslam_torch.ops import fast, image, klt, orb
 from uvipslam_torch.ops import twoview as tv
 from uvipslam_torch.solver import gn, pose_opt
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 H, W, N_TRACKS = 120, 160, 96
 KF_CAP, PT_CAP = 16, 1024
@@ -44,17 +45,6 @@ MONO_F, VI_F, N_FRAMES = 12, 26, 26
 CFG = dict(n_tracks=N_TRACKS, min_init_tracks=60, local_window=6, gyr_noise_sd=0.01,
            acc_noise_sd=0.1, depth_noise_sd=0.05, vio_init_min_kfs=5, vio_init_min_time=1.0)
 S = 3
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """The stages here are thousands of small ops; with the default
-    intra-op pool, several test workers on one machine spend their time
-    contending for its cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rs(seed):

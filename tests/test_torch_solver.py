@@ -24,6 +24,7 @@ from uvipslam_torch.core import lie as tlie
 from uvipslam_torch.solver import gn as tgn
 from uvipslam_torch.solver.local_ba import local_ba_se3 as t_local_ba
 from uvipslam_torch.solver.pose_opt import pose_optimization_se3 as t_pose_opt
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 FX, FY, CX, CY = 420.0, 420.0, 320.0, 240.0
 

@@ -34,6 +34,7 @@ from uvipslam_torch import convert
 from uvipslam_torch.frontend import device_tracker as tdt
 from uvipslam_torch.frontend import tracker as ttr
 from uvipslam_torch.models.camera import CameraModel as TCam
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 N_FRAMES = 20
 # after frame 11 landmark-less tracks with the 3-frame triangulation

@@ -26,6 +26,7 @@ from uvipslam_torch.frontend.tracker import TrackerConfig, _ns_to_cam_pose, _ns_
 from uvipslam_torch.frontend.vip_tracker import VipConfig
 from uvipslam_torch.loop import closer as tcl
 from uvipslam_torch.models.camera import CameraModel
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 CAM4 = (400.0, 400.0, 320.0, 240.0)
 

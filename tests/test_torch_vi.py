@@ -49,6 +49,7 @@ from uvipslam_torch.solver import global_ba as tgba
 from uvipslam_torch.solver import local_ba as tlba
 from uvipslam_torch.solver import pose_opt as tpo
 from uvipslam_torch.vio import init as tvio
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 FX, FY, CX, CY = 420.0, 420.0, 320.0, 240.0
 ATOL = 1e-4

@@ -9,12 +9,12 @@ tracks are equal, the VIO-init frames agree within 3, both steps are
 WORKING on at least 80% of the frames, both metric ATEs (no scale
 alignment, over the WORKING frames from VIO init + 3 on) are below 12%
 of those frames' span (the bar of tests/test_device_vip.py), and the
-two trajectories agree within 4% of the span after Sim3 alignment. A
-second pass with three black frames after VIO init takes both steps
-through IMU recovery and back to WORKING within two frames of each
-other; the first-try lane of the VI solve is driven in the port by a
-failing first solve. The carried-state checks feed both sides the reference state just after
-VIO init (converted with uvipslam_torch.convert): the VI pose solve holds
+two trajectories agree within 4% of the span after Sim3 alignment. The
+pass with three black frames after VIO init (IMU recovery) is in
+tests/test_torch_vip_blackout.py, so that two test workers share the two
+sequence passes. The first-try lane of the VI solve is driven in the port
+by a failing first solve. The carried-state checks feed both sides the
+reference state just after VIO init (converted with uvipslam_torch.convert): the VI pose solve holds
 poses at atol 1e-4 and inlier sets exactly; the VI window BA agrees to
 1e-8 in float64, and in float32 on the final state (see
 `test_carried_vi_ba` for why not on the state after init). The VIO init
@@ -42,6 +42,7 @@ from uvipslam_torch.frontend import tracker as ttr
 from uvipslam_torch.frontend import vip_tracker as tvt
 from uvipslam_torch.models.camera import CameraModel as TCam
 from tests.test_torch_step import _leaves
+from tests.test_torch_threads import one_torch_thread, torch_threads  # noqa: F401
 
 N_FRAMES = 40
 H, W = 120, 160
@@ -51,7 +52,6 @@ CFG = dict(n_tracks=100, min_init_tracks=60, local_window=6, gyr_noise_sd=0.01,
            imu_cap_per_kf=256)
 ATOL = 1e-4
 SCALE_RTOL = 1e-3
-BLACK = (28, 29, 30)     # black frames after VIO init (frame 23 in both)
 
 
 @pytest.fixture(autouse=True)
@@ -108,20 +108,11 @@ def jax_run(seq):
                 # the last two states before (and at) VIO init
                 kept = (kept + [jax.tree_util.tree_map(np.asarray, st)])[-2:]
         final = jax.tree_util.tree_map(np.asarray, st)
-        st = jdv.init_vip_state(jvt.VipConfig(**CFG), KF_CAP, PT_CAP, H, W)
-        blackout = []
-        for f in range(N_FRAMES):
-            b = _jbundle(seq, f)
-            if f in BLACK:
-                b = dataclasses.replace(b, img=jnp.zeros_like(b.img))
-            st, out = step(st, b)
-            blackout.append(int(out.state))
         raw = step.__wrapped__
         closure = dict(zip(raw.__code__.co_freevars, (c.cell_contents for c in raw.__closure__)))
         return dict(cam=cam, states=np.asarray(states), vios=np.asarray(vios),
                     C=np.asarray(C), tracks0=tracks0, pre_trigger=kept[0], post_init=kept[1],
-                    final=final, blackout=np.asarray(blackout),
-                    try_init_vio=jax.jit(closure["try_init_vio"]))
+                    final=final, try_init_vio=jax.jit(closure["try_init_vio"]))
 
 
 @pytest.fixture(scope="module")
@@ -136,16 +127,8 @@ def torch_run(seq):
         C.append(_centre(out.Rcw.numpy(), out.tcw.numpy()))
         if f == 0:
             tracks0 = st.tracks
-    syncs = step.host_syncs
-    st = tdv.init_vip_state(tvt.VipConfig(**CFG), KF_CAP, PT_CAP, H, W, device="cpu")
-    blackout = []
-    for f, b in enumerate(tdv.make_bundles(seq, device="cpu")):
-        if f in BLACK:
-            b = dataclasses.replace(b, img=torch.zeros_like(b.img))
-        st, out = step(st, b)
-        blackout.append(int(out.state))
     return dict(cam=cam, step=step, states=np.asarray(states), vios=np.asarray(vios),
-                C=np.asarray(C), tracks0=tracks0, syncs=syncs, blackout=np.asarray(blackout))
+                C=np.asarray(C), tracks0=tracks0, syncs=step.host_syncs)
 
 
 def test_frame0_tracks_equal(jax_run, torch_run):
@@ -179,21 +162,6 @@ def test_vio_init_working_and_metric_ate(seq, jax_run, torch_run):
     assert mutual < 0.04 * span, (mutual, span)
     # one state read per frame plus the branch decisions
     assert N_FRAMES < torch_run["syncs"] <= 4 * N_FRAMES
-
-
-def test_vi_blackout_enters_and_leaves_imu_recovery(jax_run, torch_run):
-    """Black frames after VIO init: the VI solve and its first-try lane
-    fail, both steps dead-reckon in IMU_RELOC, capture a fresh anchor and
-    re-anchor by two-view reconstruction back to WORKING."""
-    runs = {"reference": jax_run["blackout"], "port": torch_run["blackout"]}
-    first = {}
-    for name, states in runs.items():
-        assert (states[:BLACK[0]] == jax_run["states"][:BLACK[0]]).all(), (name, states)
-        assert states[BLACK[0]] == ttr.IMU_RELOC, (name, states)
-        rec = np.nonzero(states[BLACK[0]:] == ttr.WORKING)[0]
-        assert len(rec) and (states[BLACK[0] + rec[0]:] == ttr.WORKING).all(), (name, states)
-        first[name] = BLACK[0] + int(rec[0])
-    assert abs(first["reference"] - first["port"]) <= 2, (first, runs)
 
 
 def test_first_try_lane_forces_a_keyframe(jax_run, torch_run, seq, monkeypatch):
@@ -327,13 +295,18 @@ def _scale_and_alignment(before, after):
     return rt2[k] / rt[k], R2.T @ R
 
 
-def test_try_init_vio_on_pre_trigger_state(jax_run, torch_run):
+def test_try_init_vio_on_pre_trigger_state(jax_run, torch_run, one_torch_thread):
     src = jax_run["pre_trigger"]
     with jax.enable_x64(False):
         j = jax_run["try_init_vio"](jax.tree_util.tree_map(jnp.asarray, src))
         j = jax.tree_util.tree_map(np.asarray, j)
     st = convert.vip_state(src)
-    t, ok = torch_run["step"]._try_init_vio(st)
+    # under torch's default thread pool, as the scale bar below was set:
+    # the float32 full-map BA inside has a free scale gauge, and the
+    # rounding of its reductions (split over the pool's threads) moves
+    # where its LM stops (with one thread the scale lands 6.1e-3 apart)
+    with torch_threads(one_torch_thread):
+        t, ok = torch_run["step"]._try_init_vio(st)
     assert bool(j.vio_ok) and bool(ok)
     s_j, Ra_j = _scale_and_alignment(src, j)
     s_t, Ra_t = _scale_and_alignment(src, t)

@@ -11,7 +11,10 @@ last loop frame, cluster tables) is carried over as it is. A batched
 reference state (every leaf with a leading stream dimension, as
 `parallel.replay.batched_replay*`'s `make_states` gives it) becomes the
 port's batched state through `tracker_fleet` / `vip_fleet`; its `gen`
-field is None, since a fleet's generators live beside the state.
+field is None, since a fleet's generators live beside the state. A host
+`MonoTracker` of the reference becomes the port's through `mono_tracker`:
+its camera, configuration and host fields as they are, its arrays as
+tensors, a fresh generator in place of its PRNG key.
 """
 
 from __future__ import annotations
@@ -112,3 +115,40 @@ def loop_closer(src, device=None, seed: int = 11):
     lc.cluster_lc_found = [(int(a), int(b)) for a, b in src.cluster_lc_found]
     lc.cluster_min_pts = int(src.cluster_min_pts)
     return lc
+
+
+def mono_tracker(src, device=None, seed: int = 0):
+    """The port's `MonoTracker` with the state of a reference one: the
+    state machine, frame ids and keyframe bookkeeping, tracks, map, pose,
+    motion model, pose ring, the previous frame's pyramid, the stored
+    trajectory (its poses as tensors) and the loop closer's host state
+    (`loop_closer`)."""
+    from uvipslam_torch.frontend.tracker import MonoTracker, TrackerConfig
+    from uvipslam_torch.models.camera import CameraModel
+
+    c = src.cam
+    cam = CameraModel.create(float(np.asarray(c.fx)), float(np.asarray(c.fy)),
+                             float(np.asarray(c.cx)), float(np.asarray(c.cy)),
+                             dist=tuple(np.asarray(c.dist, np.float64).tolist()), kind=c.kind,
+                             width=c.width, height=c.height)
+    cfg = TrackerConfig(**{f.name: getattr(src.cfg, f.name)
+                           for f in dataclasses.fields(TrackerConfig)})
+    dev = "cpu" if device is None else device
+    tr = MonoTracker(cam, cfg, kf_cap=int(np.asarray(src.map.kf_valid).shape[0]),
+                     pt_cap=int(np.asarray(src.map.pt_valid).shape[0]), seed=seed, device=dev)
+
+    tr.tracks = tracks(src.tracks, tr.device)
+    tr.map = map_state(src.map, tr.device)
+    tr.pyr_prev = None if src.pyr_prev is None else tuple(
+        to_tensor(np.asarray(a), tr.device) for a in src.pyr_prev)
+    for f in ("Rcw", "tcw", "R_vel", "t_vel", "ring_R", "ring_t", "ring_frame"):
+        setattr(tr, f, to_tensor(np.asarray(getattr(src, f)), tr.device))
+    for f in ("state", "frame_id", "init_frame_id", "last_kf_slot", "last_kf_frame",
+              "n_ref_tracked"):
+        setattr(tr, f, int(getattr(src, f)))
+    tr.trajectory = [(int(f), to_tensor(np.asarray(R), tr.device),
+                      to_tensor(np.asarray(t), tr.device)) for f, R, t in src.trajectory]
+    tr.loop_events = list(src.loop_events)
+    if src.loop_closer is not None:
+        tr.loop_closer = loop_closer(src.loop_closer, tr.device)
+    return tr

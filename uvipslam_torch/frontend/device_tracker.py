@@ -36,14 +36,15 @@ from torch.profiler import record_function
 from uvipslam_torch.core import lie
 from uvipslam_torch.core.lie import mm, mv
 from uvipslam_torch.core.preintegration import PreintState
-from uvipslam_torch.core.tree import (over_streams, put_row, put_streams, row, take_streams,
+from uvipslam_torch.core.tree import (over_streams, put_row, put_streams, take_streams,
                                       tree_map)
 from uvipslam_torch.frontend.frame import (Tracks, propagate_tracks, refill_tracks,
                                            refresh_descriptors)
 from uvipslam_torch.frontend.tracker import (INITIALIZING, LOST, NOT_INITIALIZED,
                                              WORKING, TrackerConfig, _cam_pose_to_ns,
-                                             _local_ba, _motion_guess, _ns_to_cam_pose,
-                                             _pose_and_localmap, _triangulate_new)
+                                             _motion_guess, _nanmedian, _nav_row,
+                                             _ns_to_cam_pose, _pose_and_localmap,
+                                             _triangulate_new, _window_ba, step_device)
 from uvipslam_torch.loop.reloc import relocalize_frame
 from uvipslam_torch.mapstate.hygiene import compact_points, cull_points, fuse_duplicates_recent
 from uvipslam_torch.mapstate.map import MapState
@@ -126,17 +127,6 @@ def _i32(v, device):
     return torch.full((), v, dtype=torch.int32, device=device)
 
 
-def step_device(device) -> torch.device:
-    """The device a step's entry point runs on: the card unless the
-    caller names another. Raises when a CUDA device is asked for and none
-    is present, rather than falling back to the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the step runs on the card unless the caller "
-                           "passes device='cpu'")
-    return device
-
-
 def init_state(cfg: TrackerConfig, kf_cap: int, pt_cap: int, height: int, width: int,
                seed: int = 0, device="cuda") -> TrackerState:
     device = step_device(device)
@@ -158,21 +148,6 @@ def init_state(cfg: TrackerConfig, kf_cap: int, pt_cap: int, height: int, width:
         last_kf_frame=_i32(-1, device), n_ref_tracked=_i32(0, device),
         gen=gen,
     )
-
-
-def _nanmedian(x: torch.Tensor) -> torch.Tensor:
-    """jnp.nanmedian: linear-interpolated 0.5 quantile of the non-NaN
-    entries (the mean of the two middle values for an even count); NaN
-    when every entry is NaN. No host sync."""
-    n = torch.sum(~torch.isnan(x))
-    s = torch.sort(x).values                      # NaNs sort last
-    pos = 0.5 * (n - 1).clamp(min=0).to(x.dtype)
-    lo = torch.floor(pos)
-    w = pos - lo
-    lo_i = lo.long().reshape(1)
-    hi_i = torch.ceil(pos).long().reshape(1)
-    med = s.index_select(0, lo_i)[0] * (1.0 - w) + s.index_select(0, hi_i)[0] * w
-    return torch.where(n > 0, med, torch.full_like(med, float("nan")))
 
 
 class MonoStep:
@@ -204,15 +179,7 @@ class MonoStep:
         return dataclasses.replace(tracks, xy_und=self.cam.undistort_pixels(tracks.xy))
 
     def _run_local_ba(self, m: MapState) -> MapState:
-        kf_idx = torch.arange(m.kf_cap, device=self.device)
-        in_window = (kf_idx >= m.n_kf - self.cfg.local_window) & (kf_idx < m.n_kf)
-        # mono gauge: slot 0 always fixed, slot 1 fixed when valid (set on
-        # the device: an indexed write of a Python value would be a
-        # host-to-device copy that waits for the stream)
-        fixed = (m.kf_valid & ~in_window) | (kf_idx == 0)
-        fixed = torch.where(kf_idx == 1, m.kf_valid[1], fixed)
-        cam = self.cam
-        return _local_ba(m, fixed, cam.fx, cam.fy, cam.cx, cam.cy, self.scale_sigmas)
+        return _window_ba(m, self.cam, self.cfg.local_window, self.scale_sigmas)
 
     def _refill(self, tracks, img, frame_id):
         return refill_tracks(tracks, img, frame_id, n_features=self.cfg.n_tracks,
@@ -625,11 +592,6 @@ def relocalize_pose(tracks, m: MapState, gen, cam: CameraModel, scale_sigmas):
     R, t, _, n, tr = (tree_map(lambda a, b: torch.where(pick_b, b, a), x, y)
                       for x, y in zip(*seeds))
     return R, t, n, tr
-
-
-def _nav_row(ns, k):
-    """Row k of a NavState table (device-scalar index)."""
-    return tree_map(lambda a: row(a, k), ns)
 
 
 def build_tracker(cam: CameraModel, cfg: TrackerConfig, kf_cap: int, pt_cap: int,
