@@ -100,10 +100,25 @@ result):
      >= 8 matched, Sim3 ATE below 5%) and required to launch both hand
      kernels. Prints each run's FPS line, ms per frame, host reads per
      frame, launches and peak memory, and the IMU sample steps per frame
-     of the bag's 64-sample windows against phase 9's.
+     of the bag's 64-sample windows against phase 9's. A fourth run,
+     `host_vip`, is mode 2 without `--device`: the host `VipTracker`
+     (two preintegrations per frame over the padded windows), held to the
+     VIP gates, with exactly the launches its frames' branches imply;
+ 15. the host `VipTracker` directly on phase 9's sequence (512x640, its
+     settings, 10-sample windows, kf_cap 64, pt_cap 8192): 70 frames with
+     frames 45-47 black, the gates of the reference's
+     `test_vip_recovery_after_blackout` where they apply: VIO up before
+     the blackout, IMU_RELOC reached, WORKING again through a two-view
+     re-initialization within `recovery_max_frames`, the last frame
+     WORKING, metric ATE over the frames after VIO init below
+     0.25·max(span, 0.5), median |z error| below 0.15, |bg| below 0.1, and
+     exactly the launches its frames' branches imply. Prints host reads
+     per frame, the median ms of the WORKING VI frames, the VIO-init
+     frame's and the recovery frame's ms.
 
-`--only stream,vip_stream,fleet_kernels,fleet_vip,fleet_mono,app` (any
-subset) runs those phases alone after the build and prints no result line.
+`--only stream,vip_stream,fleet_kernels,fleet_vip,fleet_mono,app,host_vip`
+(any subset) runs those phases alone after the build and prints no result
+line (`host_vip` is phase 15; `app` includes phase 14's host VIP run).
 
 The last three lines of standard output are the steps' JSON record, the
 per-kernel JSON record (launches per path, times, errors, bounds) and
@@ -607,6 +622,39 @@ def expected_launches_vip(states, n_orb_levels):
         pulls += detect if prev in (NOT_INITIALIZED, WORKING) else 0
         refines += 2 if prev in (INITIALIZING, WORKING) else 0
         prev = s
+    return {"extract_patches": pulls, "anchor_refine": refines}
+
+
+def expected_launches_host_vip(statuses, n_orb_levels):
+    """Launches of each kernel implied by the host VipTracker's per-frame
+    status dicts, which name the branch each frame ran: a propagation is
+    two anchor refinements (every branch but NOT_INITIALIZED), a refill
+    two template pulls and one per ORB level, a descriptor refresh one
+    pull. VI frames (`vio`, or IMU_RELOC with an inlier count) refill and
+    refresh when they hold, and make the recovery's fresh detection (a
+    refill) when they fail; recovery frames refill when they re-anchor;
+    the mono bootstrap's frames as `expected_launches` counts them, LOST
+    propagating first (the host tracker does)."""
+    refill = 2 + n_orb_levels
+    pulls = refines = 0
+    for st in statuses:
+        s = st["state"]
+        if st.get("vio") or (s == "IMU_RELOC" and "n_inliers" in st):
+            refines += 2
+            pulls += refill + 1 if s == "WORKING" else refill
+        elif s == "IMU_RELOC" or st.get("recovery") == "re-initialized":
+            refines += 2
+            pulls += refill if st.get("recovery") == "re-anchored" else 0
+        elif s == "NOT_INITIALIZED":
+            pulls += refill
+        elif s == "INITIALIZING":
+            refines += 2
+        elif "relocalized" in st:
+            refines += 2
+            pulls += refill + 1
+        else:                                    # WORKING, or WORKING -> LOST
+            refines += 2
+            pulls += refill + 1 if s == "WORKING" else 0
     return {"extract_patches": pulls, "anchor_refine": refines}
 
 
@@ -1512,13 +1560,15 @@ def preint_cost(torch, dev, widths):
 
 def app_phase(torch, np, tklt, dev, smi, seq, vip_record):
     """Phase 14: the application entry point, `uvipslam_torch.app.main`,
-    from a 512x640 bag of phase 9's sequence, three runs on the card:
+    from a 512x640 bag of phase 9's sequence, four runs on the card:
     (a) `--device` VIP, (b) `--device` MONO, (c) the host MonoTracker
-    (MONO without `--device`). Gates, the reference's app tests'
+    (MONO without `--device`), (d) the host VipTracker (VIP without
+    `--device`). Gates, the reference's app tests'
     (tests/test_parity_harness.py): VIP at least 12 keyframes matched,
     posyaw ATE below 12% of the span, VIO up; MONO at least 8 matched and
-    Sim3 ATE below 5%. Each run must launch both hand kernels. Returns
-    (the record, launches by path)."""
+    Sim3 ATE below 5%. Each run must launch both hand kernels, (d) exactly
+    as its frames' branches imply. Returns (the record, launches by
+    path)."""
     from uvipslam_torch import app
 
     out_dir = os.path.join(HERE, "chiprun_out", "app")
@@ -1527,7 +1577,7 @@ def app_phase(torch, np, tklt, dev, smi, seq, vip_record):
     log(f"phase app: {APP_FRAMES} frames of phase 9's sequence written as a bag "
         f"({os.path.getsize(bag) / 2**20:.1f} MiB) in {time.time() - t0:.1f} s")
     runs = {"app_vip": ["--mode", "2", "--device"], "app_mono": ["--mode", "0", "--device"],
-            "host_mono": ["--mode", "0"]}
+            "host_mono": ["--mode", "0"], "host_vip": ["--mode", "2"]}
     record, by_path = {}, {}
     real_kf = app._kf_trajectory
     for name, extra in runs.items():
@@ -1556,10 +1606,13 @@ def app_phase(torch, np, tklt, dev, smi, seq, vip_record):
         peak = torch.cuda.max_memory_allocated()
         rows = [json.loads(ln) for ln in open(metrics)]
         end = [r for r in rows if r["kind"] == "run_end"][0]
-        names = {"NOT_INITIALIZED": "0", "INITIALIZING": "1", "WORKING": "2", "LOST": "3"}
-        states = "".join(names.get(r["state"], r["state"][-1])
-                         for r in rows if r["kind"] == "frame")
-        vip = name == "app_vip"
+        names = {"NOT_INITIALIZED": "0", "INITIALIZING": "1", "WORKING": "2", "LOST": "3",
+                 "IMU_RELOC": "4"}
+        frames = [r for r in rows if r["kind"] == "frame"]
+        states = "".join(names.get(r["state"], r["state"][-1]) for r in frames)
+        vip = name in ("app_vip", "host_vip")
+        expect = (expected_launches_host_vip(frames, orb_levels(*seq.images.shape[1:]))
+                  if name == "host_vip" else None)
         rec = dict(ate=res, fps=end["fps"], ms_per_frame=1e3 * end["run_s"] / APP_FRAMES,
                    host_reads_per_frame=end["host_reads"] / APP_FRAMES,
                    n_keyframes=end["n_keyframes"], vio_ok=seen.get("vio_ok"),
@@ -1571,7 +1624,8 @@ def app_phase(torch, np, tklt, dev, smi, seq, vip_record):
             f"({100 * res['ate_rmse_m'] / res['gt_span_m']:.2f}% of span "
             f"{res['gt_span_m']:.4f} m){', VIO up' if rec['vio_ok'] else ''}; FPS {rec['fps']} "
             f"= {rec['ms_per_frame']:.1f} ms/frame, host reads "
-            f"{rec['host_reads_per_frame']:.2f}/frame, kernel launches {launches}, IMU sample "
+            f"{rec['host_reads_per_frame']:.2f}/frame, kernel launches {launches}"
+            f"{f' (expected {expect})' if expect is not None else ''}, IMU sample "
             f"steps {rec['preint_steps_per_frame']:.1f}/frame, peak allocated "
             f"{peak / 2**20:.1f} MiB, main() {secs:.1f} s")
         log(f"    states {states}")
@@ -1582,8 +1636,8 @@ def app_phase(torch, np, tklt, dev, smi, seq, vip_record):
             ok = res["n_matched"] >= 8 and res["ate_rmse_m"] < 0.05 * res["gt_span_m"]
         if not ok:
             raise AssertionError(f"app run {name} fails its gates: {res}, VIO {rec['vio_ok']}")
-        if min(launches.values()) <= 0:
-            raise AssertionError(f"app run {name} launched {launches}")
+        if min(launches.values()) <= 0 or (expect is not None and launches != expect):
+            raise AssertionError(f"app run {name} launched {launches}, expected {expect}")
         record[name] = rec
         by_path[name] = launches
         mark(name)
@@ -1602,6 +1656,113 @@ def app_phase(torch, np, tklt, dev, smi, seq, vip_record):
         f"{stepsa * per_step:.0f} against {steps9 * per_step:.0f}; one preintegration over a "
         f"window of {width} takes {ms[width]:.2f} ms, of 64 {ms[64]:.2f} ms (host clock)")
     return record, by_path
+
+
+HOST_VIP_FRAMES = 70            # phase 15: the first frames of phase 9's sequence
+HOST_VIP_BLACK = (45, 46, 47)   # black frames (VIO is up from about frame 22)
+
+
+def host_vip_blackout_phase(torch, np, tklt, dev, smi, seq):
+    """Phase 15: the host VipTracker on phase 9's sequence with three
+    black frames after VIO init (the reference's
+    `test_vip_recovery_after_blackout` at phase 9's width). Returns (the
+    record, launches)."""
+    from uvipslam_torch.frontend.vip_tracker import VipConfig, VipTracker
+    from uvipslam_torch.io.synthetic import ate_rmse
+    from uvipslam_torch.models.camera import CameraModel
+
+    n = HOST_VIP_FRAMES
+    cam = CameraModel.create(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2],
+                             width=640, height=512)
+    cfg = VipConfig(n_tracks=400, min_init_tracks=100, local_window=8, gyr_noise_sd=0.01,
+                    acc_noise_sd=0.1, depth_noise_sd=0.05, vio_init_min_kfs=6,
+                    vio_init_min_time=1.0)
+    # the frames' inputs go to the card once, before the run
+    imgs = torch.from_numpy(seq.images[:n].astype(np.float32)).to(dev)
+    black = torch.zeros_like(imgs[0])
+    imu = [torch.from_numpy(np.asarray(getattr(seq, k)[:n], np.float32)).to(dev)
+           for k in ("imu_omg", "imu_acc", "imu_dt", "imu_mask")]
+    tr = VipTracker(cam, cfg, kf_cap=64, pt_cap=8192, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(tklt)
+    statuses, frame_ms, vio = [], [], []
+    with PreintCounter() as preint:
+        for f in range(n):
+            t1 = time.perf_counter()
+            st = tr.process_frame_vip(black if f in HOST_VIP_BLACK else imgs[f],
+                                      *(a[f] for a in imu), depth=float(seq.depth[f]),
+                                      depth_valid=bool(seq.depth_valid[f]),
+                                      timestamp=float(seq.timestamps[f]))
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t1) * 1e3)
+            statuses.append(st)
+            vio.append(tr.vio_ok)
+    launches = read_launches(tklt)
+    peak = torch.cuda.max_memory_allocated()
+    expect = expected_launches_host_vip(statuses, orb_levels(*seq.images.shape[1:]))
+
+    labels = [st["state"] for st in statuses]
+    init_f = vio.index(True) if any(vio) else -1
+    reloc = [f for f, s in enumerate(labels) if s == "IMU_RELOC"]
+    recovered = [f for f, st in enumerate(statuses) if st.get("recovery") == "re-initialized"]
+    ids = [f for f, _, _ in tr.trajectory]
+    C = tr.trajectory_positions()
+    sel = [i for i, f in enumerate(ids) if init_f >= 0 and f > init_f]
+    gt = seq.positions_w[[ids[i] for i in sel]]
+    ate = z_err = span = float("inf")
+    if len(sel) > 5:
+        ate, _ = ate_rmse(C[sel], gt, align_scale=False)
+        span = float(np.linalg.norm(gt[-1] - gt[0]))
+        z_err = float(np.median(np.abs(C[sel][:, 2] - gt[:, 2])))
+    bg = float(torch.linalg.vector_norm(tr.ns.bg))
+    vi_ms = [m for m, st in zip(frame_ms, statuses) if st.get("vio") and st["state"] == "WORKING"]
+    med = statistics.median(vi_ms) if vi_ms else float("nan")
+    init_ms = frame_ms[init_f] if init_f >= 0 else float("nan")
+    rec_ms = frame_ms[recovered[0]] if recovered else float("nan")
+    names = {"NOT_INITIALIZED": "0", "INITIALIZING": "1", "WORKING": "2", "LOST": "3",
+             "IMU_RELOC": "4"}
+    log(f"phase host VIP tracker 512x640 / 400 tracks / {n} frames, frames "
+        f"{HOST_VIP_BLACK[0]}-{HOST_VIP_BLACK[-1]} black: VIO init at frame {init_f}, "
+        f"IMU_RELOC on frames {reloc[:1] + reloc[-1:]}, re-initialized at "
+        f"{recovered[:1]}, last {labels[-1]}; metric ATE {ate:.5f} m over {len(sel)} frames "
+        f"after VIO init (threshold {0.25 * max(span, 0.5):.5f} m = 0.25 max(span {span:.4f} "
+        f"m, 0.5)), median |z error| {z_err:.5f} (bound 0.15), |bg| {bg:.5f} (bound 0.1)")
+    log(f"  median {med:.1f} ms per WORKING VI frame ({len(vi_ms)} frames, host clock to "
+        f"synchronize), VIO-init frame {init_ms:.1f} ms, recovery frame {rec_ms:.1f} ms; host "
+        f"reads {tr.host_syncs / n:.2f}/frame ({tr.host_syncs} total), IMU sample steps "
+        f"{preint.calls / n:.1f}/frame (windows of {seq.imu_mask.shape[1]}), kernel launches "
+        f"{launches} (expected {expect}), peak allocated {peak / 2**20:.1f} MiB")
+    log(f"  states {''.join(names[s] for s in labels)}")
+    fails = []
+    if not 0 <= init_f < HOST_VIP_BLACK[0]:
+        fails.append(f"VIO init at frame {init_f}, not before the blackout")
+    if not reloc:
+        fails.append("IMU_RELOC never reached")
+    if not recovered or recovered[0] - HOST_VIP_BLACK[0] > cfg.recovery_max_frames:
+        fails.append(f"no re-initialization within {cfg.recovery_max_frames} frames")
+    if labels[-1] != "WORKING":
+        fails.append(f"last state {labels[-1]}")
+    if not ate < 0.25 * max(span, 0.5):
+        fails.append(f"metric ATE {ate} >= 0.25 max(span {span}, 0.5)")
+    if not z_err < 0.15:
+        fails.append(f"median |z error| {z_err} >= 0.15")
+    if not bg < 0.1:
+        fails.append(f"|bg| {bg} >= 0.1")
+    if min(launches.values()) <= 0 or launches != expect:
+        fails.append(f"kernel launches {launches}, expected {expect}")
+    if fails:
+        raise AssertionError("host VIP blackout: " + "; ".join(fails))
+    mark("host_vip_blackout")
+    record = {"n_frames": n, "black": list(HOST_VIP_BLACK), "vio_init_frame": init_f,
+              "imu_reloc_frames": reloc, "recovered_frame": recovered[0],
+              "ate_metric_m": ate, "ate_threshold_m": 0.25 * max(span, 0.5),
+              "median_z_error_m": z_err, "bg_norm": bg, "median_ms_per_vi_frame": med,
+              "vio_init_frame_ms": init_ms, "recovery_frame_ms": rec_ms,
+              "host_reads_per_frame": tr.host_syncs / n,
+              "preint_steps_per_frame": preint.calls / n, "launches": launches,
+              "peak_allocated_bytes": peak, "card": smi}
+    return record, launches
 
 
 def main() -> int:
@@ -1644,7 +1805,7 @@ def main() -> int:
 
 
 def run_phases(torch, np, tklt, dev, smi, pool) -> int:
-    """Phases 3-14 and the result lines."""
+    """Phases 3-15 and the result lines."""
     if "--only" in sys.argv:
         # development aid: the stream, fleet or app phases alone; prints no result line
         only = sys.argv[sys.argv.index("--only") + 1].split(",")
@@ -1660,8 +1821,13 @@ def run_phases(torch, np, tklt, dev, smi, pool) -> int:
             fleet_vip_phase(torch, np, tklt, dev, smi, None, seq_jobs["vip"])
         if "fleet_mono" in only:
             fleet_mono_phase(torch, np, tklt, dev, smi, None, seq_jobs["mono"])
-        if "app" in only:
-            app_phase(torch, np, tklt, dev, smi, vip_sequence(), None)
+        if {"app", "host_vip"} & set(only):
+            seq = vip_sequence()
+            if "app" in only:
+                app_phase(torch, np, tklt, dev, smi, seq, None)
+            if "host_vip" in only:
+                host_vip_blackout_phase(torch, np, tklt, dev, smi, seq)
+        log("phase end times (s since start): " + ", ".join(f"{k} {v}" for k, v in MARKS.items()))
         log("partial run (--only): no result line")
         return 0
 
@@ -1814,6 +1980,10 @@ def run_phases(torch, np, tklt, dev, smi, pool) -> int:
     # -- phase 14: the application entry point from a bag ------------------------
     app_record, app_launches = app_phase(torch, np, tklt, dev, smi, vip_seq, vip_record)
 
+    # -- phase 15: the host VIP tracker through a blackout ----------------------
+    blackout_record, blackout_launches = host_vip_blackout_phase(torch, np, tklt, dev, smi,
+                                                                 vip_seq)
+
     log("phase end times (s since start): " + ", ".join(f"{k} {v}" for k, v in MARKS.items()))
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "uvipslam_tpu"))
     if foreign:
@@ -1823,7 +1993,8 @@ def run_phases(torch, np, tklt, dev, smi, pool) -> int:
     full = [r for r in refine_rows if r["shape"] == [512, 640]][0]
     by_path = {"vip": vip_launches, "mono": launches, "mono_reloc": reloc_launches,
                "stream_mono": stream_launches, "stream_vip": vstream_launches,
-               "replay_vip": fleet_launches, "replay_mono": mfleet_launches, **app_launches}
+               "replay_vip": fleet_launches, "replay_mono": mfleet_launches, **app_launches,
+               "host_vip_blackout": blackout_launches}
     # the VIP step is the system's main path; every path's own counts are
     # read from zero just before it and just after it. No single PyTorch
     # call computes either function (library_ms null)
@@ -1872,7 +2043,8 @@ def run_phases(torch, np, tklt, dev, smi, pool) -> int:
                              "launches": reloc_launches},
                    "vip": vip_record, "stream_mono": stream_record,
                    "stream_vip": vstream_record, "replay_vip": fleet_record,
-                   "replay_mono": mfleet_record, "app": app_record, "phase_end_s": MARKS}
+                   "replay_mono": mfleet_record, "app": app_record,
+                   "host_vip_blackout": blackout_record, "phase_end_s": MARKS}
     print(json.dumps(step_record), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -219,3 +219,46 @@ def test_app_synthetic_mono_device_on_card(cuda_device, tmp_path):
         assert res["n_matched"] >= 8 and res["ate_rmse_m"] < 0.05 * res["gt_span_m"], res
     with open(outs[0], "rb") as a, open(outs[1], "rb") as b:
         assert a.read() == b.read()
+
+
+@pytest.mark.cuda
+def test_host_vip_tracker_on_card(cuda_device):
+    """The host `VipTracker` on the card over the first frames of a
+    120x160 sequence: the same states frame by frame as the CPU run (the
+    card's and the CPU's generators draw different RANSAC samples, so the
+    inlier counts may differ), both hand kernels launched on the card and
+    none on the CPU, and as many host reads as the CPU run makes."""
+    from uvipslam_torch.frontend.vip_tracker import VipConfig, VipTracker
+    from uvipslam_torch.io.synthetic import make_sequence
+    from uvipslam_torch.models.camera import CameraModel
+
+    n = 8
+    seq = make_sequence(n_frames=36, H=120, W=160, n_points=800, seed=3, speed=1.2,
+                        gyr_noise=0.005, acc_noise=0.05, gyr_bias=(0.004, -0.006, 0.003),
+                        depth_noise=0.02, z_amp=0.5)
+    cam = CameraModel.create(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2], width=160,
+                             height=120)
+    cfg = VipConfig(n_tracks=100, min_init_tracks=60, local_window=6, gyr_noise_sd=0.01,
+                    acc_noise_sd=0.1, depth_noise_sd=0.05, vio_init_min_kfs=5,
+                    vio_init_min_time=1.0)
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        tr = VipTracker(cam, cfg, kf_cap=16, pt_cap=1024, device=dev)
+        before = (klt.patch_launches, klt.refine_launches)
+        states = []
+        for f in range(n):
+            st = tr.process_frame_vip(seq.images[f], seq.imu_omg[f], seq.imu_acc[f],
+                                      seq.imu_dt[f], seq.imu_mask[f], depth=seq.depth[f],
+                                      depth_valid=bool(seq.depth_valid[f]),
+                                      timestamp=seq.timestamps[f])
+            states.append(st["state"])
+        torch.cuda.synchronize()
+        launched = (klt.patch_launches - before[0], klt.refine_launches - before[1])
+        runs[str(dev)] = (states, launched, tr)
+    cpu_states, cpu_launched, cpu_tr = runs["cpu"]
+    card_states, card_launched, card_tr = runs[str(cuda_device)]
+    assert card_states == cpu_states and cpu_states[-1] == "WORKING", (card_states, cpu_states)
+    assert cpu_launched == (0, 0) and min(card_launched) > 0, card_launched
+    assert card_tr.host_syncs == cpu_tr.host_syncs
+    assert card_tr.map.pt_xyz.is_cuda and card_tr.ns.p.is_cuda
+    assert torch.isfinite(torch.stack([t for _, _, t in card_tr.trajectory])).all()

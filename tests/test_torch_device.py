@@ -7,8 +7,8 @@ import torch
 
 from uvipslam_torch.frontend import device_tracker, device_vip
 from uvipslam_torch.frontend.stream import DeviceStream
-from uvipslam_torch.frontend.tracker import TrackerConfig
-from uvipslam_torch.frontend.vip_tracker import VipConfig
+from uvipslam_torch.frontend.tracker import MonoTracker, TrackerConfig
+from uvipslam_torch.frontend.vip_tracker import VipConfig, VipTracker
 from uvipslam_torch.loop.closer import LoopCloser
 from uvipslam_torch.models.camera import CameraModel
 from uvipslam_torch.parallel import replay
@@ -24,7 +24,8 @@ def no_card(monkeypatch):
 
 @pytest.mark.parametrize("entry", ["build_tracker", "build_vip_tracker", "run_sequence",
                                    "stream_mono", "stream_vip", "loop_closer",
-                                   "batched_replay", "batched_replay_vip", "fleet_bundles"])
+                                   "batched_replay", "batched_replay_vip", "fleet_bundles",
+                                   "mono_tracker", "vip_tracker"])
 def test_default_device_is_the_card(no_card, entry):
     cfg = TrackerConfig(n_tracks=16, min_init_tracks=8)
     calls = {
@@ -41,6 +42,9 @@ def test_default_device_is_the_card(no_card, entry):
         "batched_replay_vip": lambda: replay.batched_replay_vip(
             CAM, VipConfig(n_tracks=16, min_init_tracks=8), 4, 64),
         "fleet_bundles": lambda: replay.fleet_bundles([]),
+        "mono_tracker": lambda: MonoTracker(CAM, cfg, kf_cap=4, pt_cap=64),
+        "vip_tracker": lambda: VipTracker(CAM, VipConfig(n_tracks=16, min_init_tracks=8),
+                                          kf_cap=4, pt_cap=64),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -54,6 +58,11 @@ def test_cpu_on_request(no_card):
                       kf_cap=4, pt_cap=64, mode="mono", device="cpu")
     assert ds.device.type == "cpu" and ds.st.map.pt_xyz.device.type == "cpu"
     assert ds.loop_closer.device.type == "cpu" and ds.loop_closer.gen.device.type == "cpu"
+    tr = VipTracker(CAM, VipConfig(n_tracks=16, min_init_tracks=8, loop_closing=True), kf_cap=4,
+                    pt_cap=64, device="cpu")
+    assert tr.device.type == "cpu" and tr.map.pt_xyz.device.type == "cpu"
+    assert tr.ns.p.device.type == "cpu" and tr.kf_imu["n"].device.type == "cpu"
+    assert tr.loop_closer.device.type == "cpu"
 
 
 def test_batched_replay_on_the_cpu_on_request(no_card):

@@ -29,7 +29,8 @@ def _all_modules():
 
 def test_import_every_module_without_jax():
     mods = _all_modules()
-    for m in ("kernels", "frontend.device_tracker", "frontend.device_vip", "frontend.vip_tracker",
+    for m in ("kernels", "convert", "frontend.tracker", "frontend.device_tracker",
+              "frontend.device_vip", "frontend.vip_tracker",
               "vio.init", "ops.pnp", "ops.clahe", "solver.global_ba", "loop.reloc",
               "frontend.stream", "loop.closer", "loop.clusters", "loop.dbscan", "ops.sim3solver",
               "solver.essential_graph", "parallel", "parallel.replay", "app", "io.config",

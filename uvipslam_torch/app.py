@@ -19,12 +19,15 @@ another) and returns its result.
 `frontend.device_vip.build_vip_tracker`, every frame's input uploaded
 once before the clock starts, the per-frame outputs read once after the
 run. On the card the hand kernels are built and loaded before the clock
-starts (there is no compile pass to time apart); the build's seconds go
-into the `device_replay` metrics event. As in the reference, the
+starts in every branch (there is no compile pass to time apart); the
+build's seconds go into the `device_replay` metrics event. As in the reference, the
 `--device` branch runs no loop closer (`LoopC` is read by the host
-branch only). Without `--device`, MONO runs the host `MonoTracker`; the
-host VI/VIP tracker is not ported, so those modes stop with an error that
-names `--device`.
+branch only). Without `--device`, MONO runs the host `MonoTracker` and
+VI/VIP the host `VipTracker` (`frontend/vip_tracker.py`), one
+`process_frame` / `process_frame_vip` call per frame with the images and
+IMU windows uploaded before the clock starts (depth, its flag and the
+timestamp stay host values); `LoopC` switches their loop closer on. The
+`run_end` metrics event carries the run's host reads in every branch.
 
 `main(argv, device="cuda")` runs on the card unless the caller names
 another device (the tests pass "cpu"); it raises when there is no card.
@@ -89,7 +92,8 @@ def main(argv=None, device="cuda"):
     ap.add_argument("--mode", type=int, default=None, help="0 MONO / 1 VI / 2 VIP")
     ap.add_argument("--device", action="store_true",
                     help="run the device steps (the whole per-frame pipeline on the card, "
-                         "outputs read once after the run) instead of the host tracker")
+                         "outputs read once after the run) instead of the host tracker "
+                         "(MonoTracker for MONO, VipTracker for VI/VIP)")
     ap.add_argument("--out", default="stamped_traj_estimate.txt")
     ap.add_argument("--gt", default=None,
                     help="stamped_groundtruth.txt (TUM): runs the rpg-style ATE evaluation "
@@ -115,9 +119,6 @@ def main(argv=None, device="cuda"):
         s = Settings()
     if args.mode is not None:
         s.mode = args.mode
-    if s.mode != MONO and not args.device:
-        ap.error(f"mode {s.mode} (VI/VIP) runs through --device here: the host VIP tracker "
-                 "is not ported yet")
 
     if args.synthetic:
         from uvipslam_torch.io.synthetic import make_sequence
@@ -147,16 +148,17 @@ def main(argv=None, device="cuda"):
     n_frames = len(bundles["timestamps"])
     ml = MetricsLogger(args.metrics, run_id=f"mode{s.mode}")
     # every frame's input goes to the device once, before the clock starts
-    if s.mode == MONO:
+    if s.mode == MONO or not args.device:
         xs = torch.from_numpy(np.asarray(bundles["images"], np.float32)).to(device)
 
+    # on the card the hand kernels are built and loaded before any clock
+    t0 = time.time()
+    if device.type == "cuda":
+        from uvipslam_torch import kernels
+        kernels.build()
+        kernels.load()
+    build_s = time.time() - t0
     if args.device:
-        t0 = time.time()
-        if device.type == "cuda":
-            from uvipslam_torch import kernels
-            kernels.build()
-            kernels.load()
-        build_s = time.time() - t0
         if s.mode == MONO:
             from uvipslam_torch.frontend.device_tracker import build_tracker
             from uvipslam_torch.frontend.tracker import TrackerConfig
@@ -186,7 +188,7 @@ def main(argv=None, device="cuda"):
         ml.event("device_replay", build_s=round(build_s, 1))
         vio_ok = bool(getattr(st, "vio_ok", False))
         host_reads = step.host_syncs
-    else:
+    elif s.mode == MONO:
         from uvipslam_torch.frontend.tracker import MonoTracker, TrackerConfig
         cfg = TrackerConfig(n_tracks=s.n_features, px_distance=s.px_distance,
                             local_window=s.local_window_size, enhance=bool(s.enhance),
@@ -197,9 +199,30 @@ def main(argv=None, device="cuda"):
             ml.frame(f, st.process_frame(xs[f]))
         _sync(device)
         wall = time.time() - t0
+        vio_ok = False
+    else:
+        from uvipslam_torch.frontend.vip_tracker import VipConfig, VipTracker
+        cfg = VipConfig(n_tracks=s.n_features, px_distance=s.px_distance,
+                        local_window=s.local_window_size, enhance=bool(s.enhance),
+                        loop_closing=bool(s.loop_closing), **imu_cfg)
+        st = VipTracker(cam, cfg, device=device)
+        imu = [torch.from_numpy(np.asarray(bundles[k], np.float32)).to(device)
+               for k in ("imu_omg", "imu_acc", "imu_dt", "imu_mask")]
+        depth = np.asarray(bundles["depth"], np.float64)
+        depth_valid = np.asarray(bundles["depth_valid"], bool)
+        stamps = np.asarray(bundles["timestamps"], np.float64)
+        _sync(device)
+        t0 = time.time()
+        for f in range(n_frames):
+            ml.frame(f, st.process_frame_vip(xs[f], *(a[f] for a in imu), depth=float(depth[f]),
+                                             depth_valid=bool(depth_valid[f]),
+                                             timestamp=float(stamps[f])))
+        _sync(device)
+        wall = time.time() - t0
+        vio_ok = st.vio_ok
+    if not args.device:
         n_tracked = len(st.trajectory)
         n_kf = int(st.map.n_kf)
-        vio_ok = False
         host_reads = st.host_syncs
     Tbc_used = np.asarray(getattr(cfg, "Tbc", np.eye(4)))
 

@@ -12,9 +12,10 @@ reference state (every leaf with a leading stream dimension, as
 `parallel.replay.batched_replay*`'s `make_states` gives it) becomes the
 port's batched state through `tracker_fleet` / `vip_fleet`; its `gen`
 field is None, since a fleet's generators live beside the state. A host
-`MonoTracker` of the reference becomes the port's through `mono_tracker`:
-its camera, configuration and host fields as they are, its arrays as
-tensors, a fresh generator in place of its PRNG key.
+`MonoTracker` of the reference becomes the port's through `mono_tracker`,
+a host `VipTracker` through `vip_tracker`: its camera, configuration and
+host fields as they are, its arrays as tensors, a fresh generator in
+place of its PRNG key.
 """
 
 from __future__ import annotations
@@ -117,26 +118,22 @@ def loop_closer(src, device=None, seed: int = 11):
     return lc
 
 
-def mono_tracker(src, device=None, seed: int = 0):
-    """The port's `MonoTracker` with the state of a reference one: the
-    state machine, frame ids and keyframe bookkeeping, tracks, map, pose,
-    motion model, pose ring, the previous frame's pyramid, the stored
-    trajectory (its poses as tensors) and the loop closer's host state
-    (`loop_closer`)."""
-    from uvipslam_torch.frontend.tracker import MonoTracker, TrackerConfig
+def _camera(c):
     from uvipslam_torch.models.camera import CameraModel
 
-    c = src.cam
-    cam = CameraModel.create(float(np.asarray(c.fx)), float(np.asarray(c.fy)),
-                             float(np.asarray(c.cx)), float(np.asarray(c.cy)),
-                             dist=tuple(np.asarray(c.dist, np.float64).tolist()), kind=c.kind,
-                             width=c.width, height=c.height)
-    cfg = TrackerConfig(**{f.name: getattr(src.cfg, f.name)
-                           for f in dataclasses.fields(TrackerConfig)})
-    dev = "cpu" if device is None else device
-    tr = MonoTracker(cam, cfg, kf_cap=int(np.asarray(src.map.kf_valid).shape[0]),
-                     pt_cap=int(np.asarray(src.map.pt_valid).shape[0]), seed=seed, device=dev)
+    return CameraModel.create(float(np.asarray(c.fx)), float(np.asarray(c.fy)),
+                              float(np.asarray(c.cx)), float(np.asarray(c.cy)),
+                              dist=tuple(np.asarray(c.dist, np.float64).tolist()), kind=c.kind,
+                              width=c.width, height=c.height)
 
+
+def _host_tracker(cls, cfg_cls, src, device, seed):
+    """A `cls` tracker with the camera, configuration and MonoTracker
+    state of the reference tracker `src`."""
+    cfg = cfg_cls(**{f.name: getattr(src.cfg, f.name) for f in dataclasses.fields(cfg_cls)})
+    tr = cls(_camera(src.cam), cfg, kf_cap=int(np.asarray(src.map.kf_valid).shape[0]),
+             pt_cap=int(np.asarray(src.map.pt_valid).shape[0]), seed=seed,
+             device="cpu" if device is None else device)
     tr.tracks = tracks(src.tracks, tr.device)
     tr.map = map_state(src.map, tr.device)
     tr.pyr_prev = None if src.pyr_prev is None else tuple(
@@ -151,4 +148,55 @@ def mono_tracker(src, device=None, seed: int = 0):
     tr.loop_events = list(src.loop_events)
     if src.loop_closer is not None:
         tr.loop_closer = loop_closer(src.loop_closer, tr.device)
+    return tr
+
+
+def mono_tracker(src, device=None, seed: int = 0):
+    """The port's `MonoTracker` with the state of a reference one: the
+    state machine, frame ids and keyframe bookkeeping, tracks, map, pose,
+    motion model, pose ring, the previous frame's pyramid, the stored
+    trajectory (its poses as tensors) and the loop closer's host state
+    (`loop_closer`)."""
+    from uvipslam_torch.frontend.tracker import MonoTracker, TrackerConfig
+
+    return _host_tracker(MonoTracker, TrackerConfig, src, device, seed)
+
+
+def _imu_window(w: dict, device) -> dict:
+    return {k: (torch.tensor(int(v), dtype=torch.int32, device=device) if k == "n"
+                else to_tensor(np.asarray(v), device)) for k, v in w.items()}
+
+
+def vip_tracker(src, device=None, seed: int = 0):
+    """The port's `VipTracker` with the state of a reference one: what
+    `mono_tracker` carries, and the inertial state: `vio_ok`, the current
+    and previous NavStates, the since-keyframe preintegration and its raw
+    window (its fill level `n` as a device scalar), the accelerometer sum,
+    the frame's depth and time, the marginal prior, the recovery anchor
+    (`rec_anchor_*`, where the reference has entered recovery) and the
+    pending post-recovery bias recompute."""
+    from uvipslam_torch.frontend.vip_tracker import VipConfig, VipTracker
+
+    tr = _host_tracker(VipTracker, VipConfig, src, device, seed)
+    dev = tr.device
+    tr.vio_ok = bool(src.vio_ok)
+    tr.ns, tr.ns_prev = nav_state(src.ns, dev), nav_state(src.ns_prev, dev)
+    tr.preint_kf = convert(PreintState, src.preint_kf, dev)
+    tr.kf_imu = _imu_window(src.kf_imu, dev)
+    tr.accw_sum = to_tensor(np.asarray(src.accw_sum), dev)
+    tr.cur_depth = to_tensor(np.asarray(src.cur_depth), dev)
+    tr.cur_depth_valid = bool(src.cur_depth_valid)
+    tr.frame_time = float(src.frame_time)
+    tr.dt_frame = float(src.dt_frame)
+    tr.H_prior = to_tensor(np.asarray(src.H_prior), dev)
+    pending = getattr(src, "_reloc_bias_after_kf", None)
+    tr._reloc_bias_after_kf = None if pending is None else int(pending)
+    if hasattr(src, "rec_anchor_ns"):
+        tr.rec_anchor_ns = nav_state(src.rec_anchor_ns, dev)
+        tr.rec_anchor_frame = int(src.rec_anchor_frame)
+        tr.rec_anchor_time = float(src.rec_anchor_time)
+        d, dv = src.rec_anchor_depth
+        tr.rec_anchor_depth = (to_tensor(np.asarray(d), dev), bool(dv))
+        tr.rec_anchor_preint = convert(PreintState, src.rec_anchor_preint, dev)
+        tr.rec_anchor_imu = _imu_window(src.rec_anchor_imu, dev)
     return tr

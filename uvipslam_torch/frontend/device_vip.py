@@ -54,7 +54,8 @@ from uvipslam_torch.frontend.tracker import (IMU_RELOC, INITIALIZING, LOST, NOT_
                                              _local_ba, _motion_guess, _ns_to_cam_pose,
                                              _ns_to_cam_pose_ext, _pose_and_localmap,
                                              _triangulate_new)
-from uvipslam_torch.frontend.vip_tracker import VipConfig, _vi_ba, _vi_track
+from uvipslam_torch.frontend.vip_tracker import (VipConfig, _vi_ba, _vi_track, capped_prior,
+                                               gravity_alignment, predict_navstate)
 from uvipslam_torch.loop.reloc import first_try_associations
 from uvipslam_torch.mapstate.map import MapState
 from uvipslam_torch.models.camera import CameraModel
@@ -248,14 +249,6 @@ class VipStep:
         return _vi_ba(m, self.gravity, cam.fx, cam.fy, cam.cx, cam.cy, self.scale_sigmas,
                       cfg.gyr_bias_rw2, cfg.acc_bias_rw2, self.depth_info, self.Rcb, self.tcb)
 
-    def _predict(self, ns: NavState, pre: PreintState) -> NavState:
-        """IMU NavState prediction over one frame's preintegration."""
-        g, dt = self.gravity, pre.dt
-        return dataclasses.replace(
-            ns, p=ns.p + ns.v * dt + 0.5 * g * dt * dt + mv(ns.R, pre.dP),
-            v=ns.v + g * dt + mv(ns.R, pre.dV),
-            R=lie.normalize_rotation(mm(ns.R, pre.dR)))
-
     # -- inertial accumulation ----------------------------------------
     def _accumulate(self, st, b: FrameBundle):
         """Both running integrals in one loop over the frame's samples (a
@@ -316,12 +309,6 @@ class VipStep:
         g_dir_vision = -st.accw_sum / torch.clamp(torch.linalg.vector_norm(st.accw_sum),
                                                   min=1e-9)
 
-        def align_from(g_dir):
-            v = torch.linalg.cross(g_dir, g_cfg_dir)
-            sn = torch.linalg.vector_norm(v)
-            axis = v / torch.where(sn < 1e-9, torch.ones_like(sn), sn)
-            return lie.so3_exp(axis * torch.atan2(sn, torch.dot(g_dir, g_cfg_dir)))
-
         def pressure_scale(Ra):
             s_gn, _ = vio_init.estimate_scale_from_pressure(mv(Ra, m.kf_ns.p)[:, 2], m.kf_depth,
                                                             has_depth)
@@ -330,7 +317,7 @@ class VipStep:
         def scale_ok(s):
             return torch.isfinite(s) & (s > 1e-3) & (n_dep >= 3)
 
-        s0 = pressure_scale(align_from(g_dir_vision))
+        s0 = pressure_scale(gravity_alignment(g_dir_vision, g_cfg_dir))
         s0 = torch.where(scale_ok(s0), s0, torch.ones_like(s0))
 
         # refine [dtheta_xy, ba] with the scale fixed, on strided virtual
@@ -351,7 +338,7 @@ class VipStep:
         g_dir_vision = torch.where(tilt_ok, g_ref_dir, g_dir_vision)
         ba_est = torch.where(tilt_ok, ba_ref, torch.zeros_like(ba_ref))
 
-        R_align = align_from(g_dir_vision)
+        R_align = gravity_alignment(g_dir_vision, g_cfg_dir)
         s = pressure_scale(R_align)
         ok = scale_ok(s)
         s = torch.where(ok, s, torch.ones_like(s))
@@ -410,7 +397,7 @@ class VipStep:
     def _preintegrate(self, st, b: FrameBundle):
         st = dataclasses.replace(st, frame_id=st.frame_id + 1)
         st, pre_frame = self._accumulate(st, b)
-        ns_pred = self._predict(st.ns, pre_frame)
+        ns_pred = predict_navstate(st.ns, pre_frame, self.gravity)
         Rcw_pred, tcw_pred = self._cam_pose(ns_pred)
         return st, pre_frame, ns_pred, Rcw_pred, tcw_pred
 
@@ -585,12 +572,9 @@ class VipStep:
 
     def _vi_apply(self, st, out):
         ns_opt, _, _, tracks2, H_post = out
-        tr = torch.trace(H_post) / 15.0
-        H_new = (H_post + torch.eye(15, dtype=torch.float32, device=self.device) * 1e-3) * \
-            torch.clamp(1e6 / torch.clamp(tr, min=1e-6), max=1.0)
         Rcw, tcw = self._cam_pose(ns_opt)
         return dataclasses.replace(st, tracks=tracks2, ns=ns_opt, Rcw=Rcw, tcw=tcw,
-                                   H_prior=H_new)
+                                   H_prior=capped_prior(H_post))
 
     def _vi_lane1(self, st, b, ns_pred, Rcw_pred, tcw_pred, pre_frame):
         """Lane 1 (only when lane 0 fails): the first-try relocalization
