@@ -116,7 +116,29 @@ result):
      per frame, the median ms of the WORKING VI frames, the VIO-init
      frame's and the recovery frame's ms.
 
-`--only stream,vip_stream,fleet_kernels,fleet_vip,fleet_mono,app,host_vip`
+ 16. the steered frontend (`ops.orb.extract_orb` with its default
+     `steer=True`, and with `score_type=1`; `ops.klt.klt_track`): phase
+     9's first frame after CLAHE on the card against the CPU (at least
+     95% of the keypoints equal, their angles within ANGLE_TOL, bits equal
+     except near a half pixel; the steered path launches no hand kernel),
+     `klt_track` to a copy shifted by 2 px (`ok` equal, points within 1e-3
+     px), and the reference's single-chip frontend step
+     (`__graft_entry__.entry`: CLAHE, steered ORB, matching, pose
+     optimization, its RandomState(0) inputs) through the port: median
+     ms over 20 calls, and the steered and unsteered `extract_orb` ms;
+ 17. the VIP fleet sharded over processes (`parallel.replay.make_mesh`,
+     `shard_stream_axis`, `batched_replay_vip(..., mesh=)`): 2 ranks
+     spawned on the one card (gloo), 2 streams each, the first 4 of phase
+     12's scenes for 45 frames (handed over as a file), with the gates of
+     the reference's dry run (`__graft_entry__.dryrun_multichip`): some
+     frame WORKING, more than half the streams VIO-initialized and below
+     12% metric ATE; the all-reduced fleet counts equal on both ranks and
+     to the sums over the gathered outputs, each rank's launches as its
+     streams' states imply. Prints each stream's label agreement with
+     phase 12's and its largest pose gap up to VIO init, and each rank's
+     ms per batched frame, host reads, launches and peak memory.
+
+`--only stream,vip_stream,fleet_kernels,fleet_vip,fleet_mono,app,host_vip,frontend_ops,shard`
 (any subset) runs those phases alone after the build and prints no result
 line (`host_vip` is phase 15; `app` includes phase 14's host VIP run).
 
@@ -1256,7 +1278,8 @@ def same_outputs(torch, a, b):
 def fleet_vip_phase(torch, np, tklt, dev, smi, single, seq_jobs):
     """Phase 12: `batched_replay_vip`, 8 streams over 8 distinct scenes at
     full width. `single` = phase 9's record (None on a partial run);
-    `seq_jobs` = the futures of the 8 sequences."""
+    `seq_jobs` = the futures of the 8 sequences. Returns (the record, the
+    launches, the fleet's outputs)."""
     from uvipslam_torch.core.tree import tree_map
     from uvipslam_torch.frontend.tracker import IMU_RELOC, LOST, WORKING
     from uvipslam_torch.frontend.vip_tracker import VipConfig
@@ -1391,7 +1414,7 @@ def fleet_vip_phase(torch, np, tklt, dev, smi, single, seq_jobs):
               "second_run_frames": n2,
               "host_reads_per_batched_frame": syncs / T, "peak_allocated_bytes": peak,
               "profile": profile, "card": smi}
-    return record, launches
+    return record, launches, outs
 
 
 def fleet_mono_phase(torch, np, tklt, dev, smi, single, seq_jobs):
@@ -1765,6 +1788,318 @@ def host_vip_blackout_phase(torch, np, tklt, dev, smi, seq):
     return record, launches
 
 
+ORB_HALF_BAND = 1e-3   # px: a rotated BRIEF point this close to a half pixel may round either way
+ANGLE_TOL = 1e-5       # rad, the steered angles card vs CPU (float64 moment sums on both)
+SHARD_WORLD, SHARD_STREAMS, SHARD_FRAMES = 2, 4, 45   # phase 17: ranks, streams, frames
+SHARD_DEADLINE = 900.0  # s, for the ranks to finish (the gloo timeout too)
+
+
+def near_half_bits(np, pattern, xy, level, angle, dangle, scale=1.2):
+    """[N, 256] True where one of a bit's rotated pattern points lies
+    within ORB_HALF_BAND + its radius x |dangle| of a half pixel on its
+    level (tests/test_torch_frontend_ops.py's rule)."""
+    s = np.float32(scale) ** level.astype(np.float32)
+    xl = np.round(xy / s[:, None])
+    ca, sa = np.cos(angle.astype(np.float64)), np.sin(angle.astype(np.float64))
+    pat = pattern.astype(np.float64)
+    near = np.zeros((len(xy), pat.shape[0]), bool)
+    for px, py in ((pat[:, 0], pat[:, 1]), (pat[:, 2], pat[:, 3])):
+        band = ORB_HALF_BAND + np.hypot(px, py)[None] * np.abs(dangle)[:, None]
+        for c in (xl[:, :1] + px * ca[:, None] - py * sa[:, None],
+                  xl[:, 1:] + px * sa[:, None] + py * ca[:, None]):
+            near |= np.abs(np.abs(c - np.floor(c)) - 0.5) < band
+    return near
+
+
+def compare_orb(np, torb, card, cpu, label):
+    """Card vs CPU features of one image: at least 95% of the card's
+    keypoints are CPU keypoints (same pixel and level; a resized level's
+    float32 sums may round a FAST test the other way, as in phase 4),
+    their angles within ANGLE_TOL, their bits equal except near a half
+    pixel. Returns the counts for the record."""
+    g = {k: getattr(card, k).cpu().numpy() for k in ("xy", "level", "angle", "desc", "valid")}
+    c = {k: getattr(cpu, k).numpy() for k in ("xy", "level", "angle", "desc", "valid")}
+    index = {(x, y, l): i for i, ((x, y), l, v) in enumerate(zip(c["xy"].tolist(),
+                                                                  c["level"].tolist(),
+                                                                  c["valid"].tolist())) if v}
+    pairs = [(j, index[(x, y, l)]) for j, ((x, y), l, v) in enumerate(
+        zip(g["xy"].tolist(), g["level"].tolist(), g["valid"].tolist()))
+        if v and (x, y, l) in index]
+    n_card = int(g["valid"].sum())
+    gj = np.asarray([p[0] for p in pairs], dtype=np.int64)
+    ci = np.asarray([p[1] for p in pairs], dtype=np.int64)
+    dang = g["angle"][gj] - c["angle"][ci]
+    near = near_half_bits(np, torb.BRIEF_PATTERN, c["xy"][ci], c["level"][ci], c["angle"][ci],
+                          dang)
+    off = g["desc"][gj] != c["desc"][ci]
+    identical = all(np.array_equal(g[k], c[k]) for k in ("xy", "level", "valid", "desc"))
+    out = {"card_keypoints": n_card, "equal_keypoints": len(pairs), "all_slots_identical":
+           identical, "max_angle_diff_rad": float(np.abs(dang).max()) if len(pairs) else 0.0,
+           "bits_near_half": int(near.sum()), "bits_differing": int(off.sum())}
+    log(f"  {label}: {len(pairs)}/{n_card} card keypoints are CPU keypoints (every slot "
+        f"identical: {identical}); angles within {out['max_angle_diff_rad']:.3g} rad; "
+        f"{out['bits_differing']} bits differ, {out['bits_near_half']} lie near a half pixel")
+    if len(pairs) < 0.95 * n_card or n_card < 300:
+        raise AssertionError(f"{label}: {len(pairs)}/{n_card} keypoints equal card vs CPU")
+    if out["max_angle_diff_rad"] > ANGLE_TOL:
+        raise AssertionError(f"{label}: angles {out['max_angle_diff_rad']} rad apart")
+    if (off & ~near).any():
+        raise AssertionError(f"{label}: {int((off & ~near).sum())} bits differ away from a half")
+    return out
+
+
+def frontend_ops_phase(torch, np, tklt, dev, smi, seq):
+    """Phase 16: the steered frontend on the card against the CPU, and the
+    reference's single-chip frontend step (`__graft_entry__.entry`)
+    through the port."""
+    import torch.nn.functional as F
+
+    from uvipslam_torch.ops import orb as torb
+    from uvipslam_torch.ops.clahe import clahe
+    from uvipslam_torch.ops.hamming import match_best
+    from uvipslam_torch.ops.klt import build_flow_pyramid, klt_track
+    from uvipslam_torch.solver.pose_opt import pose_optimization_se3
+
+    enh = clahe(torch.from_numpy(seq.images[0].astype(np.float32)))
+    # the same content 2 px to the right (the left edge replicated)
+    shifted = F.pad(enh[None, None, :, :-2], (2, 0, 0, 0), mode="replicate")[0, 0].contiguous()
+    no_occ = (torch.zeros((1, 2)), torch.zeros(1, dtype=torch.bool))
+    no_occ_card = tuple(t.to(dev) for t in no_occ)
+    enh_card = enh.to(dev)
+    record, cpu = {}, {}
+    reset_launches(tklt)
+    for label, kw in (("steered", dict(steer=True)),
+                      ("steered, Harris ranking", dict(steer=True, score_type=1))):
+        cpu[label] = torb.extract_orb(enh, *no_occ, n_features=400, **kw)
+        card = torb.extract_orb(enh_card, *no_occ_card, n_features=400, **kw)
+        record[label] = compare_orb(np, torb, card, cpu[label], f"extract_orb {label}")
+    steered_launches = read_launches(tklt)
+    if any(steered_launches.values()):
+        raise AssertionError(f"the steered path launched hand kernels: {steered_launches}")
+
+    # klt_track from the frame to its shifted copy, on the CPU's steered keypoints
+    pts, valid = cpu["steered"].xy, cpu["steered"].valid
+    kw = dict(win=21, iters=10, levels=4)
+    nc, okc = klt_track(build_flow_pyramid(enh, 4), build_flow_pyramid(shifted, 4), pts, pts,
+                        valid, **kw)
+    ng, okg = klt_track(build_flow_pyramid(enh_card, 4), build_flow_pyramid(shifted.to(dev), 4),
+                        pts.to(dev), pts.to(dev), valid.to(dev), **kw)
+    ok_same = torch.equal(okg.cpu(), okc)
+    both = okc & okg.cpu()
+    gap = float((ng.cpu() - nc)[both].abs().max()) if both.any() else 0.0
+    flow = (nc - pts)[okc]
+    med = flow.median(dim=0).values.tolist() if okc.any() else [float("nan")] * 2
+    log(f"  klt_track (21 px window, 4 levels) over a 2 px shift: {int(okg.sum())}/"
+        f"{int(valid.sum())} tracked on the card, ok {'equal' if ok_same else 'DIFFERS'} card vs "
+        f"CPU, points within {gap:.2e} px, median flow ({med[0]:.3f}, {med[1]:.3f})")
+    if not ok_same or gap > 1e-3 or okc.sum() < 100 or abs(med[0] - 2.0) > 0.1:
+        raise AssertionError(f"klt_track: ok equal {ok_same}, gap {gap}, tracked "
+                             f"{int(okc.sum())}, median flow {med}")
+
+    # the reference's frontend step (`__graft_entry__.entry`): CLAHE, steered
+    # ORB, Hamming matching, pose optimization, its RandomState(0) inputs
+    NF = 400
+    rs = np.random.RandomState(0)
+    img = torch.from_numpy(rs.uniform(0, 255, (512, 640)).astype(np.float32)).to(dev)
+    prev_desc = torch.from_numpy(rs.randint(0, 2, (NF, 256)).astype(np.int8)).to(dev)
+    prev_valid = torch.ones(NF, dtype=torch.bool, device=dev)
+    pts_w = torch.from_numpy(rs.uniform(-2, 2, (NF, 3)).astype(np.float32)
+                             + np.array([0, 0, 5], np.float32)).to(dev)
+    uvs = torch.from_numpy(rs.uniform(0, 500, (NF, 2)).astype(np.float32)).to(dev)
+    eye, zero3, ones = (torch.eye(3, device=dev), torch.zeros(3, device=dev),
+                        torch.ones(NF, device=dev))
+
+    def frontend_step():
+        feats = torb.extract_orb(clahe(img), *no_occ_card, n_features=NF)
+        idx, dist, ok = match_best(feats.desc, prev_desc, feats.valid, prev_valid, max_dist=64.0,
+                                   ratio=0.9)
+        R, t, inl, n_in = pose_optimization_se3(eye, zero3, pts_w, uvs, feats.valid, ones, 413.3,
+                                                413.7, 305.9, 259.4, rounds=2, iters=4)
+        return R, t, n_in + torch.sum(ok)
+
+    R, t, n = frontend_step()
+    if not (torch.isfinite(R).all() and torch.isfinite(t).all()) or R.shape != (3, 3):
+        raise AssertionError("the frontend step gave a non-finite pose")
+    step_ms = time_ms(torch, frontend_step, 20)
+    orb_ms = {steer: time_ms(torch, lambda: torb.extract_orb(enh_card, *no_occ_card,
+                                                             n_features=NF, steer=steer), 20)
+              for steer in (True, False)}
+    log(f"phase steered frontend: the reference's frontend step (CLAHE, steered ORB, matching, "
+        f"pose optimization; 512x640, 400 features) {step_ms:.2f} ms median over 20 calls "
+        f"(CUDA events); extract_orb steered {orb_ms[True]:.2f} ms / unsteered "
+        f"{orb_ms[False]:.2f} ms; the steered path launched no hand kernel")
+    mark("frontend_ops")
+    record.update({"klt_ok_equal": ok_same, "klt_max_point_gap_px": gap,
+                   "klt_tracked": int(okg.sum()), "frontend_step_ms": step_ms,
+                   "extract_orb_steered_ms": orb_ms[True],
+                   "extract_orb_unsteered_ms": orb_ms[False], "card": smi})
+    return record, steered_launches
+
+
+def shard_rank(rank, world, port, job):
+    """One rank of phase 17, in a spawned process: joins the gloo group,
+    runs its rows of the VIP fleet on the card through the mesh, and saves
+    what `run` returned with its own counts to `rank<r>.pt`."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=SHARD_DEADLINE))
+    try:
+        import uvipslam_torch  # noqa: F401  (turns TF32 off)
+        from uvipslam_torch import kernels
+        from uvipslam_torch.frontend.device_vip import FrameBundle
+        from uvipslam_torch.frontend.vip_tracker import VipConfig
+        from uvipslam_torch.models.camera import CameraModel
+        from uvipslam_torch.ops import klt as tklt
+        from uvipslam_torch.parallel.replay import (batched_replay_vip, make_mesh,
+                                                    shard_stream_axis)
+
+        kernels.load()                       # built by the parent: the hashed library exists
+        data = np.load(job["inputs"])
+        k = data["K"]
+        cam = CameraModel.create(k[0, 0], k[1, 1], k[0, 2], k[1, 2], width=640, height=512)
+        cfg = VipConfig(n_tracks=400, min_init_tracks=100, local_window=8, gyr_noise_sd=0.01,
+                        acc_noise_sd=0.1, depth_noise_sd=0.05, vio_init_min_kfs=6,
+                        vio_init_min_time=1.0)
+        mesh = make_mesh(world)
+        feeds = FrameBundle(**{n: torch.from_numpy(data[n]) for n in FrameBundle.__dataclass_fields__})
+        make_states, run = batched_replay_vip(cam, cfg, kf_cap=64, pt_cap=8192, mesh=mesh)
+        local = shard_stream_axis(mesh, feeds)
+        states0 = make_states(job["S"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(tklt)
+        t0 = time.perf_counter()
+        stf, outs, fleet = run(states0, local)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        torch.save({"outs": {f: getattr(outs, f).cpu() for f in outs.__dataclass_fields__},
+                    "fleet": [int(x) for x in fleet], "vio_ok_local": stf.vio_ok.cpu(),
+                    "seconds": secs, "host_syncs": run.step.host_syncs,
+                    "launches": read_launches(tklt), "peak": torch.cuda.max_memory_allocated(),
+                    "device": str(mesh.device), "card": torch.cuda.get_device_name(mesh.device)},
+                   os.path.join(job["dir"], f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_phase(torch, np, smi, seqs, fleet_outs):
+    """Phase 17: `batched_replay_vip` sharded over SHARD_WORLD processes
+    on the one card (gloo), SHARD_STREAMS of phase 12's scenes for
+    SHARD_FRAMES frames. `fleet_outs` = phase 12's outputs (None on a
+    partial run)."""
+    import multiprocessing
+    import shutil
+    import socket
+
+    from uvipslam_torch.frontend.tracker import IMU_RELOC, LOST, WORKING
+    from uvipslam_torch.io.synthetic import ate_rmse
+
+    S, T, W_ = SHARD_STREAMS, SHARD_FRAMES, SHARD_WORLD
+    work = os.path.join(HERE, "chiprun_out", "shard")
+    os.makedirs(work, exist_ok=True)
+    try:
+        fields = dict(img="images", imu_omg="imu_omg", imu_acc="imu_acc", imu_dt="imu_dt",
+                      imu_mask="imu_mask", depth="depth", depth_valid="depth_valid",
+                      timestamp="timestamps")
+        arrays = {k: np.stack([getattr(q, v)[:T] for q in seqs[:S]]) for k, v in fields.items()}
+        arrays = {k: a.astype(bool) if k == "depth_valid" else a.astype(np.float32)
+                  for k, a in arrays.items()}
+        np.savez(os.path.join(work, "inputs.npz"), K=seqs[0].K, **arrays)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        job = dict(S=S, inputs=os.path.join(work, "inputs.npz"), dir=work)
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=shard_rank, args=(r, W_, port, job)) for r in range(W_)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        end = time.monotonic() + SHARD_DEADLINE
+        for p in procs:
+            p.join(max(0.0, end - time.monotonic()))
+        wall = time.perf_counter() - t0
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        if hung or any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"sharded fleet: ranks {hung} hung, exit codes "
+                                 f"{[p.exitcode for p in procs]}")
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt")) for r in range(W_)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    outs = ranks[0]["outs"]
+    for r in ranks[1:]:
+        if r["fleet"] != ranks[0]["fleet"] or not all(torch.equal(torch.nan_to_num(r["outs"][f]),
+                                                                  torch.nan_to_num(outs[f]))
+                                                      for f in outs):
+            raise AssertionError("the ranks returned different global outputs")
+    states, vios = outs["state"].numpy(), outs["vio_ok"].numpy()
+    n_working, n_vio = ranks[0]["fleet"]
+    sums = [int((states == WORKING).sum()), int(sum(int(r["vio_ok_local"].sum()) for r in ranks))]
+    if [n_working, n_vio] != sums or n_vio != int(vios[:, -1].sum()):
+        raise AssertionError(f"all-reduced fleet {[n_working, n_vio]} against the gathered "
+                             f"outputs' sums {sums} / {int(vios[:, -1].sum())}")
+    n_ate = 0
+    for s in range(S):
+        C = centres(torch, np, list(outs["Rcw"][s]), list(outs["tcw"][s]))
+        span = float(np.linalg.norm(seqs[s].positions_w[T - 1] - seqs[s].positions_w[0]))
+        init_f = int(np.argmax(vios[s])) if vios[s].any() else -1
+        sel = np.asarray([i for i in range(T) if init_f >= 0 and i >= init_f + 3
+                          and states[s, i] == WORKING], dtype=np.int64)
+        ate = float("inf")
+        if len(sel) >= 8:
+            ate, _ = ate_rmse(C[sel], seqs[s].positions_w[sel], align_scale=False)
+        n_ate += ate < 0.12 * span
+        agree = ""
+        if fleet_outs is not None:
+            ref = fleet_outs.state[s, :T].cpu().numpy()
+            upto = init_f if init_f >= 0 else T
+            gap = float((outs["tcw"][s, :upto] - fleet_outs.tcw[s, :upto].cpu()).abs().max()) \
+                if upto > 0 else 0.0
+            agree = (f"; labels equal to phase 12's stream on {int((ref == states[s]).sum())}/{T} "
+                     f"frames, largest tcw gap up to VIO init {gap:.2e}")
+        log(f"  stream {s} (rank {s // (S // W_)}): VIO init at frame {init_f}, "
+            f"{int((states[s] == WORKING).sum())}/{T} WORKING, metric ATE {ate:.5f} m over "
+            f"{len(sel)} frames ({100 * ate / span:.2f}% of span {span:.4f} m){agree}")
+    clean = not ((states == LOST) | (states == IMU_RELOC)).any()
+    per_rank = []
+    for i, r in enumerate(ranks):
+        rows = states[i * (S // W_):(i + 1) * (S // W_)].tolist()
+        expect = expected_launches_fleet(rows, orb_levels(512, 640), vip=True) if clean else None
+        per_rank.append({"ms_per_batched_frame": 1e3 * r["seconds"] / T,
+                         "host_reads_per_batched_frame": r["host_syncs"] / T,
+                         "launches": r["launches"], "expected_launches": expect,
+                         "peak_allocated_bytes": r["peak"], "device": r["device"]})
+        log(f"  rank {i} on {r['device']}: {1e3 * r['seconds'] / T:.1f} ms per batched frame of "
+            f"{S // W_} streams ({r['seconds']:.1f} s to a synchronize, the two collectives "
+            f"included), host reads {r['host_syncs'] / T:.2f} per batched frame, kernel "
+            f"launches {r['launches']}{f' (expected {expect})' if expect else ''}, peak "
+            f"allocated {r['peak'] / 2**20:.1f} MiB")
+        if min(r["launches"].values()) <= 0 or (expect is not None and r["launches"] != expect):
+            raise AssertionError(f"rank {i} kernel launches {r['launches']}, expected {expect}")
+    log(f"phase sharded VIP fleet: {W_} ranks x {S // W_} streams on one card (gloo), "
+        f"{T} frames at 512x640 / 400 tracks: fleet (WORKING frames, VIO streams) "
+        f"{[n_working, n_vio]} equal on every rank and to the gathered outputs' sums; "
+        f"{n_ate}/{S} streams below 12% metric ATE; {wall:.1f} s from spawning to the last exit")
+    if n_working <= 0 or n_vio <= S / 2 or n_ate <= S / 2:
+        raise AssertionError(f"sharded fleet gates: WORKING {n_working}, VIO {n_vio}/{S}, "
+                             f"ATE {n_ate}/{S}")
+    mark("shard")
+    record = {"ranks": W_, "streams": S, "n_frames": T, "fleet": [n_working, n_vio],
+              "ate_ok_streams": int(n_ate), "wall_seconds": wall, "per_rank": per_rank,
+              "card": smi}
+    return record, {f"shard_vip_rank{i}": r["launches"] for i, r in enumerate(ranks)}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "uvipslam_torch")):
         print("chip_smoke.py must run from a checkout holding uvipslam_torch/",
@@ -1805,12 +2140,16 @@ def main() -> int:
 
 
 def run_phases(torch, np, tklt, dev, smi, pool) -> int:
-    """Phases 3-15 and the result lines."""
+    """Phases 3-17 and the result lines."""
     if "--only" in sys.argv:
         # development aid: the stream, fleet or app phases alone; prints no result line
         only = sys.argv[sys.argv.index("--only") + 1].split(",")
         if {"fleet_vip", "fleet_mono"} & set(only):
             seq_jobs = start_fleet_sequences(pool)
+        elif "shard" in only:
+            seq_jobs = {"vip": [pool.submit(_make_sequence, dict(seed=20 + s, **FLEET_VIP_KW))
+                                for s in range(SHARD_STREAMS)]}
+        fleet_outs = None
         if "stream" in only:
             stream_mono_phase(torch, np, tklt, dev, smi)
         if "vip_stream" in only:
@@ -1818,15 +2157,19 @@ def run_phases(torch, np, tklt, dev, smi, pool) -> int:
         if "fleet_kernels" in only:
             batched_kernel_phase(torch, tklt, dev)
         if "fleet_vip" in only:
-            fleet_vip_phase(torch, np, tklt, dev, smi, None, seq_jobs["vip"])
+            _, _, fleet_outs = fleet_vip_phase(torch, np, tklt, dev, smi, None, seq_jobs["vip"])
         if "fleet_mono" in only:
             fleet_mono_phase(torch, np, tklt, dev, smi, None, seq_jobs["mono"])
-        if {"app", "host_vip"} & set(only):
+        if {"app", "host_vip", "frontend_ops"} & set(only):
             seq = vip_sequence()
             if "app" in only:
                 app_phase(torch, np, tklt, dev, smi, seq, None)
             if "host_vip" in only:
                 host_vip_blackout_phase(torch, np, tklt, dev, smi, seq)
+            if "frontend_ops" in only:
+                frontend_ops_phase(torch, np, tklt, dev, smi, seq)
+        if "shard" in only:
+            shard_phase(torch, np, smi, [j.result() for j in seq_jobs["vip"]], fleet_outs)
         log("phase end times (s since start): " + ", ".join(f"{k} {v}" for k, v in MARKS.items()))
         log("partial run (--only): no result line")
         return 0
@@ -1972,8 +2315,8 @@ def run_phases(torch, np, tklt, dev, smi, pool) -> int:
     vstream_record, vstream_launches = stream_vip_phase(torch, np, tklt, dev, smi)
 
     # -- phases 12 and 13: batched replay ----------------------------------------
-    fleet_record, fleet_launches = fleet_vip_phase(torch, np, tklt, dev, smi, vip_record,
-                                                   seq_jobs["vip"])
+    fleet_record, fleet_launches, fleet_outs = fleet_vip_phase(torch, np, tklt, dev, smi,
+                                                               vip_record, seq_jobs["vip"])
     mfleet_record, mfleet_launches = fleet_mono_phase(torch, np, tklt, dev, smi, med,
                                                      seq_jobs["mono"])
 
@@ -1983,6 +2326,13 @@ def run_phases(torch, np, tklt, dev, smi, pool) -> int:
     # -- phase 15: the host VIP tracker through a blackout ----------------------
     blackout_record, blackout_launches = host_vip_blackout_phase(torch, np, tklt, dev, smi,
                                                                  vip_seq)
+
+    # -- phase 16: the steered frontend ------------------------------------------
+    fops_record, fops_launches = frontend_ops_phase(torch, np, tklt, dev, smi, vip_seq)
+
+    # -- phase 17: the VIP fleet sharded over processes ---------------------------
+    shard_record, shard_launches = shard_phase(torch, np, smi,
+                                               [j.result() for j in seq_jobs["vip"]], fleet_outs)
 
     log("phase end times (s since start): " + ", ".join(f"{k} {v}" for k, v in MARKS.items()))
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "uvipslam_tpu"))
@@ -1994,7 +2344,8 @@ def run_phases(torch, np, tklt, dev, smi, pool) -> int:
     by_path = {"vip": vip_launches, "mono": launches, "mono_reloc": reloc_launches,
                "stream_mono": stream_launches, "stream_vip": vstream_launches,
                "replay_vip": fleet_launches, "replay_mono": mfleet_launches, **app_launches,
-               "host_vip_blackout": blackout_launches}
+               "host_vip_blackout": blackout_launches, "frontend_steered": fops_launches,
+               **shard_launches}
     # the VIP step is the system's main path; every path's own counts are
     # read from zero just before it and just after it. No single PyTorch
     # call computes either function (library_ms null)
@@ -2044,7 +2395,8 @@ def run_phases(torch, np, tklt, dev, smi, pool) -> int:
                    "vip": vip_record, "stream_mono": stream_record,
                    "stream_vip": vstream_record, "replay_vip": fleet_record,
                    "replay_mono": mfleet_record, "app": app_record,
-                   "host_vip_blackout": blackout_record, "phase_end_s": MARKS}
+                   "host_vip_blackout": blackout_record, "frontend_ops": fops_record,
+                   "shard": shard_record, "phase_end_s": MARKS}
     print(json.dumps(step_record), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

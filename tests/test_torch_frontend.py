@@ -142,7 +142,7 @@ def test_extract_orb_matches(frame0):
     fj = jorb.extract_orb(jnp.asarray(frame0), jnp.asarray(occ), jnp.asarray(msk),
                           n_features=100, steer=False)
     ft = torb.extract_orb(torch.from_numpy(frame0.copy()), torch.from_numpy(occ),
-                          torch.from_numpy(msk), n_features=100)
+                          torch.from_numpy(msk), n_features=100, steer=False)
     for k in ("xy", "level", "valid", "desc"):
         np.testing.assert_array_equal(_np(getattr(ft, k)), _np(getattr(fj, k)), err_msg=k)
     np.testing.assert_allclose(_np(ft.score), _np(fj.score), atol=2e-3, rtol=0)

@@ -1,6 +1,8 @@
-"""The port stands alone: importing every uvipslam_torch module and
-chip_smoke.py pulls in neither jax nor the reference package, no module
-of the port names a path under the reference package, chip_smoke.py
+"""The port stands alone and covers the reference: importing every
+uvipslam_torch module and chip_smoke.py pulls in neither jax nor the
+reference package, every public top-level name of every reference module
+has its counterpart in the same module of the port, no module of the port
+names a path under the reference package, chip_smoke.py
 refuses to run without a card or outside a checkout, and the constants the
 port regenerates or carries (BRIEF pattern, vocabulary, haloc projections)
 and its synthetic sequences (camera, IMU and pressure) equal the
@@ -34,7 +36,8 @@ def test_import_every_module_without_jax():
               "vio.init", "ops.pnp", "ops.clahe", "solver.global_ba", "loop.reloc",
               "frontend.stream", "loop.closer", "loop.clusters", "loop.dbscan", "ops.sim3solver",
               "solver.essential_graph", "parallel", "parallel.replay", "app", "io.config",
-              "io.bag", "io.trajectory", "io.evaluate", "io.checkpoint", "utils.metrics"):
+              "io.bag", "io.trajectory", "io.evaluate", "io.checkpoint", "utils.metrics",
+              "viz", "viz.publishers"):
         assert "uvipslam_torch." + m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke']!r}: importlib.import_module(m)\n"
@@ -48,6 +51,56 @@ def test_import_every_module_without_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     assert r.stdout.startswith("ok")
+
+
+# reference names with no counterpart in the port, each with its reason
+NOT_PORTED = {
+    ("utils/cache.py", "enable_persistent_cache"):
+        "switches on XLA's persistent compile cache; the port compiles no XLA, and its "
+        "kernels are cached by kernels.py's hashed _build/ library",
+}
+
+
+def _top_level_names(path: str, imported: bool) -> set:
+    """Public names a module defines at top level (functions, classes,
+    assignments), and the names it imports when `imported`."""
+    with open(path) as fh:
+        body = ast.parse(fh.read()).body
+    names = set()
+    for n in body:
+        if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(n.name)
+        elif isinstance(n, ast.Assign):
+            names.update(t.id for t in n.targets if isinstance(t, ast.Name))
+        elif isinstance(n, ast.AnnAssign) and isinstance(n.target, ast.Name):
+            names.add(n.target.id)
+        elif imported and isinstance(n, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0] for a in n.names)
+    return {x for x in names if not x.startswith("_")}
+
+
+def test_port_covers_every_public_name_of_the_reference():
+    """Walks both packages' sources with ast (the reference is not
+    imported): each reference module has a port module at the same path,
+    and each public top-level name of it is a name of that port module,
+    defined there or imported into it, apart from NOT_PORTED."""
+    ref_root = os.path.join(REPO, "uvipslam_tpu")
+    port_root = os.path.join(REPO, "uvipslam_torch")
+    missing = []
+    for d, _, files in os.walk(ref_root):
+        for f in sorted(files):
+            if not f.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(d, f), ref_root)
+            want = _top_level_names(os.path.join(ref_root, rel), imported=False)
+            port = os.path.join(port_root, rel)
+            have = _top_level_names(port, imported=True) if os.path.exists(port) else None
+            if have is None and not {(rel, n) for n in want} <= set(NOT_PORTED):
+                missing.append((rel, "module"))
+                continue
+            missing += [(rel, n) for n in sorted(want - (have or set()))
+                        if (rel, n) not in NOT_PORTED]
+    assert not missing, missing
 
 
 def _string_constants(tree):

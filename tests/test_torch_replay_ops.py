@@ -244,7 +244,7 @@ def test_extract_orb_stream_dim(world):
         _rs(9).rand(S, N_TRACKS) > 0.7)
 
     def f(im, xy, ok):
-        return orb.extract_orb(im, xy, ok, n_features=N_TRACKS, px_distance=20)
+        return orb.extract_orb(im, xy, ok, n_features=N_TRACKS, px_distance=20, steer=False)
 
     # atol 1e-5: the angles are atan2 of patch moments, and the CPU's
     # vectorized and scalar atan2 round differently (which one an element

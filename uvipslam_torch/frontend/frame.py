@@ -3,7 +3,8 @@
 Counterpart of `uvipslam_tpu/frontend/frame.py`: `Tracks`, track
 propagation by two-stage anchor refinement against birth templates plus
 an F-RANSAC gate, refill of dead slots with new ORB detections, and the
-per-frame unsteered descriptor refresh. On the card, `propagate_tracks`
+per-frame descriptor refresh (unsteered, as the trackers run both, unless
+`steer=True`). On the card, `propagate_tracks`
 launches the fused anchor-refinement kernel twice (`ops.klt.anchor_refine_fast`),
 and the other two pull patches through `ops.klt.extract_patches_any`:
 two templates plus one per ORB level in `refill_tracks`, one in
@@ -18,7 +19,8 @@ import torch
 
 from uvipslam_torch.ops.image import gaussian_blur, pyr_down
 from uvipslam_torch.ops.klt import anchor_refine_fast, extract_templates_fast, global_shift
-from uvipslam_torch.ops.orb import extract_orb, orient_and_describe_fast
+from uvipslam_torch.ops.orb import (brief_descriptors, extract_orb, ic_angles,
+                                    orient_and_describe_fast)
 from uvipslam_torch.ops.twoview import find_fundamental
 
 N_BITS = 256
@@ -102,11 +104,16 @@ def propagate_tracks(tracks: Tracks, pyr_prev, pyr_cur, guess_xy, guess_ok,
     )
 
 
-def refresh_descriptors(tracks: Tracks, img: torch.Tensor) -> Tracks:
-    """Recompute angles and unsteered BRIEF descriptors of live tracks at
-    their current positions (the reference's `steer=False`)."""
+def refresh_descriptors(tracks: Tracks, img: torch.Tensor, steer: bool = False) -> Tracks:
+    """Recompute angles and BRIEF descriptors of live tracks at their
+    current positions: unsteered from one patch pull per track (the
+    default), or steered (`ic_angles`, `brief_descriptors`)."""
     blur = gaussian_blur(img, 7, 2.0)
-    ang, desc = orient_and_describe_fast(blur, tracks.xy, tracks.valid)
+    if steer:
+        ang = ic_angles(blur, tracks.xy, tracks.valid)
+        desc = brief_descriptors(blur, tracks.xy, ang, tracks.valid)
+    else:
+        ang, desc = orient_and_describe_fast(blur, tracks.xy, tracks.valid)
     return dataclasses.replace(
         tracks,
         angle=torch.where(tracks.valid, ang, tracks.angle),
@@ -115,11 +122,12 @@ def refresh_descriptors(tracks: Tracks, img: torch.Tensor) -> Tracks:
 
 
 def refill_tracks(tracks: Tracks, img: torch.Tensor, frame_id, n_features: int = 400,
-                  px_distance: int = 20) -> Tracks:
+                  px_distance: int = 20, steer: bool = False, score_type: int = 0) -> Tracks:
     """Detect new ORB features away from live tracks and place the k-th
-    best detection into the k-th dead slot (slot order)."""
+    best detection into the k-th dead slot (slot order). `steer` and
+    `score_type` are `extract_orb`'s; the trackers keep the defaults."""
     feats = extract_orb(img, tracks.xy, tracks.valid, n_features=n_features,
-                        px_distance=px_distance)
+                        px_distance=px_distance, steer=steer, score_type=score_type)
     neg_inf = torch.full_like(feats.score, -float("inf"))
     det_order = torch.sort(-torch.where(feats.valid, feats.score, neg_inf),
                            stable=True).indices

@@ -4,13 +4,39 @@ Counterpart of `uvipslam_tpu/loop/vocab.py`: `bow_vector` quantizes
 descriptors by one Hamming matmul against the codebook and builds the
 L1-normalized TF-IDF vector; `l1_score` scores it against the stored
 keyframe vectors; `detect_candidates` ranks them for loop retrieval.
+`train_codebook` is the offline binary k-means that made the shipped
+codebook (`vocab_data.npz`), on the host in numpy as in the reference.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from uvipslam_torch.ops.hamming import hamming_matrix
+
+
+def train_codebook(descs: np.ndarray, n_words: int = 1024, n_iters: int = 8,
+                   seed: int = 0) -> np.ndarray:
+    """Binary k-means: [M, 256] 0/1 -> [W, 256] 0/1 int8. Majority-vote
+    centroids; an empty cluster is re-seeded with a random descriptor.
+    Draws from `np.random.RandomState(seed)` in the reference's order, so
+    the same descriptors give the same codebook bit for bit."""
+    rs = np.random.RandomState(seed)
+    M = descs.shape[0]
+    centers = descs[rs.choice(M, n_words, replace=M < n_words)].astype(np.float32)
+    d = descs.astype(np.float32)
+    for _ in range(n_iters):
+        # Hamming distances through the +-1 dot product
+        D = (256 - (2 * d - 1) @ (2 * centers - 1).T) / 2
+        assign = D.argmin(1)
+        for w in range(n_words):
+            sel = assign == w
+            if sel.sum() == 0:
+                centers[w] = d[rs.randint(M)]
+            else:
+                centers[w] = (d[sel].mean(0) > 0.5).astype(np.float32)
+    return centers.astype(np.int8)
 
 
 def bow_vector(desc: torch.Tensor, valid: torch.Tensor, codebook: torch.Tensor,

@@ -2,8 +2,8 @@
 
 Counterpart of `uvipslam_tpu/ops/fast.py`: 16 statically shifted views,
 a packed-bit contiguous-arc test, 3x3 max-pool NMS, occupancy
-suppression by dilation and grid-cell winner selection. The
-`score_type=1` Harris path (`harris_response`) is not ported yet.
+suppression by dilation and grid-cell winner selection, and the Harris
+response behind ORB's `score_type=1`.
 
 Ties: JAX's argmax and `lax.top_k` keep the lowest index among equal
 values; the port uses `torch.argmax` (first maximum) and a stable
@@ -12,8 +12,11 @@ descending sort for the same order.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from uvipslam_torch.ops.image import box_filter, sobel_gradients
 
 CIRCLE16 = (
     (0, -3), (1, -3), (2, -2), (3, -1), (3, 0), (3, 1), (2, 2), (1, 3),
@@ -64,6 +67,26 @@ def _interior_mask(H, W, device):
     ys = torch.arange(H, device=device)[:, None]
     xs = torch.arange(W, device=device)[None, :]
     return (ys >= 3) & (ys < H - 3) & (xs >= 3) & (xs < W - 3)
+
+
+def fast_response(img: torch.Tensor, threshold: float) -> torch.Tensor:
+    """Dense FAST-9 response map [H, W]: 0 where not a corner, else the
+    sum of |I_p - I_c| - t over the circle points of the passing
+    polarity."""
+    H, W = img.shape
+    diff = _shifted_views(img) - img[None]
+    return _fast_score_from_diff(diff, _interior_mask(H, W, img.device), threshold)
+
+
+def harris_response(img: torch.Tensor, block: int = 7, k: float = 0.04) -> torch.Tensor:
+    """Harris corner response det(M) - k tr(M)^2 of the Sobel structure
+    tensor box-filtered over `block` x `block`."""
+    gx, gy = sobel_gradients(img)
+    a = box_filter(gx * gx, block)
+    b = box_filter(gy * gy, block)
+    c = box_filter(gx * gy, block)
+    tr = a + b
+    return (a * b - c * c) - float(np.float32(k)) * tr * tr
 
 
 def fast_response2(img: torch.Tensor, t_hi: float, t_lo: float):

@@ -1,10 +1,11 @@
 """Batched Hamming-distance descriptor matching.
 
-Counterpart of `uvipslam_tpu/ops/hamming.py`. 256-bit descriptors are
-0/1 int8 vectors; mapped to +-1, the whole NA x NB distance matrix is one
-matmul: dot(a_pm, b_pm) = 256 - 2 * hamming(a, b). The port computes it
-in float32 (TF32 off): every partial sum of +-1 products is an integer
-of magnitude <= 256, exact in float32, so the distances are exact.
+Counterpart of `uvipslam_tpu/ops/hamming.py` (the matcher, its gates
+and the search masks). 256-bit descriptors are 0/1 int8 vectors; mapped
+to +-1, the whole NA x NB distance matrix is one matmul:
+dot(a_pm, b_pm) = 256 - 2 * hamming(a, b). The port computes it in
+float32 (TF32 off): every partial sum of +-1 products is an integer of
+magnitude <= 256, exact in float32, so the distances are exact.
 """
 
 from __future__ import annotations
@@ -95,3 +96,24 @@ def window_mask(xy_a: torch.Tensor, xy_b: torch.Tensor, radius) -> torch.Tensor:
 def level_mask(level_a: torch.Tensor, level_b: torch.Tensor, tol: int = 1) -> torch.Tensor:
     """[NA, NB] mask: pyramid levels within tolerance."""
     return torch.abs(level_a[:, None] - level_b[None, :]) <= tol
+
+
+def bow_node_mask(words_a: torch.Tensor, words_b: torch.Tensor) -> torch.Tensor:
+    """[NA, NB] mask: descriptors quantized to the same vocabulary word
+    (with a flat codebook the BoW node is the word)."""
+    return words_a[:, None] == words_b[None, :]
+
+
+def epipolar_band_mask(F12: torch.Tensor, xy_1: torch.Tensor, xy_2: torch.Tensor,
+                       band) -> torch.Tensor:
+    """[N1, N2] mask: feature 2 within `band` px (scalar or per feature 2)
+    of feature 1's epipolar line x2^T F12 x1 = 0, for lines whose normal
+    is not degenerate."""
+    x1h = torch.cat([xy_1, torch.ones_like(xy_1[..., :1])], dim=-1)
+    l2 = x1h @ F12.T
+    num = torch.abs(l2[:, None, 0] * xy_2[None, :, 0] + l2[:, None, 1] * xy_2[None, :, 1]
+                    + l2[:, None, 2])
+    den = torch.sqrt(torch.clamp(l2[:, 0] ** 2 + l2[:, 1] ** 2, min=1e-12))
+    d = num / den[:, None]
+    b = band[None, :] if isinstance(band, torch.Tensor) and band.dim() > 0 else band
+    return (d <= b) & (den > 1e-6)[:, None]

@@ -1,11 +1,11 @@
 """Anchor-template feature refinement and its patch pull.
 
-Counterpart of the parts of `uvipslam_tpu/ops/klt.py` on the tracking
-path: the flow pyramid, the FFT global shift, patch extraction,
-separable interpolation-matmul patch sampling, `anchor_refine_fast` and
-`extract_templates_fast`. The gather-based `klt_track`, `anchor_refine`
-and `extract_templates` are on no path of the reference and are not
-ported.
+Counterpart of `uvipslam_tpu/ops/klt.py`: the flow pyramid, the FFT
+global shift, patch extraction, separable interpolation-matmul patch
+sampling, `anchor_refine_fast` and `extract_templates_fast` (the tracking
+path), and the gather-based forms that no tracker calls: pyramidal
+`klt_track` and the slow `extract_templates` / `anchor_refine`, plain
+torch over `bilinear_sample` on whatever device their tensors are on.
 
 Two hand-written CUDA kernels take the place of the reference's one TPU
 kernel (`_extract_patches_pallas`), each dispatched by device: a CPU
@@ -38,7 +38,7 @@ import ctypes
 import torch
 
 from uvipslam_torch import kernels
-from uvipslam_torch.ops.image import pyr_down
+from uvipslam_torch.ops.image import bilinear_sample, pyr_down, scharr_gradients
 
 INT32_MIN = -(2 ** 31)
 INT32_MAX = 2 ** 31 - 1
@@ -55,6 +55,87 @@ def build_flow_pyramid(img: torch.Tensor, levels: int = 5) -> list:
     for _ in range(1, levels):
         pyr.append(pyr_down(pyr[-1]))
     return pyr
+
+
+def _patch_coords(win: int, dtype, device):
+    r = win // 2
+    d = torch.arange(-r, r + 1, device=device)
+    ys, xs = torch.meshgrid(d, d, indexing="ij")
+    return xs.reshape(-1).to(dtype), ys.reshape(-1).to(dtype)
+
+
+def _window_sample(img, centers, px, py):
+    """Bilinear samples [N, win*win] of the window around each centre
+    (out of bounds 0)."""
+    return bilinear_sample(img, torch.stack([centers[:, 0:1] + px[None],
+                                             centers[:, 1:2] + py[None]], dim=-1))
+
+
+def _gauss_newton_step(err, Tx, Ty, Gxx, Gxy, Gyy, safe_det):
+    """The inverse-compositional update (dx, dy) [N, 2] for residuals
+    `err` against the template gradients."""
+    bx = torch.sum(err * Tx, dim=1)
+    by = torch.sum(err * Ty, dim=1)
+    dx = -(Gyy * bx - Gxy * by) / safe_det
+    dy = -(-Gxy * bx + Gxx * by) / safe_det
+    return torch.stack([dx, dy], dim=-1)
+
+
+def _normal_matrix(Tx, Ty):
+    Gxx = torch.sum(Tx * Tx, dim=1)
+    Gxy = torch.sum(Tx * Ty, dim=1)
+    Gyy = torch.sum(Ty * Ty, dim=1)
+    det = Gxx * Gyy - Gxy * Gxy
+    safe_det = torch.where(torch.abs(det) < 1e-12, torch.ones_like(det), det)
+    return Gxx, Gxy, Gyy, det, safe_det
+
+
+def klt_track(pyr_prev, pyr_next, pts_prev: torch.Tensor, pts_guess: torch.Tensor,
+              valid: torch.Tensor, win: int = 21, iters: int = 10, levels: int = 5,
+              min_eig_threshold: float = 1e-4, max_residual: float = 20.0):
+    """Pyramidal inverse-compositional Lucas-Kanade from the previous
+    frame's pyramid to the next's, coarse to fine, a fixed `iters`
+    Gauss-Newton steps per level (each clipped to +-win px).
+    Returns (pts_next [N, 2], ok [N] bool): ok = valid, inside the image
+    by win//2, the gradient matrix's smaller eigenvalue per pixel above
+    `min_eig_threshold` on every level, and the level-0 mean absolute
+    residual below `max_residual`."""
+    dtype, dev = pts_prev.dtype, pts_prev.device
+    px, py = _patch_coords(win, dtype, dev)
+    n_px = win * win
+    flow = (pts_guess - pts_prev) / (2.0 ** (levels - 1))
+    min_eig_ok = torch.ones_like(valid)
+    resid = torch.zeros(pts_prev.shape[0], dtype=dtype, device=dev)
+
+    for l in range(levels - 1, -1, -1):
+        imA, imB = pyr_prev[l], pyr_next[l]
+        gx, gy = scharr_gradients(imA)
+        p_l = pts_prev / (2.0 ** l)
+        T = _window_sample(imA, p_l, px, py)
+        Tx = _window_sample(gx, p_l, px, py)
+        Ty = _window_sample(gy, p_l, px, py)
+        Gxx, Gxy, Gyy, det, safe_det = _normal_matrix(Tx, Ty)
+        tr = Gxx + Gyy
+        min_eig = (tr - torch.sqrt(torch.clamp(tr * tr - 4 * det, min=0.0))) * 0.5 / n_px
+        good_G = min_eig > min_eig_threshold
+        if l != levels - 1:
+            flow = flow * 2.0
+        for _ in range(iters):
+            err = _window_sample(imB, p_l + flow, px, py) - T
+            step = torch.clamp(_gauss_newton_step(err, Tx, Ty, Gxx, Gxy, Gyy, safe_det),
+                               -win, win)
+            flow = flow + torch.where(good_G[:, None], step, torch.zeros_like(step))
+        min_eig_ok = min_eig_ok & good_G
+        if l == 0:
+            resid = torch.sum(torch.abs(_window_sample(imB, p_l + flow, px, py) - T),
+                              dim=1) / n_px
+
+    pts_next = pts_prev + flow
+    H, W = pyr_next[0].shape
+    r = win // 2
+    inb = ((pts_next[:, 0] >= r) & (pts_next[:, 0] < W - r)
+           & (pts_next[:, 1] >= r) & (pts_next[:, 1] < H - r))
+    return pts_next, valid & inb & min_eig_ok & (resid < max_residual)
 
 
 def global_shift(img_a: torch.Tensor, img_b: torch.Tensor, radius: int = 8):
@@ -276,11 +357,7 @@ def _refine_terms(img, T, Tx, Ty, pts, win: int, iters: int, max_correction: flo
     _check_patch_args(img, pts, psize)
     patches, local = _extract_patches(img, pts, psize)
 
-    Gxx = torch.sum(Tx * Tx, dim=1)
-    Gxy = torch.sum(Tx * Ty, dim=1)
-    Gyy = torch.sum(Ty * Ty, dim=1)
-    det = Gxx * Gyy - Gxy * Gxy
-    safe_det = torch.where(torch.abs(det) < 1e-12, torch.ones_like(det), det)
+    Gxx, Gxy, Gyy, det, safe_det = _normal_matrix(Tx, Ty)
     good_G = det > 1e-9
 
     # clamp bounds from the patch shape (slab contract: [psize, psize])
@@ -291,13 +368,8 @@ def _refine_terms(img, T, Tx, Ty, pts, win: int, iters: int, max_correction: flo
 
     p = local
     for _ in range(iters):
-        I = _sample_patch(patches, p, win).reshape(N, -1)
-        err = I - T
-        bx = torch.sum(err * Tx, dim=1)
-        by = torch.sum(err * Ty, dim=1)
-        dx = -(Gyy * bx - Gxy * by) / safe_det
-        dy = -(-Gxy * bx + Gxx * by) / safe_det
-        step = torch.clamp(torch.stack([dx, dy], dim=-1), -3.0, 3.0)
+        err = _sample_patch(patches, p, win).reshape(N, -1) - T
+        step = torch.clamp(_gauss_newton_step(err, Tx, Ty, Gxx, Gxy, Gyy, safe_det), -3.0, 3.0)
         p2 = p + torch.where(good_G[:, None], step, torch.zeros_like(step))
         p2 = torch.clamp(p2, min=lo)
         p = torch.stack([p2[:, 0].clamp(max=hi_x), p2[:, 1].clamp(max=hi_y)], dim=-1)
@@ -433,3 +505,35 @@ def extract_templates_fast(img: torch.Tensor, pts: torch.Tensor, win: int = 13):
     Tx = 0.5 * (big[..., 1:-1, 2:] - big[..., 1:-1, :-2])
     Ty = 0.5 * (big[..., 2:, 1:-1] - big[..., :-2, 1:-1])
     return (T.reshape(lead + (-1,)), Tx.reshape(lead + (-1,)), Ty.reshape(lead + (-1,)))
+
+
+def extract_templates(img: torch.Tensor, pts: torch.Tensor, win: int = 21):
+    """Template patches and their Scharr gradients per feature by
+    bilinear gathers. Returns (T, Tx, Ty), each [N, win*win]."""
+    px, py = _patch_coords(win, pts.dtype, pts.device)
+    gx, gy = scharr_gradients(img)
+    return tuple(_window_sample(im, pts, px, py) for im in (img, gx, gy))
+
+
+def anchor_refine(img: torch.Tensor, T: torch.Tensor, Tx: torch.Tensor, Ty: torch.Tensor,
+                  pts: torch.Tensor, valid: torch.Tensor, win: int = 21, iters: int = 8,
+                  max_correction: float = 2.5, max_residual: float = 12.0):
+    """The gather form of `anchor_refine_fast`: fixed inverse-
+    compositional Gauss-Newton steps (each clipped to +-3 px) against the
+    birth templates, sampling the image directly, no patch and no clamp.
+    A track keeps its start unless its gradient matrix is well
+    conditioned, its correction is at most `max_correction` and its mean
+    absolute residual below `max_residual`.
+    Returns (pts_refined [N, 2], refined [N] bool)."""
+    px, py = _patch_coords(win, pts.dtype, pts.device)
+    Gxx, Gxy, Gyy, det, safe_det = _normal_matrix(Tx, Ty)
+    good_G = det > 1e-9
+    p = pts
+    for _ in range(iters):
+        err = _window_sample(img, p, px, py) - T
+        step = torch.clamp(_gauss_newton_step(err, Tx, Ty, Gxx, Gxy, Gyy, safe_det), -3.0, 3.0)
+        p = p + torch.where(good_G[:, None], step, torch.zeros_like(step))
+    resid = torch.sum(torch.abs(_window_sample(img, p, px, py) - T), dim=1) / (win * win)
+    corr = torch.linalg.vector_norm(p - pts, dim=-1)
+    accept = valid & good_G & (corr <= max_correction) & (resid < max_residual)
+    return torch.where(accept[:, None], p, pts), accept
