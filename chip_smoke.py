@@ -37,7 +37,7 @@ result):
      joined, the mono stream's two runs of phase 10 hold that);
   6. a replay of the first frames under torch.cuda sync-debug mode counts
      every host synchronization the step really makes;
-  7. torch.profiler over two WORKING frames: device time per frame,
+  7. torch.profiler over one WORKING frame: device time per frame,
      kernels and launches per frame, host and device time per phase of the
      step (its `step.*` spans, `step.propagate` on a line of its own),
      the hand kernels' device time per launch, the top operators (the
@@ -49,14 +49,15 @@ result):
      its branches imply;
   9. the VIP step (IMU preintegration, pressure-scale VIO init, the VI
      solves and window BA) at bench.py's VIP settings (512x640, 400
-     tracks, 120 frames, kf_cap 64, pt_cap 8192; `REPEATS` more runs would
+     tracks, kf_cap 64, pt_cap 8192; the first 90 frames of its 120-frame
+     sequence; `REPEATS` more runs would
      have to be bitwise equal, 0 since phase 12 runs the VIP fleet twice):
      VIO initializes, >= 80% of frames WORKING, metric ATE
      (no scale alignment) over the WORKING frames from VIO init + 3 on
      below 5% of the trajectory span; the VIO-init frame's own ms, host
      reads, kernel launches, peak memory, a sync audit over the first 30
-     frames and a profile split by phase over two VI frames after VIO
-     init (table in chiprun_out/profile_vip.txt).
+     or more frames and a profile split by phase over the keyframe-free VI
+     frame after them (table in chiprun_out/profile_vip.txt).
  10. the mono stream with loop closing (`frontend.stream.DeviceStream`,
      mode "mono", `loop_closing=True`) fed one frame at a time over a
      512x640 `motion="loop"` sequence that returns to its start (400
@@ -76,7 +77,8 @@ result):
      NAVSTATE_BA_TOL of the extent, and an objective that does not rise
  12. batched replay of the VIP step (`parallel.replay.batched_replay_vip`):
      8 streams over 8 distinct scenes in lockstep at phase 9's settings
-     (512x640, 400 tracks, kf_cap 64, pt_cap 8192, 60 frames), twice:
+     (512x640, 400 tracks, kf_cap 64, pt_cap 8192, the first 36 frames of
+     60-frame scenes), twice (the second run up to the profile frame):
      more than half the streams initialize VIO and track with metric ATE
      (WORKING frames from VIO init + 3 on, at least 8) below 12% of the
      span, the second run is bitwise equal, kernel launches as the
@@ -92,7 +94,7 @@ result):
      below 5% of the span, kernel launches as the states imply.
  14. the application entry point (`uvipslam_torch.app.main`, as
      `python -m uvipslam_torch.app` runs it) from a rosbag of phase 9's
-     first 80 frames (images, IMU, pressure; tests/_bagwrite.py) with a
+     first 54 frames (images, IMU, pressure; tests/_bagwrite.py) with a
      settings YAML in the reference's schema (640x512, 400 features,
      window 8): `--device` VIP, `--device` MONO and the host MonoTracker,
      each held to the gates of the reference's app tests (VIP: >= 12
@@ -105,7 +107,7 @@ result):
      (two preintegrations per frame over the padded windows), held to the
      VIP gates, with exactly the launches its frames' branches imply;
  15. the host `VipTracker` directly on phase 9's sequence (512x640, its
-     settings, 10-sample windows, kf_cap 64, pt_cap 8192): 70 frames with
+     settings, 10-sample windows, kf_cap 64, pt_cap 8192): 60 frames with
      frames 45-47 black, the gates of the reference's
      `test_vip_recovery_after_blackout` where they apply: VIO up before
      the blackout, IMU_RELOC reached, WORKING again through a two-view
@@ -129,7 +131,7 @@ result):
  17. the VIP fleet sharded over processes (`parallel.replay.make_mesh`,
      `shard_stream_axis`, `batched_replay_vip(..., mesh=)`): 2 ranks
      spawned on the one card (gloo), 2 streams each, the first 4 of phase
-     12's scenes for 45 frames (handed over as a file), with the gates of
+     12's scenes for 36 frames (handed over as a file), with the gates of
      the reference's dry run (`__graft_entry__.dryrun_multichip`): some
      frame WORKING, more than half the streams VIO-initialized and below
      12% metric ATE; the all-reduced fleet counts equal on both ranks and
@@ -138,9 +140,40 @@ result):
      phase 12's and its largest pose gap up to VIO init, and each rank's
      ms per batched frame, host reads, launches and peak memory.
 
-`--only stream,vip_stream,fleet_kernels,fleet_vip,fleet_mono,app,host_vip,frontend_ops,shard`
+ 18. the device VIP step's rare branches at phase 9's settings (512x640,
+     400 tracks, kf_cap 64, pt_cap 8192): (a) 70 frames with frames
+     45-47 black (frames 0-44 are phase 9's run, whose state after frame
+     44 it goes on from), behind phase 15's gates (VIO up before the blackout,
+     the first-try lane tried on frame 45 and failing, IMU_RELOC, WORKING
+     again within `recovery_max_frames`, the last frame WORKING, metric
+     ATE after VIO init below 0.25·max(span, 0.5), median |z error| below
+     0.15, |bg| below 0.1; phase 15's labels printed beside); (b) with
+     `vio_init_min_time=1e6`, 28 frames, frames 28-30 black, then the
+     last keyframe's image: LOST, WORKING within three frames, the camera
+     centre within 0.15 of that keyframe's (the reference's
+     tests/test_device_vip.py:91-148); (c) from phase 9's state after
+     frame 35, one frame whose VI solve is made to fail: the first-try lane's
+     solve reaches `reloc_min`, WORKING, the forced keyframe made. Each
+     with exactly the launches its frames' branches imply, ms by branch,
+     host reads and peak memory;
+ 19. the fleets' per-stream loops: `VipFleetStep` over 2 streams, 70
+     frames (stream 0 with phase 18a's blackout, stream 1 clean): IMU_RELOC
+     on stream 0 only, WORKING again within `recovery_max_frames`, each
+     stream's labels equal to its single-stream run's on at least 95% of
+     frames; `MonoFleetStep` over 2 streams (stream 0 phase 8's
+     relocalization input, stream 1 clean): stream 0 LOST and WORKING
+     again within three frames with its centre within 0.15 of the
+     keyframe's, its labels equal to phase 8's; both with exactly the
+     launches their streams' states imply.
+
+`--only stream,vip_stream,fleet_kernels,fleet_vip,fleet_mono,app,host_vip,frontend_ops,shard,vip_rare,fleet_rare`
 (any subset) runs those phases alone after the build and prints no result
-line (`host_vip` is phase 15; `app` includes phase 14's host VIP run).
+line (`host_vip` is phase 15; `app` includes phase 14's host VIP run;
+`vip_rare` and `fleet_rare` are phases 18 and 19).
+
+The synthetic sequences render in four worker processes from the start,
+beside phases 2-8. Each phase's end time goes to standard error as the
+phase ends, and all of them to standard output at the end.
 
 The last three lines of standard output are the steps' JSON record, the
 per-kernel JSON record (launches per path, times, errors, bounds) and
@@ -150,6 +183,7 @@ uvipslam_tpu.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -165,8 +199,9 @@ REPEATS = 0      # timing repeats of the VIP step after the gated run (two befor
                  # two runs and the VIP stream, of the mono step by the mono stream's two runs)
 MONO_REPEATS = 0  # and of the mono step
 BATCH = 50
-VIP_FRAMES = 120
+VIP_FRAMES = 90          # phase 9 drives the first frames of its 120-frame sequence
 VIP_AUDIT_FRAMES = 30
+PROFILE_FRAMES = 1    # frames under torch.profiler in phases 7 and 9 (as in phase 12)
 RELOC_WARMUP = 30     # mono frames before the blackout
 # the revisit sequence of the stream phases: the reference's own revisit
 # test (80 frames, seed 9, `motion="loop"`, there at 240x320 and speed 1.4)
@@ -189,7 +224,12 @@ def log(*a):
 
 
 def mark(phase):
+    """Records a phase's end; the line on standard error shows how far a
+    run got when it is cut. What the phase left alive is moved out of the
+    garbage collector's way (its full passes walk every live object)."""
     MARKS[phase] = round(time.perf_counter() - T0, 1)
+    print(f"chip_smoke: {phase} done at {MARKS[phase]} s", file=sys.stderr, flush=True)
+    gc.freeze()
 
 
 def nvidia_smi_line() -> str:
@@ -485,9 +525,73 @@ def reset_launches(tklt):
     tklt.refine_launches = 0
 
 
+LAUNCH_NAMES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
+
+
+def trace_summary(events):
+    """The numbers a profile reports, from a torch.profiler trace's events
+    (its chrome-trace `traceEvents`; reading them takes a second where
+    `key_averages()` takes up to half a minute): {name: [count, µs]} of the
+    device events, {name: [count, self µs]} of the host events (their
+    time less that of the events nested in them on the same thread),
+    {span: [count, host µs, device µs]} of the `step.*` spans (the device
+    time of the kernels launched inside them) and the kernel launches."""
+    import bisect
+
+    dev, host, spans, launch_at, threads = {}, {}, {}, {}, {}
+    dev_events = []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat = e.get("cat")
+        if cat in DEVICE_CATS:
+            c = dev.setdefault(e["name"], [0, 0.0])
+            c[0] += 1
+            c[1] += e["dur"]
+            dev_events.append(e)
+        elif cat in HOST_CATS:
+            threads.setdefault((e["pid"], e["tid"]), []).append(e)
+            if cat in ("cuda_runtime", "cuda_driver"):
+                launch_at[e.get("args", {}).get("correlation")] = ((e["pid"], e["tid"]), e["ts"])
+    launches = 0
+    span_at = {}
+    for key, evs in threads.items():
+        evs.sort(key=lambda e: (e["ts"], -e["dur"]))
+        stack, self_us = [], [e["dur"] for e in evs]
+        for i, e in enumerate(evs):
+            while stack and evs[stack[-1]]["ts"] + evs[stack[-1]]["dur"] <= e["ts"] + 1e-3:
+                stack.pop()
+            if stack:
+                self_us[stack[-1]] -= e["dur"]
+            stack.append(i)
+        for e, us in zip(evs, self_us):
+            h = host.setdefault(e["name"], [0, 0.0])
+            h[0] += 1
+            h[1] += us
+            launches += e["name"] in LAUNCH_NAMES
+        sp = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in evs
+                    if e.get("cat") == "user_annotation" and e["name"].startswith("step."))
+        for t0, t1, name in sp:
+            c = spans.setdefault(name, [0, 0.0, 0.0])
+            c[0] += 1
+            c[1] += t1 - t0
+        span_at[key] = (sp, [x[0] for x in sp])
+    for e in dev_events:
+        at = launch_at.get(e.get("args", {}).get("correlation"))
+        if at is None or at[0] not in span_at:
+            continue
+        sp, starts = span_at[at[0]]
+        for t0, t1, name in sp[:bisect.bisect_right(starts, at[1])]:
+            if t0 <= at[1] <= t1:
+                spans[name][2] += e["dur"]
+    return dev, host, spans, launches
+
+
 def profile_phase(torch, step, st, feeds, start, n, out_name):
     """torch.profiler over frames start..start+n-1: device busy time and
-    the top operators by device and by host time (full table to
+    the top operators by device and by host time (tables to
     chiprun_out/<out_name>), host and device time per `step.*` span. Fails
     when the profiler sees no device time."""
     from torch.profiler import ProfilerActivity, profile
@@ -499,44 +603,40 @@ def profile_phase(torch, step, st, feeds, start, n, out_name):
             st, _ = step(st, feeds[f])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3   # the profiler's teardown excluded
-    ev = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-
-    def dev_total_us(e):
-        return getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
-
-    # device-side kernel events only (the operators that launched them
-    # report the same time again; the spans' device-side twins are ranges)
-    from torch.autograd import DeviceType
-
-    gpu = [e for e in ev if e.device_type == DeviceType.CUDA and not e.key.startswith("step.")]
-    # host time in each phase span, and the device time of the kernels it
-    # launched
-    spans = {e.key: dict(host_ms=e.cpu_time_total / 1e3 / n,
-                         device_ms=dev_total_us(e) / 1e3 / n, calls=e.count / n)
-             for e in ev if e.key.startswith("step.") and e.device_type == DeviceType.CPU}
-    device_ms = sum(dev_us(e) for e in gpu) / 1e3
-    kernels = sum(e.count for e in gpu)
-    launches = sum(e.count for e in ev if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                                    "cudaLaunchKernelExC"))
+    t1 = time.perf_counter()
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    path = os.path.join(HERE, "chiprun_out", f"_trace_{os.getpid()}.json")
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    dev, host, span_us, launches = trace_summary(events)
+    post_s = time.perf_counter() - t1
+
+    device_ms = sum(us for _, us in dev.values()) / 1e3
+    kernels = sum(c for c, _ in dev.values())
+    spans = {k: dict(host_ms=h / 1e3 / n, device_ms=d / 1e3 / n, calls=c / n)
+             for k, (c, h, d) in span_us.items()}
+    top_dev = sorted(dev.items(), key=lambda kv: -kv[1][1])
+    top_cpu = sorted(host.items(), key=lambda kv: -kv[1][1])
     with open(os.path.join(HERE, "chiprun_out", out_name), "w") as fh:
-        fh.write(ev.table(sort_by="self_cuda_time_total", row_limit=60))
-        fh.write("\n\n")
-        fh.write(ev.table(sort_by="self_cpu_time_total", row_limit=40))
+        fh.write(f"frames {start}-{start + n - 1}; device events by device time (count, ms)\n")
+        fh.writelines(f"{c:8d} {us / 1e3:10.3f}  {k}\n" for k, (c, us) in top_dev[:60])
+        fh.write("\nhost events by self time (count, ms)\n")
+        fh.writelines(f"{c:8d} {us / 1e3:10.3f}  {k}\n" for k, (c, us) in top_cpu[:40])
     if device_ms <= 0:
         raise AssertionError("the profiler saw no device time")
-    top_dev = sorted(gpu, key=dev_us, reverse=True)[:8]
-    top_cpu = sorted(ev, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
     log(f"  frames {start}-{start + n - 1} under torch.profiler, which slows the host: "
         f"wall {wall_ms / n:.1f} ms/frame, device busy {device_ms / n:.2f} ms/frame, "
-        f"{kernels / n:.0f} device kernels and {launches / n:.0f} kernel launches/frame")
-    log("  top device: " + "; ".join(f"{e.key[:60]} {dev_us(e) / 1e3 / n:.3f} ms x{e.count // n}"
-                                     for e in top_dev))
-    log("  top host: " + "; ".join(f"{e.key[:40]} {e.self_cpu_time_total / 1e3 / n:.2f} ms "
-                                   f"x{e.count // n}" for e in top_cpu))
+        f"{kernels / n:.0f} device kernels and {launches / n:.0f} kernel launches/frame; "
+        f"{len(events)} trace events read in {post_s:.1f} s")
+    log("  top device: " + "; ".join(f"{k[:60]} {us / 1e3 / n:.3f} ms x{c // n}"
+                                     for k, (c, us) in top_dev[:8]))
+    log("  top host: " + "; ".join(f"{k[:40]} {us / 1e3 / n:.2f} ms x{c // n}"
+                                   for k, (c, us) in top_cpu[:8]))
     log("  per phase (ms/frame, host under the profiler / device): " + "; ".join(
         f"{k[5:]} {v['host_ms']:.1f} / {v['device_ms']:.2f} (x{v['calls']:.2f})"
         for k, v in sorted(spans.items(), key=lambda kv: -kv[1]["host_ms"])))
@@ -546,15 +646,16 @@ def profile_phase(torch, step, st, feeds, start, n, out_name):
     log(f"  {launches / n:.0f} kernel launches per frame; step.propagate host {prop['host_ms']:.2f} "
         f"ms / device {prop['device_ms']:.3f} ms per frame")
     # the hand-written kernels' own device time per launch on the path
-    ours = {name: [e for e in gpu if name in e.key] for name in
-            ("extract_patches_kernel", "anchor_refine_kernel")}
-    ours = {k: dict(launches=sum(e.count for e in v),
-                    device_us_per_launch=sum(dev_us(e) for e in v) / max(1, sum(e.count for e in v)))
-            for k, v in ours.items()}
+    ours = {}
+    for name in ("extract_patches_kernel", "anchor_refine_kernel"):
+        c = sum(v[0] for k, v in dev.items() if name in k)
+        us = sum(v[1] for k, v in dev.items() if name in k)
+        ours[name] = dict(launches=c, device_us_per_launch=us / max(1, c))
     log("  hand kernels on the path: " + "; ".join(
         f"{k} {v['launches']} launches, {v['device_us_per_launch']:.2f} us device each"
         for k, v in ours.items()))
-    return dict(wall_ms_per_frame_profiled=wall_ms / n, device_ms_per_frame=device_ms / n,
+    return dict(frames=n, post_processing_s=post_s,
+                wall_ms_per_frame_profiled=wall_ms / n, device_ms_per_frame=device_ms / n,
                 device_kernels_per_frame=kernels / n, launches_per_frame=launches / n,
                 phases=spans, hand_kernels=ours)
 
@@ -584,12 +685,14 @@ def reloc_phase(torch, np, tklt, new_tracker, imgs):
     then the last keyframe's image again until WORKING (three frames at
     most). Returns (frames to recover, centre error, kernel launches from
     the first black frame on, the launches its branches imply, the
-    keyframe's frame)."""
+    keyframe's frame, the labels of every frame)."""
     from uvipslam_torch.frontend.tracker import LOST, WORKING
 
     st, step = new_tracker()
+    warmup = []
     for f in range(RELOC_WARMUP):
         st, out = step(st, imgs[f])
+        warmup.append(int(out.state))
     if int(out.state) != WORKING:
         raise AssertionError(f"mono step not WORKING after {RELOC_WARMUP} frames")
     torch.cuda.synchronize()
@@ -613,14 +716,14 @@ def reloc_phase(torch, np, tklt, new_tracker, imgs):
         raise AssertionError("no relocalization within three frames")
     torch.cuda.synchronize()
     launches = read_launches(tklt)
-    expect = expected_launches(states, 8, prev=WORKING)
+    expect = expected_launches(states, orb_levels(*imgs.shape[1:]), prev=WORKING)
     C = centres(torch, np, [out.Rcw], [out.tcw])[0]
     err = float(np.linalg.norm(C - C_kf))
     if not err < 0.15:
         raise AssertionError(f"relocalized centre {C} is {err} from keyframe centre {C_kf}")
     if launches != expect or min(launches.values()) <= 0:
         raise AssertionError(f"relocalization path launches {launches}, expected {expect}")
-    return n, err, launches, expect, kf_frame
+    return n, err, launches, expect, kf_frame, warmup + states
 
 
 def orb_levels(h, w, n=8, scale=1.2):
@@ -630,19 +733,36 @@ def orb_levels(h, w, n=8, scale=1.2):
     return n
 
 
-def expected_launches_vip(states, n_orb_levels):
-    """Launches of each kernel on the VIP step when no frame is LOST or
-    in IMU recovery: the shared detection (template pulls, ORB levels and
-    the descriptor refresh) runs in NOT_INITIALIZED and WORKING, the two
-    anchor refinements in INITIALIZING and WORKING."""
-    from uvipslam_torch.frontend.tracker import INITIALIZING, NOT_INITIALIZED, WORKING
+def vip_takes_stages(prev, anchored):
+    """(propagates, detects) of a VIP step frame that starts in state
+    `prev`: the two anchor refinements run in INITIALIZING, WORKING and
+    IMU_RELOC; the shared detection (template pulls, ORB levels and the
+    descriptor refresh) in NOT_INITIALIZED and WORKING, and fresh in LOST
+    and in IMU_RELOC without a recovery anchor (`anchored`: the state's
+    `rec_frame >= 0` at the frame's start)."""
+    from uvipslam_torch.frontend.tracker import (IMU_RELOC, INITIALIZING, LOST,
+                                                 NOT_INITIALIZED, WORKING)
+
+    return (prev in (INITIALIZING, WORKING, IMU_RELOC),
+            prev in (NOT_INITIALIZED, WORKING, LOST) or (prev == IMU_RELOC and not anchored))
+
+
+def expected_launches_vip(states, n_orb_levels, anchored=None, prev=None):
+    """Launches of each kernel implied by the branch each frame of the
+    VIP step ran (`vip_takes_stages`; the state a frame starts in is the
+    previous frame's output state, `prev` before the first, by default
+    NOT_INITIALIZED). `anchored` [T] is needed only where a frame starts
+    in IMU_RELOC. The first-try lane, the relocalization and the
+    recovery's re-anchor launch neither kernel."""
+    from uvipslam_torch.frontend.tracker import NOT_INITIALIZED
 
     detect = 2 + n_orb_levels + 1
     pulls = refines = 0
-    prev = NOT_INITIALIZED
-    for s in states:
-        pulls += detect if prev in (NOT_INITIALIZED, WORKING) else 0
-        refines += 2 if prev in (INITIALIZING, WORKING) else 0
+    prev = NOT_INITIALIZED if prev is None else prev
+    for f, s in enumerate(states):
+        prop, det = vip_takes_stages(prev, anchored[f] if anchored is not None else False)
+        pulls += detect if det else 0
+        refines += 2 if prop else 0
         prev = s
     return {"extract_patches": pulls, "anchor_refine": refines}
 
@@ -701,33 +821,16 @@ class PreintCounter:
         self.mod.preint_step = self.real
 
 
-def vip_sequence():
-    from uvipslam_torch.io.synthetic import make_sequence
-    return make_sequence(n_frames=VIP_FRAMES, H=512, W=640, n_points=6000, seed=7, speed=1.2,
-                         gyr_noise=0.005, acc_noise=0.05, gyr_bias=(0.004, -0.006, 0.003),
-                         depth_noise=0.02, z_amp=0.5)
-
-
-def vip_phase(torch, np, tklt, dev, smi):
-    """Phase 9. Returns (the step record, launches on the VIP path, the
-    sequence)."""
+def vip_phase(torch, np, tklt, dev, smi, seq):
+    """Phase 9 on `seq` (SEQUENCES["vip"]). Returns (the step record,
+    launches on the VIP path, phase 18's prefix: the per-frame lists of
+    frames 0 to RARE_BLACK[0] - 1 and the states kept on the host)."""
     from uvipslam_torch.frontend.device_vip import build_vip_tracker, make_bundles
     from uvipslam_torch.frontend.tracker import IMU_RELOC, LOST, WORKING
-    from uvipslam_torch.frontend.vip_tracker import VipConfig
     from uvipslam_torch.io.synthetic import ate_rmse
-    from uvipslam_torch.models.camera import CameraModel
 
-    t0 = time.time()
-    seq = vip_sequence()
-    mark("vip_sequence")
-    log(f"sequence {VIP_FRAMES}x512x640 with IMU and pressure generated in "
-        f"{time.time() - t0:.1f} s")
-    cam = CameraModel.create(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2],
-                             width=640, height=512)
-    cfg = VipConfig(n_tracks=400, min_init_tracks=100, local_window=8, gyr_noise_sd=0.01,
-                    acc_noise_sd=0.1, depth_noise_sd=0.05, vio_init_min_kfs=6,
-                    vio_init_min_time=1.0)
-    bundles = make_bundles(seq, device=dev)     # the whole sequence uploaded once
+    cam, cfg = vip_cam_cfg(seq.K)
+    bundles = make_bundles(seq, device=dev)[:VIP_FRAMES]   # uploaded once
 
     def new_tracker():
         return build_vip_tracker(cam, cfg, kf_cap=64, pt_cap=8192, device=dev)
@@ -735,10 +838,15 @@ def vip_phase(torch, np, tklt, dev, smi):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(tklt)
+    # the states after frames FIRST_TRY_AFTER and RARE_BLACK[0] - 1 go to
+    # the host: phase 18 starts from them
     with PreintCounter() as preint:
-        first = drive(torch, new_tracker, bundles)
+        step, _, run, kept = drive_vip_rare(torch, new_tracker, bundles,
+                                            keep=(FIRST_TRY_AFTER, RARE_BLACK[0] - 1),
+                                            keep_on="cpu")
     launches = read_launches(tklt)
-    step, states, Rs, ts, vios, frame_ms = first
+    states, Rs, ts, vios, frame_ms = (run[k] for k in ("states", "Rs", "ts", "vios", "ms"))
+    first = step, states, Rs, ts, vios, frame_ms
     syncs = step.host_syncs
     peak = torch.cuda.max_memory_allocated()
     run_meds = timed_runs(torch, new_tracker, bundles, first)
@@ -748,7 +856,7 @@ def vip_phase(torch, np, tklt, dev, smi):
     vios = np.asarray(vios)
     working = states == WORKING
     C = centres(torch, np, Rs, ts)
-    span = float(np.linalg.norm(seq.positions_w[-1] - seq.positions_w[0]))
+    span = float(np.linalg.norm(seq.positions_w[VIP_FRAMES - 1] - seq.positions_w[0]))
     init_f = int(np.argmax(vios)) if vios.any() else -1
     sel = np.asarray([i for i in range(VIP_FRAMES) if init_f >= 0 and i >= init_f + 3
                       and working[i]], dtype=np.int64)
@@ -782,25 +890,27 @@ def vip_phase(torch, np, tklt, dev, smi):
         raise AssertionError(f"kernel launches {launches}, expected {expect}")
     mark("vip_step")
 
+    # the sync audit runs at least VIP_AUDIT_FRAMES frames, up to the
+    # first VI frame after them that makes no keyframe in the timed run,
+    # and the profile goes on from its state over that frame. The
+    # VIO-init frame alone launches ~0.4M kernels; its own time is the
+    # timed run's VIO-init frame ms
+    start = next((f for f in range(VIP_AUDIT_FRAMES, VIP_FRAMES) if states[f - 1] == WORKING
+                  and vios[f - 1] and states[f] == WORKING and run["new_kf"][f] < 0), None)
+    if start is None:
+        raise AssertionError("no keyframe-free VI frame after the audit frames to profile")
     st_a, step_a = new_tracker()
-    real, where, _ = sync_audit(torch, step_a, st_a, bundles, VIP_AUDIT_FRAMES)
-    log(f"phase VIP sync audit ({VIP_AUDIT_FRAMES} frames): "
-        f"{len(real) / VIP_AUDIT_FRAMES:.2f} synchronizing calls/frame seen by torch.cuda "
-        f"sync-debug mode, {step_a.host_syncs / VIP_AUDIT_FRAMES:.2f}/frame counted by the step")
+    real, where, st_a = sync_audit(torch, step_a, st_a, bundles, start)
+    log(f"phase VIP sync audit ({start} frames, VIO init included): "
+        f"{len(real) / start:.2f} synchronizing calls/frame seen by torch.cuda "
+        f"sync-debug mode, {step_a.host_syncs / start:.2f}/frame counted by the step")
     log("  by call site: " + ", ".join(f"{k} x{v}" for k, v in sorted(
         where.items(), key=lambda kv: -kv[1])[:12]))
 
     mark("vip_audit")
-    # the profile window: two VI frames after VIO init (six before the
-    # fleet phases joined the script). The init frame
-    # alone launches ~0.4M kernels, whose profiler events take minutes to
-    # post-process; its own time is the timed run's VIO-init frame ms
-    start = init_f + 1
-    st_p, step_p = new_tracker()
-    for f in range(start):
-        st_p, _ = step_p(st_p, bundles[f])
     log("phase VIP profile:")
-    profile = profile_phase(torch, step_p, st_p, bundles, start, 2, "profile_vip.txt")
+    profile = profile_phase(torch, step_a, st_a, bundles, start, PROFILE_FRAMES,
+                            "profile_vip.txt")
     profile["device_idle_share"] = 1.0 - profile["device_ms_per_frame"] / med
     mark("vip_profile")
     log(f"  device busy {profile['device_ms_per_frame']:.2f} ms/frame in the window; idle "
@@ -811,11 +921,14 @@ def vip_phase(torch, np, tklt, dev, smi):
               "ate_threshold_m": 0.05 * span, "median_ms_per_frame": med,
               "run_medians_ms": run_meds, "vio_init_frame_ms": init_ms,
               "host_reads_per_frame": syncs / VIP_FRAMES,
-              "sync_calls_per_frame_audit": len(real) / VIP_AUDIT_FRAMES,
+              "sync_calls_per_frame_audit": len(real) / start, "audit_frames": start,
               "preint_steps_per_frame": preint.calls / VIP_FRAMES,
               "imu_window": int(seq.imu_mask.shape[1]),
+              "labels": "".join(str(x) for x in states.tolist()),
               "peak_allocated_bytes": peak, "profile": profile, "card": smi}
-    return record, launches, seq
+    prefix = {k: v[:RARE_BLACK[0]] for k, v in run.items() if k != "lane1"}
+    prefix["lane1"] = [c for c in run["lane1"] if c[0] < RARE_BLACK[0]]
+    return record, launches, (prefix, kept)
 
 
 def drive_stream(torch, new_stream, feeds):
@@ -883,20 +996,16 @@ def log_passes(ds, n_frames):
         host_reads_per_frame=total / n_frames)
 
 
-def stream_mono_phase(torch, np, tklt, dev, smi):
-    """Phase 10. Returns (record, launches on the mono stream path)."""
+def stream_mono_phase(torch, np, tklt, dev, smi, seq):
+    """Phase 10 on `seq` (SEQUENCES["stream_mono"]). Returns (record,
+    launches on the mono stream path)."""
     from uvipslam_torch.frontend.stream import DeviceStream
     from uvipslam_torch.frontend.tracker import WORKING, TrackerConfig
-    from uvipslam_torch.io.synthetic import ate_rmse, make_sequence
+    from uvipslam_torch.io.synthetic import ate_rmse
     from uvipslam_torch.mapstate.hygiene import fuse_duplicates
     from uvipslam_torch.models.camera import CameraModel
 
     n = STREAM_FRAMES
-    t0 = time.time()
-    seq = make_sequence(n_frames=n, H=512, W=640, n_points=6000, seed=STREAM_SEED,
-                        motion="loop", speed=STREAM_SPEED)
-    log(f"loop sequence {n}x512x640 (seed {STREAM_SEED}, speed {STREAM_SPEED}) generated in "
-        f"{time.time() - t0:.1f} s")
     cam = CameraModel.create(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2],
                              width=640, height=512)
     cfg = TrackerConfig(n_tracks=400, min_init_tracks=100, local_window=8, loop_closing=True)
@@ -975,28 +1084,18 @@ def stream_mono_phase(torch, np, tklt, dev, smi):
     return record, launches
 
 
-def stream_vip_phase(torch, np, tklt, dev, smi):
-    """Phase 11. Returns (record, launches on the VIP stream path)."""
+def stream_vip_phase(torch, np, tklt, dev, smi, seq):
+    """Phase 11 on `seq` (SEQUENCES["stream_vip"]). Returns (record,
+    launches on the VIP stream path)."""
     from uvipslam_torch.core.tree import tree_map
     from uvipslam_torch.frontend.device_vip import make_bundles
     from uvipslam_torch.frontend.stream import DeviceStream
     from uvipslam_torch.frontend.tracker import IMU_RELOC, LOST, WORKING
-    from uvipslam_torch.frontend.vip_tracker import VipConfig
-    from uvipslam_torch.io.synthetic import ate_rmse, make_sequence
-    from uvipslam_torch.models.camera import CameraModel
+    from uvipslam_torch.io.synthetic import ate_rmse
     from uvipslam_torch.solver.global_ba import global_ba_navstate
 
     n = VIP_STREAM_FRAMES
-    t0 = time.time()
-    seq = make_sequence(n_frames=n, H=512, W=640, n_points=6000, seed=STREAM_SEED,
-                        motion="loop", speed=STREAM_SPEED, gyr_noise=0.005, acc_noise=0.05,
-                        gyr_bias=(0.004, -0.006, 0.003), depth_noise=0.02, z_amp=0.5)
-    log(f"loop sequence {n}x512x640 with IMU and pressure generated in {time.time() - t0:.1f} s")
-    cam = CameraModel.create(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2],
-                             width=640, height=512)
-    cfg = VipConfig(n_tracks=400, min_init_tracks=100, local_window=8, gyr_noise_sd=0.01,
-                    acc_noise_sd=0.1, depth_noise_sd=0.05, vio_init_min_kfs=6,
-                    vio_init_min_time=1.0, loop_closing=True)
+    cam, cfg = vip_cam_cfg(seq.K, loop_closing=True)
     bundles = make_bundles(seq, device=dev)
 
     torch.cuda.synchronize()
@@ -1098,7 +1197,7 @@ def stream_vip_phase(torch, np, tklt, dev, smi):
     return record, launches
 
 
-FLEET_S, FLEET_FRAMES = 8, 60          # phase 12: the VIP fleet
+FLEET_S, FLEET_FRAMES, FLEET_RENDER_FRAMES = 8, 36, 60   # phase 12: the VIP fleet
 MONO_FLEET_S, MONO_FLEET_FRAMES = 4, 40   # phase 13: the mono fleet
 FLEET_LAUNCH_RATIO = 3.0   # batched launches per frame over a single stream's, the gate
 
@@ -1204,35 +1303,69 @@ def batched_kernel_phase(torch, tklt, dev):
     return prow, rrow, max_err
 
 
-def expected_launches_fleet(states, n_orb_levels, vip: bool):
+def expected_launches_fleet(states, n_orb_levels, vip: bool, anchored=None):
     """Launches of each kernel for a fleet whose streams' per-frame states
-    are `states` [S][T], none LOST or in recovery: a stage is launched
-    once per batched frame when any stream takes it."""
-    from uvipslam_torch.frontend.tracker import INITIALIZING, NOT_INITIALIZED, WORKING
+    are `states` [S][T]: a batched stage is launched once per batched
+    frame when any stream takes it. VIP: propagation and the shared
+    detection (fresh for LOST and unanchored IMU_RELOC streams) are both
+    batched (`vip_takes_stages`; `anchored` [S][T] as there, needed only
+    where a stream starts a frame in IMU_RELOC). Mono: propagation,
+    NOT_INITIALIZED's refill and WORKING's refill + refresh are batched;
+    LOST's relocalization detects per stream (refill + refresh each)."""
+    from uvipslam_torch.frontend.tracker import (INITIALIZING, LOST, NOT_INITIALIZED,
+                                                 WORKING)
 
     S, T = len(states), len(states[0])
     pulls = refines = 0
     prev = [NOT_INITIALIZED] * S
     for f in range(T):
         cur = [states[s][f] for s in range(S)]
-        if any(p in (INITIALIZING, WORKING) for p in prev):
-            refines += 2
         if vip:
-            if any(p in (NOT_INITIALIZED, WORKING) for p in prev):
-                pulls += 2 + n_orb_levels + 1
+            takes = [vip_takes_stages(p, anchored[s][f] if anchored is not None else False)
+                     for s, p in enumerate(prev)]
+            refines += 2 if any(t[0] for t in takes) else 0
+            pulls += 2 + n_orb_levels + 1 if any(t[1] for t in takes) else 0
         else:
+            if any(p in (INITIALIZING, WORKING) for p in prev):
+                refines += 2
             if any(p == NOT_INITIALIZED for p in prev):
                 pulls += 2 + n_orb_levels
             if any(p == WORKING and c == WORKING for p, c in zip(prev, cur)):
                 pulls += 2 + n_orb_levels + 1
+            pulls += (2 + n_orb_levels + 1) * sum(p == LOST for p in prev)
         prev = cur
     return {"extract_patches": pulls, "anchor_refine": refines}
 
 
-FLEET_SEQ_KW = dict(H=512, W=640, n_points=6000)
-FLEET_VIP_KW = dict(n_frames=FLEET_FRAMES, speed=1.2, gyr_noise=0.005, acc_noise=0.05,
-                    gyr_bias=(0.004, -0.006, 0.003), depth_noise=0.02, z_amp=0.5, **FLEET_SEQ_KW)
-FLEET_MONO_KW = dict(n_frames=MONO_FLEET_FRAMES, speed=0.9, **FLEET_SEQ_KW)
+SEQ_KW = dict(H=512, W=640, n_points=6000)
+IMU_KW = dict(gyr_noise=0.005, acc_noise=0.05, gyr_bias=(0.004, -0.006, 0.003),
+              depth_noise=0.02, z_amp=0.5)
+# the fleets' VIP scenes render at FLEET_RENDER_FRAMES and run for their
+# first FLEET_FRAMES (make_sequence spreads its points over the whole
+# run's extent, so a shorter render is another scene: rendered at 36
+# frames, no frame of them has every stream VI and keyframe-free)
+FLEET_VIP_KW = dict(n_frames=FLEET_RENDER_FRAMES, speed=1.2, **IMU_KW, **SEQ_KW)
+FLEET_MONO_KW = dict(n_frames=MONO_FLEET_FRAMES, speed=0.9, **SEQ_KW)
+SEQUENCES = {
+    "mono": dict(n_frames=N_FRAMES, seed=7, speed=1.2, **SEQ_KW),              # phase 5
+    "vip": dict(n_frames=120, seed=7, speed=1.2, **IMU_KW, **SEQ_KW),          # phase 9
+    "stream_mono": dict(n_frames=STREAM_FRAMES, seed=STREAM_SEED, motion="loop",
+                        speed=STREAM_SPEED, **SEQ_KW),                            # phase 10
+    "stream_vip": dict(n_frames=VIP_STREAM_FRAMES, seed=STREAM_SEED, motion="loop",
+                       speed=STREAM_SPEED, **IMU_KW, **SEQ_KW),                   # phase 11
+    **{f"fleet_vip{s}": dict(seed=20 + s, **FLEET_VIP_KW) for s in range(FLEET_S)},
+    **{f"fleet_mono{s}": dict(seed=10 + s, **FLEET_MONO_KW) for s in range(MONO_FLEET_S)},
+}
+FLEET_VIP_SEQS = [f"fleet_vip{s}" for s in range(FLEET_S)]
+FLEET_MONO_SEQS = [f"fleet_mono{s}" for s in range(MONO_FLEET_S)]
+
+
+def _one_thread():
+    """A render worker's numpy on one thread: four workers with a BLAS
+    pool each would oversubscribe the host the main process drives the
+    card from."""
+    for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"):
+        os.environ[k] = "1"
 
 
 def _make_sequence(kw):
@@ -1240,23 +1373,45 @@ def _make_sequence(kw):
     return make_sequence(**kw)
 
 
-def fleet_sequence_pool():
-    """Four worker processes (started fresh, so none inherits the CUDA
-    context) that render the fleets' scenes beside the main process, since
-    a sequence takes 8-12 s of numpy on one core."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
+class Renders:
+    """The 512x640 sequences of SEQUENCES, rendered by four worker
+    processes beside the main process (a sequence takes 8-21 s of numpy
+    on one core). The workers are started fresh, so none inherits the
+    CUDA context. `submit` queues sequences by name, in order; `get`
+    waits for one (queueing it first if it is not yet)."""
 
-    return ProcessPoolExecutor(max_workers=4, mp_context=multiprocessing.get_context("spawn"))
+    def __init__(self):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
 
+        self.pool = ProcessPoolExecutor(max_workers=4, initializer=_one_thread,
+                                        mp_context=multiprocessing.get_context("spawn"))
+        self.jobs = {}
 
-def start_fleet_sequences(pool):
-    """Submit the fleets' scenes (8 VIP seeds 20.., 4 mono seeds 10..);
-    returns the futures by phase."""
-    return {"vip": [pool.submit(_make_sequence, dict(seed=20 + s, **FLEET_VIP_KW))
-                    for s in range(FLEET_S)],
-            "mono": [pool.submit(_make_sequence, dict(seed=10 + s, **FLEET_MONO_KW))
-                     for s in range(MONO_FLEET_S)]}
+    def submit(self, *names):
+        for n in names:
+            if n not in self.jobs:
+                self.jobs[n] = self.pool.submit(_make_sequence, SEQUENCES[n])
+
+    def get(self, name):
+        self.submit(name)
+        t0 = time.time()
+        seq = self.jobs[name].result()
+        log(f"sequence {name} ({seq.images.shape[0]}x{seq.images.shape[1]}x"
+            f"{seq.images.shape[2]}, rendered in a worker process): waited "
+            f"{time.time() - t0:.1f} s for it")
+        return seq
+
+    def wait_all(self):
+        """Waits for every queued sequence, then ends the workers."""
+        t0 = time.time()
+        for j in self.jobs.values():
+            j.result()
+        self.shutdown()
+        log(f"all {len(self.jobs)} sequences rendered: waited {time.time() - t0:.1f} s for them")
+
+    def shutdown(self):
+        self.pool.shutdown(wait=True, cancel_futures=True)
 
 
 def drive_fleet(torch, run, states0, feeds):
@@ -1275,33 +1430,23 @@ def same_outputs(torch, a, b):
         getattr(b, f.name))) for f in dataclasses.fields(a))
 
 
-def fleet_vip_phase(torch, np, tklt, dev, smi, single, seq_jobs):
+def fleet_vip_phase(torch, np, tklt, dev, smi, single, seqs):
     """Phase 12: `batched_replay_vip`, 8 streams over 8 distinct scenes at
-    full width. `single` = phase 9's record (None on a partial run);
-    `seq_jobs` = the futures of the 8 sequences. Returns (the record, the
-    launches, the fleet's outputs)."""
+    full width, their first FLEET_FRAMES frames. `single` = phase 9's
+    record (None on a partial run); `seqs` = the 8 sequences. Returns (the
+    record, the launches, the fleet's outputs)."""
     from uvipslam_torch.core.tree import tree_map
     from uvipslam_torch.frontend.tracker import IMU_RELOC, LOST, WORKING
-    from uvipslam_torch.frontend.vip_tracker import VipConfig
     from uvipslam_torch.frontend.device_vip import VipFleetStep
     from uvipslam_torch.io.synthetic import ate_rmse
-    from uvipslam_torch.models.camera import CameraModel
     from uvipslam_torch.parallel.replay import (_over_time, batched_replay_vip, fleet_bundles,
                                                 stream_generators)
     from uvipslam_torch.frontend.device_vip import VipStepOut
 
     S, T = FLEET_S, FLEET_FRAMES
-    t0 = time.time()
-    seqs = [j.result() for j in seq_jobs]
-    log(f"{S} sequences {T}x512x640 with IMU and pressure (rendered in worker processes "
-        f"since phase 7): waited {time.time() - t0:.1f} s for them")
-    k = seqs[0].K
-    cam = CameraModel.create(k[0, 0], k[1, 1], k[0, 2], k[1, 2], width=640, height=512)
-    cfg = VipConfig(n_tracks=400, min_init_tracks=100, local_window=8, gyr_noise_sd=0.01,
-                    acc_noise_sd=0.1, depth_noise_sd=0.05, vio_init_min_kfs=6,
-                    vio_init_min_time=1.0)
+    cam, cfg = vip_cam_cfg(seqs[0].K)
     make_states, run = batched_replay_vip(cam, cfg, kf_cap=64, pt_cap=8192, device=dev)
-    feeds = fleet_bundles(seqs, device=dev)
+    feeds = tree_map(lambda a: a[:, :T].contiguous(), fleet_bundles(seqs, device=dev))
     states0 = make_states(S)
     torch.cuda.reset_peak_memory_stats()
     reset_launches(tklt)
@@ -1346,7 +1491,7 @@ def fleet_vip_phase(torch, np, tklt, dev, smi, single, seq_jobs):
     n_vio = n_ate = n_bench = 0
     for s in range(S):
         C = centres(torch, np, list(outs.Rcw[s]), list(outs.tcw[s]))
-        span = float(np.linalg.norm(seqs[s].positions_w[-1] - seqs[s].positions_w[0]))
+        span = float(np.linalg.norm(seqs[s].positions_w[T - 1] - seqs[s].positions_w[0]))
         working = states[s] == WORKING
         init_f = int(np.argmax(vios[s])) if vios[s].any() else -1
         sel = np.asarray([i for i in range(T) if init_f >= 0 and i >= init_f + 3 and working[i]],
@@ -1417,15 +1562,15 @@ def fleet_vip_phase(torch, np, tklt, dev, smi, single, seq_jobs):
     return record, launches, outs
 
 
-def fleet_mono_phase(torch, np, tklt, dev, smi, single, seq_jobs):
-    """Phase 13: `batched_replay`, 4 mono streams at full width."""
+def fleet_mono_phase(torch, np, tklt, dev, smi, single, seqs):
+    """Phase 13: `batched_replay`, 4 mono streams at full width over
+    `seqs`."""
     from uvipslam_torch.frontend.tracker import LOST, WORKING, TrackerConfig
     from uvipslam_torch.io.synthetic import ate_rmse
     from uvipslam_torch.models.camera import CameraModel
     from uvipslam_torch.parallel.replay import batched_replay
 
     S, T = MONO_FLEET_S, MONO_FLEET_FRAMES
-    seqs = [j.result() for j in seq_jobs]
     k = seqs[0].K
     cam = CameraModel.create(k[0, 0], k[1, 1], k[0, 2], k[1, 2], width=640, height=512)
     cfg = TrackerConfig(n_tracks=400, min_init_tracks=100, local_window=8)
@@ -1477,7 +1622,7 @@ def fleet_mono_phase(torch, np, tklt, dev, smi, single, seq_jobs):
     return record, launches
 
 
-APP_FRAMES = 80     # phase 14: the first frames of phase 9's sequence, as a bag
+APP_FRAMES = 54     # phase 14: the first frames of phase 9's sequence, as a bag
 APP_T_BASE = 1000.0
 
 
@@ -1681,7 +1826,7 @@ def app_phase(torch, np, tklt, dev, smi, seq, vip_record):
     return record, by_path
 
 
-HOST_VIP_FRAMES = 70            # phase 15: the first frames of phase 9's sequence
+HOST_VIP_FRAMES = 60            # phase 15: the first frames of phase 9's sequence
 HOST_VIP_BLACK = (45, 46, 47)   # black frames (VIO is up from about frame 22)
 
 
@@ -1690,16 +1835,11 @@ def host_vip_blackout_phase(torch, np, tklt, dev, smi, seq):
     black frames after VIO init (the reference's
     `test_vip_recovery_after_blackout` at phase 9's width). Returns (the
     record, launches)."""
-    from uvipslam_torch.frontend.vip_tracker import VipConfig, VipTracker
+    from uvipslam_torch.frontend.vip_tracker import VipTracker
     from uvipslam_torch.io.synthetic import ate_rmse
-    from uvipslam_torch.models.camera import CameraModel
 
     n = HOST_VIP_FRAMES
-    cam = CameraModel.create(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2],
-                             width=640, height=512)
-    cfg = VipConfig(n_tracks=400, min_init_tracks=100, local_window=8, gyr_noise_sd=0.01,
-                    acc_noise_sd=0.1, depth_noise_sd=0.05, vio_init_min_kfs=6,
-                    vio_init_min_time=1.0)
+    cam, cfg = vip_cam_cfg(seq.K)
     # the frames' inputs go to the card once, before the run
     imgs = torch.from_numpy(seq.images[:n].astype(np.float32)).to(dev)
     black = torch.zeros_like(imgs[0])
@@ -1784,14 +1924,15 @@ def host_vip_blackout_phase(torch, np, tklt, dev, smi, seq):
               "vio_init_frame_ms": init_ms, "recovery_frame_ms": rec_ms,
               "host_reads_per_frame": tr.host_syncs / n,
               "preint_steps_per_frame": preint.calls / n, "launches": launches,
+              "labels": "".join(names[s] for s in labels),
               "peak_allocated_bytes": peak, "card": smi}
     return record, launches
 
 
 ORB_HALF_BAND = 1e-3   # px: a rotated BRIEF point this close to a half pixel may round either way
 ANGLE_TOL = 1e-5       # rad, the steered angles card vs CPU (float64 moment sums on both)
-SHARD_WORLD, SHARD_STREAMS, SHARD_FRAMES = 2, 4, 45   # phase 17: ranks, streams, frames
-SHARD_DEADLINE = 900.0  # s, for the ranks to finish (the gloo timeout too)
+SHARD_WORLD, SHARD_STREAMS, SHARD_FRAMES = 2, 4, 36   # phase 17: ranks, streams, frames
+SHARD_DEADLINE = 240.0  # s, for the ranks to finish (the gloo timeout too); they take ~40
 
 
 def near_half_bits(np, pattern, xy, level, angle, dangle, scale=1.2):
@@ -1953,19 +2094,13 @@ def shard_rank(rank, world, port, job):
         import uvipslam_torch  # noqa: F401  (turns TF32 off)
         from uvipslam_torch import kernels
         from uvipslam_torch.frontend.device_vip import FrameBundle
-        from uvipslam_torch.frontend.vip_tracker import VipConfig
-        from uvipslam_torch.models.camera import CameraModel
         from uvipslam_torch.ops import klt as tklt
         from uvipslam_torch.parallel.replay import (batched_replay_vip, make_mesh,
                                                     shard_stream_axis)
 
         kernels.load()                       # built by the parent: the hashed library exists
         data = np.load(job["inputs"])
-        k = data["K"]
-        cam = CameraModel.create(k[0, 0], k[1, 1], k[0, 2], k[1, 2], width=640, height=512)
-        cfg = VipConfig(n_tracks=400, min_init_tracks=100, local_window=8, gyr_noise_sd=0.01,
-                        acc_noise_sd=0.1, depth_noise_sd=0.05, vio_init_min_kfs=6,
-                        vio_init_min_time=1.0)
+        cam, cfg = vip_cam_cfg(data["K"])
         mesh = make_mesh(world)
         feeds = FrameBundle(**{n: torch.from_numpy(data[n]) for n in FrameBundle.__dataclass_fields__})
         make_states, run = batched_replay_vip(cam, cfg, kf_cap=64, pt_cap=8192, mesh=mesh)
@@ -2020,9 +2155,12 @@ def shard_phase(torch, np, smi, seqs, fleet_outs):
         t0 = time.perf_counter()
         for p in procs:
             p.start()
+        # a rank that fails ends the wait: its peer would block in a
+        # collective until the gloo timeout
         end = time.monotonic() + SHARD_DEADLINE
-        for p in procs:
-            p.join(max(0.0, end - time.monotonic()))
+        while time.monotonic() < end and any(p.is_alive() for p in procs) and not any(
+                p.exitcode not in (None, 0) for p in procs):
+            time.sleep(0.2)
         wall = time.perf_counter() - t0
         hung = [r for r, p in enumerate(procs) if p.is_alive()]
         for p in procs:
@@ -2100,6 +2238,564 @@ def shard_phase(torch, np, smi, seqs, fleet_outs):
     return record, {f"shard_vip_rank{i}": r["launches"] for i, r in enumerate(ranks)}
 
 
+RARE_FRAMES = 70                  # phases 18a and 19a: the first frames of phase 9's sequence
+RARE_BLACK = HOST_VIP_BLACK       # black frames after VIO init, as in phase 15
+PREINIT_FRAMES, PREINIT_BLACK = 28, (28, 29, 30)   # phase 18b (tests/test_device_vip.py:91-148)
+FIRST_TRY_AFTER = 35              # phase 18c starts from the state after this WORKING VI frame
+
+
+def vip_cam_cfg(K, **kw):
+    """The 512x640 camera of intrinsics K and phase 9's `VipConfig`
+    (bench.py's VIP settings), `kw` replacing fields."""
+    from uvipslam_torch.frontend.vip_tracker import VipConfig
+    from uvipslam_torch.models.camera import CameraModel
+
+    cam = CameraModel.create(K[0, 0], K[1, 1], K[0, 2], K[1, 2], width=640, height=512)
+    cfg = VipConfig(**{**dict(n_tracks=400, min_init_tracks=100, local_window=8,
+                              gyr_noise_sd=0.01, acc_noise_sd=0.1, depth_noise_sd=0.05,
+                              vio_init_min_kfs=6, vio_init_min_time=1.0), **kw})
+    return cam, cfg
+
+
+def mono_inputs(torch, np, dev, seq):
+    """Phase 5's sequence (SEQUENCES["mono"]), camera, `TrackerConfig` and
+    images on the card."""
+    from uvipslam_torch.frontend.tracker import TrackerConfig
+    from uvipslam_torch.models.camera import CameraModel
+
+    cam = CameraModel.create(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2],
+                             width=640, height=512)
+    cfg = TrackerConfig(n_tracks=400, min_init_tracks=100, local_window=8)
+    return seq, cam, cfg, torch.from_numpy(seq.images.astype(np.float32)).to(dev)
+
+
+def blacked(torch, bundles, frames):
+    """The bundles with the images of `frames` black (IMU and pressure kept)."""
+    import dataclasses
+    return [dataclasses.replace(b, img=torch.zeros_like(b.img)) if f in frames else b
+            for f, b in enumerate(bundles)]
+
+
+def clone_vip_state(torch, st, device=None):
+    """A copy of a single-stream VIP state that shares no tensor and no
+    generator with it, its tensors on `device` (default: where they are;
+    the generator stays on the state's device)."""
+    import dataclasses
+    from uvipslam_torch.core.tree import tree_map
+
+    gen = torch.Generator(device=st.gen.device)
+    gen.set_state(st.gen.get_state())
+    copy = torch.clone if device is None else (lambda t: t.to(device, copy=True))
+    return dataclasses.replace(tree_map(copy, st), gen=gen)
+
+
+def seeded_generators(torch, dev, n):
+    """n generators seeded as a single-stream run's (`build_vip_tracker`,
+    `build_tracker`: seed 0)."""
+    gens = []
+    for _ in range(n):
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        gens.append(g)
+    return gens
+
+
+class FirstTryLog:
+    """While active, records each call of a `VipStep`'s first-try lane
+    (`_vi_lane1`, run when the VI solve fails) as (frame, the label it
+    returned); the caller sets `frame` before each step."""
+
+    def __init__(self, step):
+        self.step, self.frame, self.calls = step, -1, []
+
+    def __enter__(self):
+        real = self.step._vi_lane1
+
+        def lane1(*a, **kw):
+            out = real(*a, **kw)
+            self.calls.append((self.frame, out[1]))
+            return out
+
+        self.step._vi_lane1 = lane1
+        return self
+
+    def __exit__(self, *exc):
+        del self.step._vi_lane1
+
+
+def drive_vip_rare(torch, new_tracker, feeds, first=0, keep=(), keep_on=None):
+    """A tracker from `new_tracker()` = (state, step) over `feeds` (frames
+    `first`, `first` + 1, ...) one frame at a time, the step's first-try
+    lane logged. Per frame: the label, the VIO flag, whether the frame
+    starts with a recovery anchor (read before the step, outside its
+    timing), `new_kf`, the camera pose and the ms (host clock to a
+    synchronize). No reference to the initial state outlives its first
+    frame. Returns (the step, the final state, the per-frame lists with
+    the lane's (frame, label) calls under "lane1", {frame: a copy of the
+    state after it} for the frames in `keep`, on `keep_on`, which
+    default to the state's device, copied outside the frames' timing)."""
+    run = {k: [] for k in ("states", "vios", "anchored", "new_kf", "Rs", "ts", "ms")}
+    kept = {}
+    st, step = new_tracker()
+    with FirstTryLog(step) as lane1:
+        for f, b in enumerate(feeds, start=first):
+            run["anchored"].append(bool(st.rec_frame >= 0))
+            lane1.frame = f
+            t1 = time.perf_counter()
+            st, out = step(st, b)
+            torch.cuda.synchronize()
+            run["ms"].append((time.perf_counter() - t1) * 1e3)
+            run["states"].append(int(out.state))
+            run["vios"].append(bool(out.vio_ok))
+            run["new_kf"].append(int(out.new_kf))
+            run["Rs"].append(out.Rcw)
+            run["ts"].append(out.tcw)
+            if f in keep:
+                kept[f] = clone_vip_state(torch, st, keep_on)
+    run["lane1"] = lane1.calls
+    return step, st, run, kept
+
+
+def vip_branches(states, vios, anchored, lane1_calls):
+    """The branch each frame of a VIP step run took, named from the state
+    it started in, its anchor flag, the first-try lane's calls and its
+    outcome."""
+    from uvipslam_torch.frontend.tracker import IMU_RELOC, LOST, WORKING
+
+    lane1 = dict(lane1_calls)
+    prev, prev_vio, names = None, False, []
+    for f, (s, v, a) in enumerate(zip(states, vios, anchored)):
+        if v and not prev_vio:
+            name = "vio_init"
+        elif prev == WORKING and prev_vio:
+            name = "vi" if f not in lane1 else (
+                "first_try" if lane1[f] == WORKING else "lane1_failed")
+        elif prev == WORKING:
+            name = "mono"
+        elif prev == IMU_RELOC:
+            name = ("recovered" if s == WORKING else "imu_reloc") if a else "anchor_capture"
+        elif prev == LOST:
+            name = "relocalized" if s == WORKING else "lost"
+        else:
+            name = "bootstrap"
+        names.append(name)
+        prev, prev_vio = s, v
+    return names
+
+
+def ms_by_branch(names, ms):
+    """{branch: [frames, median ms]} of one run."""
+    out = {}
+    for n in dict.fromkeys(names):
+        x = [m for b, m in zip(names, ms) if b == n]
+        out[n] = [len(x), statistics.median(x)]
+    return out
+
+
+def fmt_branches(by):
+    return ", ".join(f"{k} {v[1]:.1f} ms (x{v[0]})" for k, v in by.items())
+
+
+def vip_rare_phase(torch, np, tklt, dev, smi, seq, host_labels=None, prefix=None):
+    """Phase 18: the device VIP step's rare branches at phase 9's settings.
+    (a) three black frames after VIO init: the first-try lane fails,
+    IMU_RELOC dead-reckons and re-anchors back to WORKING, behind phase
+    15's gates; (b) a blackout before VIO init: LOST, then the
+    relocalization against the last keyframe (the reference's
+    tests/test_device_vip.py:91-148); (c) the first-try lane holding on
+    a clean frame after VIO init when the VI solve is made to fail.
+    (a)'s frames before the blackout are phase 9's (the same inputs, the
+    same seed): `prefix` = phase 9's (per-frame lists, kept states), run
+    here when None; (a) drives frames RARE_BLACK[0] on from the kept
+    state, and (c) starts from the state after FIRST_TRY_AFTER.
+    `host_labels`: phase 15's labels, printed beside (a)'s. Returns (the
+    record, launches by path, (a)'s labels)."""
+    import dataclasses
+
+    from uvipslam_torch.frontend import device_vip
+    from uvipslam_torch.frontend.device_vip import VipStep, build_vip_tracker, make_bundles
+    from uvipslam_torch.frontend.tracker import IMU_RELOC, LOST, WORKING
+    from uvipslam_torch.io.synthetic import ate_rmse
+
+    cam, cfg = vip_cam_cfg(seq.K)
+    n_levels = orb_levels(*seq.images.shape[1:])
+    bundles = make_bundles(seq, device=dev)
+    n, b0 = RARE_FRAMES, RARE_BLACK[0]
+
+    # (a) post-init blackout
+    if prefix is None:
+        _, _, pre, kept = drive_vip_rare(
+            torch, lambda: build_vip_tracker(cam, cfg, kf_cap=64, pt_cap=8192, device=dev),
+            bundles[:b0], keep=(FIRST_TRY_AFTER, b0 - 1), keep_on="cpu")
+    else:
+        pre, kept = prefix
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(tklt)
+    step, st, own, _ = drive_vip_rare(
+        torch, lambda: (clone_vip_state(torch, kept[b0 - 1], dev), VipStep(cam, cfg, 64, device=dev)),
+        blacked(torch, bundles[:n], RARE_BLACK)[b0:], first=b0)
+    launches_a = read_launches(tklt)
+    peak_a = torch.cuda.max_memory_allocated()
+    expect_a = expected_launches_vip(own["states"], n_levels, own["anchored"],
+                                     prev=pre["states"][-1])
+    run = {k: pre[k] + own[k] for k in own}
+    lane1 = run["lane1"]
+    labels = run["states"]
+    init_f = run["vios"].index(True) if any(run["vios"]) else -1
+    reloc = [f for f, s in enumerate(labels) if s == IMU_RELOC]
+    back = [f for f in range(reloc[0], n) if labels[f] == WORKING] if reloc else []
+    C = centres(torch, np, run["Rs"], run["ts"])
+    sel = [f for f in range(n) if 0 <= init_f < f]
+    ate = z_err = span = float("inf")
+    if len(sel) > 5:
+        gt = seq.positions_w[sel]
+        ate, _ = ate_rmse(C[sel], gt, align_scale=False)
+        span = float(np.linalg.norm(gt[-1] - gt[0]))
+        z_err = float(np.median(np.abs(C[sel][:, 2] - gt[:, 2])))
+    bg = float(torch.linalg.vector_norm(st.ns.bg))
+    by_a = ms_by_branch(vip_branches(labels, run["vios"], run["anchored"], lane1),
+                        run["ms"])
+    log(f"phase VIP step rare branches (a) 512x640 / 400 tracks / {n} frames, frames "
+        f"{b0}-{RARE_BLACK[-1]} black: VIO init at frame {init_f}, first-try lane (frame, label) "
+        f"{lane1}, IMU_RELOC on frames {reloc[:1] + reloc[-1:]}, WORKING again at frame "
+        f"{back[:1]}, last {labels[-1]}; metric ATE {ate:.5f} m over {len(sel)} frames after VIO "
+        f"init (threshold {0.25 * max(span, 0.5):.5f} m = 0.25 max(span {span:.4f} m, 0.5)), "
+        f"median |z error| {z_err:.5f} (bound 0.15), |bg| {bg:.5f} (bound 0.1)")
+    log(f"  ms by branch (host clock to synchronize; frames 0-{b0 - 1} are phase 9's run): "
+        f"{fmt_branches(by_a)}; over frames {b0}-{n - 1}: host reads "
+        f"{step.host_syncs / (n - b0):.2f}/frame ({step.host_syncs} total), kernel launches "
+        f"{launches_a} (expected {expect_a}), peak allocated {peak_a / 2**20:.1f} MiB")
+    log(f"  states {''.join(str(s) for s in labels)} (device step)")
+    if host_labels is not None:
+        log(f"  states {host_labels} (phase 15, the host tracker; printed, not gated)")
+    fails = []
+    if not 0 <= init_f < b0:
+        fails.append(f"VIO init at frame {init_f}, not before the blackout")
+    if (b0, IMU_RELOC) not in lane1:
+        fails.append(f"the first-try lane did not fail on frame {b0}: {lane1}")
+    if not reloc:
+        fails.append("IMU_RELOC never reached")
+    if not back or back[0] - b0 > cfg.recovery_max_frames:
+        fails.append(f"not WORKING again within {cfg.recovery_max_frames} frames")
+    if labels[-1] != WORKING:
+        fails.append(f"last state {labels[-1]}")
+    if not ate < 0.25 * max(span, 0.5):
+        fails.append(f"metric ATE {ate} >= 0.25 max(span {span}, 0.5)")
+    if not z_err < 0.15:
+        fails.append(f"median |z error| {z_err} >= 0.15")
+    if not bg < 0.1:
+        fails.append(f"|bg| {bg} >= 0.1")
+    if min(launches_a.values()) <= 0 or launches_a != expect_a:
+        fails.append(f"kernel launches {launches_a}, expected {expect_a}")
+    if fails:
+        raise AssertionError("VIP step blackout: " + "; ".join(fails))
+    mark("vip_blackout")
+
+    # (b) blackout before VIO init, then the last keyframe's image
+    st, step = build_vip_tracker(cam, vip_cam_cfg(seq.K, vio_init_min_time=1e6)[1], kf_cap=64,
+                                 pt_cap=8192, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(tklt)
+    labels_b, ms_b, vio_b = [], [], False
+    nb = PREINIT_FRAMES + len(PREINIT_BLACK)
+    for b in blacked(torch, bundles[:nb], PREINIT_BLACK):
+        t1 = time.perf_counter()
+        st, out = step(st, b)
+        torch.cuda.synchronize()
+        ms_b.append((time.perf_counter() - t1) * 1e3)
+        labels_b.append(int(out.state))
+        vio_b |= bool(out.vio_ok)
+    k = int(st.map.n_kf) - 1
+    kf_frame = int(st.map.kf_frame_id[k])
+    for f in range(nb, nb + 3):
+        t1 = time.perf_counter()
+        st, out = step(st, dataclasses.replace(bundles[f], img=bundles[kf_frame].img))
+        torch.cuda.synchronize()
+        ms_b.append((time.perf_counter() - t1) * 1e3)
+        labels_b.append(int(out.state))
+        if labels_b[-1] == WORKING:
+            break
+    launches_b = read_launches(tklt)
+    peak_b = torch.cuda.max_memory_allocated()
+    expect_b = expected_launches_vip(labels_b, n_levels)
+    C_kf = st.map.kf_ns.p[int(st.map.n_kf) - 1].double().cpu().numpy()
+    err_b = float(np.linalg.norm(centres(torch, np, [out.Rcw], [out.tcw])[0] - C_kf))
+    n_rec = len(labels_b) - nb
+    names_b = vip_branches(labels_b, [False] * len(labels_b), [False] * len(labels_b), [])
+    by_b = ms_by_branch(names_b, ms_b)
+    log(f"phase VIP step rare branches (b) 512x640, vio_init_min_time 1e6: WORKING "
+        f"{labels_b[PREINIT_FRAMES - 1] == WORKING} after {PREINIT_FRAMES} frames, state "
+        f"{labels_b[nb - 1]} after frames {PREINIT_BLACK[0]}-{PREINIT_BLACK[-1]} black, "
+        f"{labels_b[-1]} on the {n_rec}. frame of keyframe {kf_frame}'s image, camera centre "
+        f"{err_b:.4f} from that keyframe's (bound 0.15); ms by branch {fmt_branches(by_b)}; "
+        f"host reads {step.host_syncs / len(labels_b):.2f}/frame, kernel launches {launches_b} "
+        f"(expected {expect_b}), peak allocated {peak_b / 2**20:.1f} MiB")
+    log(f"  states {''.join(str(s) for s in labels_b)}")
+    fails = []
+    if labels_b[PREINIT_FRAMES - 1] != WORKING or vio_b:
+        fails.append(f"not WORKING in the mono phase before the blackout (VIO {vio_b})")
+    if labels_b[nb - 1] != LOST:
+        fails.append(f"state {labels_b[nb - 1]} after the black frames, not LOST")
+    if labels_b[-1] != WORKING:
+        fails.append("no relocalization within three frames")
+    if not err_b < 0.15:
+        fails.append(f"relocalized centre {err_b} from the keyframe's")
+    if min(launches_b.values()) <= 0 or launches_b != expect_b:
+        fails.append(f"kernel launches {launches_b}, expected {expect_b}")
+    if fails:
+        raise AssertionError("VIP step pre-init blackout: " + "; ".join(fails))
+    mark("vip_preinit_blackout")
+
+    # (c) the first-try lane holding: lane 0's inliers forced to zero for
+    # one frame, as tests/test_torch_vip.py::test_first_try_lane_forces_a_keyframe
+    f_c = FIRST_TRY_AFTER + 1
+    if labels[FIRST_TRY_AFTER] != WORKING or not run["vios"][FIRST_TRY_AFTER]:
+        raise AssertionError(f"frame {FIRST_TRY_AFTER} of (a) is no WORKING VI frame")
+    st_ft = clone_vip_state(torch, kept[FIRST_TRY_AFTER], dev)
+    n_kf0 = int(st_ft.map.n_kf)
+    step_c = VipStep(cam, cfg, 64, device=dev)
+    calls = []
+    real = device_vip._vi_track
+
+    def lane0_fails(tracks, *a):
+        out = real(tracks, *a)
+        calls.append(int(out[2]))
+        return out if len(calls) > 1 else out[:2] + (torch.zeros_like(out[2]),) + out[3:]
+
+    reset_launches(tklt)
+    device_vip._vi_track = lane0_fails
+    try:
+        with FirstTryLog(step_c) as lane1c:
+            lane1c.frame = f_c
+            t1 = time.perf_counter()
+            st_c, out_c = step_c(st_ft, bundles[f_c])
+            torch.cuda.synchronize()
+            ms_c = (time.perf_counter() - t1) * 1e3
+    finally:
+        device_vip._vi_track = real
+    launches_c = read_launches(tklt)
+    expect_c = expected_launches_vip([int(out_c.state)], n_levels, prev=WORKING)
+    log(f"phase VIP step rare branches (c) frame {f_c} from the state after frame "
+        f"{FIRST_TRY_AFTER}, the VI solve's inliers forced to 0: inliers of the two solves "
+        f"{calls} (the second on the first-try associations, gate {step_c.reloc_min}), state "
+        f"{int(out_c.state)}, new_kf {int(out_c.new_kf)} (keyframes before: {n_kf0}); "
+        f"{ms_c:.1f} ms, host reads {step_c.host_syncs}, kernel launches {launches_c} (expected "
+        f"{expect_c})")
+    fails = []
+    if len(calls) != 2 or calls[1] < step_c.reloc_min or lane1c.calls != [(f_c, WORKING)]:
+        fails.append(f"VI solves {calls}, first-try lane {lane1c.calls}")
+    if int(out_c.state) != WORKING or int(out_c.new_kf) != n_kf0:
+        fails.append(f"state {int(out_c.state)}, new_kf {int(out_c.new_kf)} (want {n_kf0})")
+    if min(launches_c.values()) <= 0 or launches_c != expect_c:
+        fails.append(f"kernel launches {launches_c}, expected {expect_c}")
+    if fails:
+        raise AssertionError("VIP step first-try lane: " + "; ".join(fails))
+    del st_ft, st_c
+    mark("vip_first_try")
+    record = {"blackout": {"n_frames": n, "black": list(RARE_BLACK), "vio_init_frame": init_f,
+                           "lane1_calls": lane1, "imu_reloc_frames": reloc,
+                           "working_again_frame": back[0], "ate_metric_m": ate,
+                           "ate_threshold_m": 0.25 * max(span, 0.5), "median_z_error_m": z_err,
+                           "bg_norm": bg, "ms_by_branch": by_a,
+                           "host_reads_per_frame": step.host_syncs / (n - b0),
+                           "frames_driven": [b0, n],
+                           "peak_allocated_bytes": peak_a,
+                           "labels": "".join(str(s) for s in labels)},
+              "preinit_blackout": {"labels": "".join(str(s) for s in labels_b),
+                                   "keyframe_frame": kf_frame, "frames_to_recover": n_rec,
+                                   "centre_error": err_b, "ms_by_branch": by_b,
+                                   "peak_allocated_bytes": peak_b},
+              "first_try": {"frame": f_c, "inliers": calls, "ms": ms_c,
+                            "new_kf": int(out_c.new_kf)},
+              "card": smi}
+    return record, {"vip_blackout": launches_a, "vip_preinit_blackout": launches_b,
+                    "vip_first_try": launches_c}, labels
+
+
+def single_vip_labels(torch, step_inputs):
+    """Labels of a single-stream VIP run over `step_inputs` = (cam, cfg,
+    feeds), seeded as the fleets' streams of phase 19."""
+    from uvipslam_torch.frontend.device_vip import build_vip_tracker
+
+    cam, cfg, feeds = step_inputs
+    st, step = build_vip_tracker(cam, cfg, kf_cap=64, pt_cap=8192, device=feeds[0].img.device)
+    labels = []
+    for b in feeds:
+        st, out = step(st, b)
+        labels.append(int(out.state))
+    return labels
+
+
+def fleet_rare_phase(torch, np, tklt, dev, smi, seq, singles, mono, mono_reloc):
+    """Phase 19: the per-stream loops of both fleets. (a) `VipFleetStep`,
+    S = 2, RARE_FRAMES frames of phase 9's sequence: stream 0 with phase
+    18a's blackout, stream 1 clean; (b) `MonoFleetStep`, S = 2: stream 0
+    phase 8's relocalization input, stream 1 the same frames clean. Each
+    stream's generator is seeded as its single-stream run's. `singles`:
+    the single-stream labels {"black": 18a's, "clean": phase 9's}, run
+    here where missing; `mono` = `mono_inputs(...)`; `mono_reloc` =
+    phase 8's `reloc_phase` result. Returns (the record, launches by
+    path)."""
+    import dataclasses
+
+    from uvipslam_torch.core.tree import stack_streams
+    from uvipslam_torch.frontend.device_tracker import MonoFleetStep, init_state
+    from uvipslam_torch.frontend.device_vip import VipFleetStep, init_vip_state, make_bundles
+    from uvipslam_torch.frontend.tracker import IMU_RELOC, LOST, WORKING
+
+    cam, cfg = vip_cam_cfg(seq.K)
+    n, b0 = RARE_FRAMES, RARE_BLACK[0]
+    bundles = make_bundles(seq, device=dev)[:n]
+    feeds = [blacked(torch, bundles, RARE_BLACK), bundles]
+    singles = dict(singles)
+    for key, i in (("black", 0), ("clean", 1)):
+        if singles.get(key) is None:
+            singles[key] = single_vip_labels(torch, (cam, cfg, feeds[i]))
+        singles[key] = [int(x) for x in singles[key][:n]]
+
+    # (a) the VIP fleet
+    fleet = VipFleetStep(cam, cfg, 64, device=dev)
+    st0 = init_vip_state(cfg, 64, 8192, cam.height, cam.width, device=dev)
+    st = stack_streams([dataclasses.replace(st0, gen=None)] * 2)
+    del st0
+    gens = seeded_generators(torch, dev, 2)
+    states, anchored, ms = [[], []], [[], []], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(tklt)
+    for f in range(n):
+        for i, a in enumerate((st.rec_frame >= 0).tolist()):
+            anchored[i].append(bool(a))
+        b = stack_streams([feeds[0][f], feeds[1][f]])
+        t1 = time.perf_counter()
+        st, out = fleet(st, b, gens)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        for i, s in enumerate(out.state.tolist()):
+            states[i].append(s)
+    launches_a = read_launches(tklt)
+    peak_a = torch.cuda.max_memory_allocated()
+    expect_a = expected_launches_fleet(states, orb_levels(*seq.images.shape[1:]), vip=True,
+                                       anchored=anchored)
+    reloc = [f for f, s in enumerate(states[0]) if s == IMU_RELOC]
+    back = [f for f in range(reloc[0], n) if states[0][f] == WORKING] if reloc else []
+    agree = [sum(a == b for a, b in zip(states[i], singles[k])) for i, k in
+             enumerate(("black", "clean"))]
+    differ = [[f for f in range(n) if states[i][f] != singles[k][f]]
+              for i, k in enumerate(("black", "clean"))]
+    start0 = [None] + states[0][:-1]      # the state stream 0 starts each frame in
+    in_reloc = [m for m, p in zip(ms, start0) if p == IMU_RELOC]
+    rest = [m for f, (m, p) in enumerate(zip(ms, start0)) if f >= 3 and p != IMU_RELOC]
+    reads_a = fleet.host_syncs
+    log(f"phase VIP fleet rare branches (a) S 2 512x640 / 400 tracks / {n} frames, stream 0 "
+        f"with frames {b0}-{RARE_BLACK[-1]} black, stream 1 clean: stream 0 IMU_RELOC on frames "
+        f"{reloc[:1] + reloc[-1:]}, WORKING again at {back[:1]}; stream 1 IMU_RELOC on "
+        f"{sum(s == IMU_RELOC for s in states[1])} frames; labels equal to the single-stream "
+        f"runs' on {agree[0]}/{n} and {agree[1]}/{n} frames (differing frames {differ[0]} and "
+        f"{differ[1]}); median {statistics.median(rest):.1f} ms per batched frame (frames 3 on, "
+        f"stream 0 not in IMU_RELOC), {statistics.median(in_reloc) if in_reloc else float('nan'):.1f} "
+        f"ms with stream 0 in IMU_RELOC ({len(in_reloc)} frames); host reads "
+        f"{reads_a / n:.2f} per batched frame ({fleet.fleet_syncs} fleet tables), kernel "
+        f"launches {launches_a} (expected {expect_a}), peak allocated {peak_a / 2**20:.1f} MiB")
+    for i in range(2):
+        log(f"  stream {i} states {''.join(str(s) for s in states[i])}")
+    fails = []
+    if not reloc or IMU_RELOC in states[1]:
+        fails.append("IMU_RELOC not on stream 0 alone")
+    if not back or back[0] - b0 > cfg.recovery_max_frames:
+        fails.append(f"stream 0 not WORKING again within {cfg.recovery_max_frames} frames")
+    if min(agree) < 0.95 * n:
+        fails.append(f"labels equal to the single-stream runs' on {agree} of {n} frames")
+    if min(launches_a.values()) <= 0 or launches_a != expect_a:
+        fails.append(f"kernel launches {launches_a}, expected {expect_a}")
+    if fails:
+        raise AssertionError("VIP fleet rare branches: " + "; ".join(fails))
+    del st, fleet, feeds, bundles
+    mark("fleet_vip_blackout")
+
+    # (b) the mono fleet
+    _, cam_m, cfg_m, imgs = mono
+    _, _, _, _, kf_frame, single = mono_reloc
+    nw = RELOC_WARMUP
+    T = nw + 6
+    black = torch.zeros_like(imgs[0])
+    frames = [[imgs[f] for f in range(nw)] + [black] * 3 + [imgs[kf_frame]] * 3,
+              [imgs[f] for f in range(T)]]
+    fleet = MonoFleetStep(cam_m, cfg_m, device=dev)
+    st0 = init_state(cfg_m, 64, 8192, cam_m.height, cam_m.width, device=dev)
+    st = stack_streams([dataclasses.replace(st0, gen=None)] * 2)
+    del st0
+    gens = seeded_generators(torch, dev, 2)
+    states_m, ms_m, pose0 = [[], []], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(tklt)
+    for f in range(T):
+        x = torch.stack([frames[0][f], frames[1][f]])
+        t1 = time.perf_counter()
+        st, out = fleet(st, x, gens)
+        torch.cuda.synchronize()
+        ms_m.append((time.perf_counter() - t1) * 1e3)
+        for i, s in enumerate(out.state.tolist()):
+            states_m[i].append(s)
+        pose0.append((out.Rcw[0], out.tcw[0]))
+    launches_m = read_launches(tklt)
+    peak_m = torch.cuda.max_memory_allocated()
+    expect_m = expected_launches_fleet(states_m, orb_levels(*imgs.shape[1:]), vip=False)
+    rec = [f for f in range(nw + 3, T) if states_m[0][f] == WORKING]
+    n_rec = rec[0] - (nw + 2) if rec else None
+    # the keyframe whose image stream 0 was given, in stream 0's map
+    slot = (st.map.kf_frame_id[0] == kf_frame) & st.map.kf_valid[0]
+    err_m = float("nan")
+    if rec and bool(slot.any()):
+        C_kf = st.map.kf_ns.p[0][slot][0].double().cpu().numpy()
+        err_m = float(np.linalg.norm(centres(torch, np, *([x] for x in pose0[rec[0]]))[0]
+                                     - C_kf))
+    same = states_m[0][:len(single)] == single
+    log(f"phase mono fleet rare branches (b) S 2 512x640 / 400 tracks / {T} frames, stream 0 "
+        f"black on frames {nw}-{nw + 2} then keyframe {kf_frame}'s image (phase 8's), stream 1 "
+        f"clean: stream 0 {states_m[0][nw + 2]} after the black frames, WORKING on the "
+        f"{n_rec}. frame of the keyframe's image, camera centre {err_m:.4f} from that "
+        f"keyframe's in stream 0's map (bound 0.15); "
+        f"labels equal to phase 8's over its {len(single)} frames: {same}; median "
+        f"{statistics.median(ms_m[3:]):.1f} ms per batched frame, host reads "
+        f"{fleet.host_syncs / T:.2f} per batched frame, kernel launches {launches_m} (expected "
+        f"{expect_m}), peak allocated {peak_m / 2**20:.1f} MiB")
+    for i in range(2):
+        log(f"  stream {i} states {''.join(str(s) for s in states_m[i])}")
+    fails = []
+    if states_m[0][nw + 2] != LOST or not rec or n_rec > 3:
+        fails.append("stream 0 not LOST after the black frames and WORKING within three frames")
+    elif not err_m < 0.15:
+        fails.append(f"relocalized centre {err_m} from the keyframe's")
+    if not same:
+        fails.append(f"stream 0's labels differ from phase 8's {single}")
+    if min(launches_m.values()) <= 0 or launches_m != expect_m:
+        fails.append(f"kernel launches {launches_m}, expected {expect_m}")
+    if fails:
+        raise AssertionError("mono fleet rare branches: " + "; ".join(fails))
+    mark("fleet_mono_reloc")
+    record = {"vip": {"streams": 2, "n_frames": n, "imu_reloc_frames": reloc,
+                      "working_again_frame": back[0], "labels_equal_to_single": agree,
+                      "differing_frames": differ,
+                      "median_ms_per_batched_frame": statistics.median(rest),
+                      "median_ms_stream0_in_imu_reloc": statistics.median(in_reloc)
+                      if in_reloc else None,
+                      "host_reads_per_batched_frame": reads_a / n,
+                      "peak_allocated_bytes": peak_a,
+                      "labels": ["".join(str(s) for s in x) for x in states]},
+              "mono": {"streams": 2, "n_frames": T, "frames_to_recover": n_rec,
+                       "centre_error": err_m, "labels_equal_to_phase8": same,
+                       "median_ms_per_batched_frame": statistics.median(ms_m[3:]),
+                       "host_reads_per_batched_frame": fleet.host_syncs / T,
+                       "peak_allocated_bytes": peak_m,
+                       "labels": ["".join(str(s) for s in x) for x in states_m]},
+              "card": smi}
+    return record, {"fleet_vip_blackout": launches_a, "fleet_mono_reloc": launches_m}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "uvipslam_torch")):
         print("chip_smoke.py must run from a checkout holding uvipslam_torch/",
@@ -2118,9 +2814,34 @@ def main() -> int:
     smi = nvidia_smi_line()
     log(smi)
 
+    # the sequences render in worker processes from here on, beside the
+    # build and the phases that come before each is needed
+    renders = Renders()
+    try:
+        return run_phases(torch, np, dev, smi, renders)
+    finally:
+        renders.shutdown()
+
+
+def run_phases(torch, np, dev, smi, renders) -> int:
+    """Phases 2-19 and the result lines."""
     import uvipslam_torch  # noqa: F401  (turns TF32 off)
     from uvipslam_torch import kernels
+    from uvipslam_torch.frontend.device_tracker import build_tracker
     from uvipslam_torch.ops import klt as tklt
+
+    only = sys.argv[sys.argv.index("--only") + 1].split(",") if "--only" in sys.argv else None
+    if only is None:
+        # in the order the phases take them (about 45 s with four workers:
+        # phases 2-8 run beside them, phase 9's timed run after them all)
+        renders.submit("mono", "vip", "stream_mono", "stream_vip", *FLEET_VIP_SEQS,
+                       *FLEET_MONO_SEQS)
+    else:
+        renders.submit(*[n for names, need in (
+            (("stream_mono",), {"stream"}), (("stream_vip",), {"vip_stream"}),
+            (FLEET_VIP_SEQS, {"fleet_vip", "shard"}), (FLEET_MONO_SEQS, {"fleet_mono"}),
+            (("vip",), {"app", "host_vip", "frontend_ops", "vip_rare", "fleet_rare"}),
+            (("mono",), {"fleet_rare"})) if need & set(only) for n in names])
 
     # -- phase 2: build ------------------------------------------------
     t0 = time.time()
@@ -2132,36 +2853,24 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas: " + line.strip())
     mark("build")
-    pool = fleet_sequence_pool()
-    try:
-        return run_phases(torch, np, tklt, dev, smi, pool)
-    finally:
-        pool.shutdown(wait=True, cancel_futures=True)
 
-
-def run_phases(torch, np, tklt, dev, smi, pool) -> int:
-    """Phases 3-17 and the result lines."""
-    if "--only" in sys.argv:
+    if only is not None:
         # development aid: the stream, fleet or app phases alone; prints no result line
-        only = sys.argv[sys.argv.index("--only") + 1].split(",")
-        if {"fleet_vip", "fleet_mono"} & set(only):
-            seq_jobs = start_fleet_sequences(pool)
-        elif "shard" in only:
-            seq_jobs = {"vip": [pool.submit(_make_sequence, dict(seed=20 + s, **FLEET_VIP_KW))
-                                for s in range(SHARD_STREAMS)]}
         fleet_outs = None
         if "stream" in only:
-            stream_mono_phase(torch, np, tklt, dev, smi)
+            stream_mono_phase(torch, np, tklt, dev, smi, renders.get("stream_mono"))
         if "vip_stream" in only:
-            stream_vip_phase(torch, np, tklt, dev, smi)
+            stream_vip_phase(torch, np, tklt, dev, smi, renders.get("stream_vip"))
         if "fleet_kernels" in only:
             batched_kernel_phase(torch, tklt, dev)
         if "fleet_vip" in only:
-            _, _, fleet_outs = fleet_vip_phase(torch, np, tklt, dev, smi, None, seq_jobs["vip"])
+            _, _, fleet_outs = fleet_vip_phase(torch, np, tklt, dev, smi, None,
+                                               [renders.get(n) for n in FLEET_VIP_SEQS])
         if "fleet_mono" in only:
-            fleet_mono_phase(torch, np, tklt, dev, smi, None, seq_jobs["mono"])
+            fleet_mono_phase(torch, np, tklt, dev, smi, None,
+                             [renders.get(n) for n in FLEET_MONO_SEQS])
         if {"app", "host_vip", "frontend_ops"} & set(only):
-            seq = vip_sequence()
+            seq = renders.get("vip")
             if "app" in only:
                 app_phase(torch, np, tklt, dev, smi, seq, None)
             if "host_vip" in only:
@@ -2169,7 +2878,20 @@ def run_phases(torch, np, tklt, dev, smi, pool) -> int:
             if "frontend_ops" in only:
                 frontend_ops_phase(torch, np, tklt, dev, smi, seq)
         if "shard" in only:
-            shard_phase(torch, np, smi, [j.result() for j in seq_jobs["vip"]], fleet_outs)
+            shard_phase(torch, np, smi, [renders.get(n) for n in FLEET_VIP_SEQS[:SHARD_STREAMS]],
+                        fleet_outs)
+        if {"vip_rare", "fleet_rare"} & set(only):
+            vseq = renders.get("vip")
+            rare_labels = None
+            if "vip_rare" in only:
+                _, _, rare_labels = vip_rare_phase(torch, np, tklt, dev, smi, vseq)
+            if "fleet_rare" in only:
+                mono = mono_inputs(torch, np, dev, renders.get("mono"))
+                _, cam_m, cfg_m, imgs_m = mono
+                reloc = reloc_phase(torch, np, tklt, lambda: build_tracker(
+                    cam_m, cfg_m, kf_cap=64, pt_cap=8192, device=dev), imgs_m)
+                fleet_rare_phase(torch, np, tklt, dev, smi, vseq, {"black": rare_labels}, mono,
+                                 reloc)
         log("phase end times (s since start): " + ", ".join(f"{k} {v}" for k, v in MARKS.items()))
         log("partial run (--only): no result line")
         return 0
@@ -2185,7 +2907,6 @@ def run_phases(torch, np, tklt, dev, smi, pool) -> int:
     mark("kernel_vs_plain")
 
     # -- phase 4/5 need the synthetic sequences -------------------------
-    from uvipslam_torch.frontend.device_tracker import build_tracker
     from uvipslam_torch.frontend.tracker import LOST, WORKING, TrackerConfig
     from uvipslam_torch.io.synthetic import ate_rmse, make_sequence
     from uvipslam_torch.models.camera import CameraModel
@@ -2220,14 +2941,9 @@ def run_phases(torch, np, tklt, dev, smi, pool) -> int:
     log(f"phase small-input agreement: {same}/{len(card_xy)} frame-0 tracks equal card "
         f"vs CPU (templates within {tpl_err:.2e})")
 
-    t0 = time.time()
-    seq = make_sequence(n_frames=N_FRAMES, H=512, W=640, n_points=6000, seed=7, speed=1.2)
+    mono = mono_inputs(torch, np, dev, renders.get("mono"))
+    seq, cam, cfg, imgs = mono
     mark("sequence")
-    log(f"sequence 60x512x640 generated in {time.time() - t0:.1f} s")
-    cam = CameraModel.create(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2],
-                             width=640, height=512)
-    cfg = TrackerConfig(n_tracks=400, min_init_tracks=100, local_window=8)
-    imgs = torch.from_numpy(seq.images.astype(np.float32)).to(dev)
 
     # -- phase 5: the mono step ------------------------------------------
     def new_tracker():
@@ -2285,13 +3001,9 @@ def run_phases(torch, np, tklt, dev, smi, pool) -> int:
 
     # -- phase 7: profile ---------------------------------------------------
     mark("mono_audit")
-    # the fleets' scenes render from here on, beside the profile, the
-    # relocalization and the VIP sequence's own rendering, none of which is
-    # a timing; the timed mono run is over and the timed VIP run starts
-    # after they are done (about 40 s with four workers)
-    seq_jobs = start_fleet_sequences(pool)
     log("phase profile:")
-    profile = profile_phase(torch, step_a, st_a, imgs, audit_frames, 2, "profile.txt")
+    profile = profile_phase(torch, step_a, st_a, imgs, audit_frames, PROFILE_FRAMES,
+                            "profile.txt")
     mark("mono_profile")
     # device time does not depend on the profiler; the host clock does
     profile["device_idle_share"] = 1.0 - profile["device_ms_per_frame"] / med
@@ -2299,8 +3011,8 @@ def run_phases(torch, np, tklt, dev, smi, pool) -> int:
         f"{100 * profile['device_idle_share']:.1f}%")
 
     # -- phase 8: mono relocalization ----------------------------------------
-    n_rec, rec_err, reloc_launches, reloc_expect, kf_frame = reloc_phase(torch, np, tklt,
-                                                                         new_tracker, imgs)
+    mono_reloc = reloc_phase(torch, np, tklt, new_tracker, imgs)
+    n_rec, rec_err, reloc_launches, reloc_expect, kf_frame, _ = mono_reloc
     mark("mono_reloc")
     log(f"phase mono relocalization: LOST after 3 black frames; WORKING again on the "
         f"{n_rec}. frame of keyframe {kf_frame}'s image, camera centre {rec_err:.4f} from the "
@@ -2308,17 +3020,23 @@ def run_phases(torch, np, tklt, dev, smi, pool) -> int:
         f"on (expected {reloc_expect})")
 
     # -- phase 9: the VIP step ------------------------------------------------
-    vip_record, vip_launches, vip_seq = vip_phase(torch, np, tklt, dev, smi)
+    vip_seq = renders.get("vip")
+    renders.wait_all()
+    mark("vip_sequence")
+    vip_record, vip_launches, rare_prefix = vip_phase(torch, np, tklt, dev, smi, vip_seq)
 
     # -- phases 10 and 11: the streams with loop closing -----------------------
-    stream_record, stream_launches = stream_mono_phase(torch, np, tklt, dev, smi)
-    vstream_record, vstream_launches = stream_vip_phase(torch, np, tklt, dev, smi)
+    stream_record, stream_launches = stream_mono_phase(torch, np, tklt, dev, smi,
+                                                       renders.get("stream_mono"))
+    vstream_record, vstream_launches = stream_vip_phase(torch, np, tklt, dev, smi,
+                                                        renders.get("stream_vip"))
 
     # -- phases 12 and 13: batched replay ----------------------------------------
+    fleet_seqs = [renders.get(n) for n in FLEET_VIP_SEQS]
     fleet_record, fleet_launches, fleet_outs = fleet_vip_phase(torch, np, tklt, dev, smi,
-                                                               vip_record, seq_jobs["vip"])
+                                                               vip_record, fleet_seqs)
     mfleet_record, mfleet_launches = fleet_mono_phase(torch, np, tklt, dev, smi, med,
-                                                     seq_jobs["mono"])
+                                                     [renders.get(n) for n in FLEET_MONO_SEQS])
 
     # -- phase 14: the application entry point from a bag ------------------------
     app_record, app_launches = app_phase(torch, np, tklt, dev, smi, vip_seq, vip_record)
@@ -2332,7 +3050,15 @@ def run_phases(torch, np, tklt, dev, smi, pool) -> int:
 
     # -- phase 17: the VIP fleet sharded over processes ---------------------------
     shard_record, shard_launches = shard_phase(torch, np, smi,
-                                               [j.result() for j in seq_jobs["vip"]], fleet_outs)
+                                               fleet_seqs[:SHARD_STREAMS], fleet_outs)
+
+    # -- phases 18 and 19: the rare branches of the VIP step and the fleets ----------
+    rare_record, rare_launches, rare_labels = vip_rare_phase(torch, np, tklt, dev, smi, vip_seq,
+                                                             blackout_record["labels"], rare_prefix)
+    del rare_prefix
+    frare_record, frare_launches = fleet_rare_phase(
+        torch, np, tklt, dev, smi, vip_seq,
+        {"black": rare_labels, "clean": [int(c) for c in vip_record["labels"]]}, mono, mono_reloc)
 
     log("phase end times (s since start): " + ", ".join(f"{k} {v}" for k, v in MARKS.items()))
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "uvipslam_tpu"))
@@ -2345,7 +3071,7 @@ def run_phases(torch, np, tklt, dev, smi, pool) -> int:
                "stream_mono": stream_launches, "stream_vip": vstream_launches,
                "replay_vip": fleet_launches, "replay_mono": mfleet_launches, **app_launches,
                "host_vip_blackout": blackout_launches, "frontend_steered": fops_launches,
-               **shard_launches}
+               **shard_launches, **rare_launches, **frare_launches}
     # the VIP step is the system's main path; every path's own counts are
     # read from zero just before it and just after it. No single PyTorch
     # call computes either function (library_ms null)
@@ -2396,7 +3122,8 @@ def run_phases(torch, np, tklt, dev, smi, pool) -> int:
                    "stream_vip": vstream_record, "replay_vip": fleet_record,
                    "replay_mono": mfleet_record, "app": app_record,
                    "host_vip_blackout": blackout_record, "frontend_ops": fops_record,
-                   "shard": shard_record, "phase_end_s": MARKS}
+                   "shard": shard_record, "vip_rare": rare_record, "fleet_rare": frare_record,
+                   "phase_end_s": MARKS}
     print(json.dumps(step_record), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

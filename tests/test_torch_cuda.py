@@ -262,3 +262,58 @@ def test_host_vip_tracker_on_card(cuda_device):
     assert card_tr.host_syncs == cpu_tr.host_syncs
     assert card_tr.map.pt_xyz.is_cuda and card_tr.ns.p.is_cuda
     assert torch.isfinite(torch.stack([t for _, _, t in card_tr.trajectory])).all()
+
+
+@pytest.mark.cuda
+def test_vip_blackout_on_card_matches_cpu(cuda_device, monkeypatch):
+    """The VIP step's post-init blackout (the run of
+    tests/test_torch_vip_blackout.py: 120x160, 100 tracks, 40 frames,
+    frames 28-30 black after VIO init) on the card and on the CPU: the
+    same label on every frame, through the failing first-try lane,
+    IMU_RELOC's dead reckoning and the two-view re-anchor. Each run
+    draws its RANSAC samples from one CPU generator seeded 0 (the card's
+    and the CPU's generators draw different numbers), so both runs see
+    the same draws; both hand kernels launch on the card only."""
+    import dataclasses
+
+    from uvipslam_torch.frontend import device_vip
+    from uvipslam_torch.frontend.device_vip import build_vip_tracker, make_bundles
+    from uvipslam_torch.frontend.tracker import IMU_RELOC, WORKING
+    from uvipslam_torch.frontend.vip_tracker import VipConfig
+    from uvipslam_torch.io.synthetic import make_sequence
+    from uvipslam_torch.models.camera import CameraModel
+    from uvipslam_torch.ops import twoview
+
+    black = (28, 29, 30)
+    seq = make_sequence(n_frames=40, H=120, W=160, n_points=800, seed=3, speed=1.2,
+                        gyr_noise=0.005, acc_noise=0.05, gyr_bias=(0.004, -0.006, 0.003),
+                        depth_noise=0.02, z_amp=0.5)
+    cam = CameraModel.create(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2], width=160,
+                             height=120)
+    cfg = VipConfig(n_tracks=100, min_init_tracks=60, local_window=6, gyr_noise_sd=0.01,
+                    acc_noise_sd=0.1, depth_noise_sd=0.05, vio_init_min_kfs=5,
+                    vio_init_min_time=1.0, imu_cap_per_kf=256)
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        draws = torch.Generator().manual_seed(0)
+
+        def draw_uniform(gen, n_iters, n, device):
+            return torch.rand((n_iters, n), generator=draws).to(device)
+
+        monkeypatch.setattr(twoview, "draw_uniform", draw_uniform)
+        monkeypatch.setattr(device_vip, "draw_uniform", draw_uniform)
+        st, step = build_vip_tracker(cam, cfg, 16, 1024, device=dev)
+        before = (klt.patch_launches, klt.refine_launches)
+        labels = []
+        for f, b in enumerate(make_bundles(seq, device=dev)):
+            if f in black:
+                b = dataclasses.replace(b, img=torch.zeros_like(b.img))
+            st, out = step(st, b)
+            labels.append(int(out.state))
+        torch.cuda.synchronize()
+        runs[str(dev)] = labels, (klt.patch_launches - before[0],
+                                  klt.refine_launches - before[1])
+    (cpu, cpu_launched), (card, card_launched) = runs["cpu"], runs[str(cuda_device)]
+    assert card == cpu, (card, cpu)
+    assert cpu[black[0]] == IMU_RELOC and cpu[-1] == WORKING, cpu
+    assert cpu_launched == (0, 0) and min(card_launched) > 0, card_launched
