@@ -18,12 +18,16 @@ result):
      N 400, real templates on a sub-pixel shifted image, the same probe
      points, some tracks invalid), within the tolerances of
      `refine_phase`. Median times as called, alone and of the plain
-     versions over 20 runs (CUDA events), and each kernel's bound; then
-     both kernels over 8 streams in one launch (512x640 and 256x320, N
-     400, the same psizes and iterations, the border, outside and
-     non-finite points in different rows of each stream) against the
-     plain versions with the same tolerances, and one row against its
-     single-stream launch;
+     versions over 20 runs (CUDA events); each kernel's device µs per
+     launch, 50 launches captured in one CUDA graph and replayed (the
+     replay must give the eager launch's outputs), and read from a
+     torch.profiler trace of 50 eager launches, as the paths' profiles
+     read it; its bound and the share of it reached; then both kernels over 8 streams in one launch (512x640 and
+     256x320, N 400, the same psizes and iterations, the border, outside
+     and non-finite points in different rows of each stream) against the
+     plain versions with the same tolerances and timings, and one row
+     against its single-stream launch. One `kernel rows:` JSON line holds
+     every shape's numbers;
   4. small-input agreement: the first frame of a 120x160 sequence through
      the step on the card and on the CPU (plain versions) gives the same
      tracks;
@@ -166,10 +170,10 @@ result):
      keyframe's, its labels equal to phase 8's; both with exactly the
      launches their streams' states imply.
 
-`--only stream,vip_stream,fleet_kernels,fleet_vip,fleet_mono,app,host_vip,frontend_ops,shard,vip_rare,fleet_rare`
+`--only kernels,stream,vip_stream,fleet_vip,fleet_mono,app,host_vip,frontend_ops,shard,vip_rare,fleet_rare`
 (any subset) runs those phases alone after the build and prints no result
-line (`host_vip` is phase 15; `app` includes phase 14's host VIP run;
-`vip_rare` and `fleet_rare` are phases 18 and 19).
+line (`kernels` is phase 3; `host_vip` is phase 15; `app` includes phase
+14's host VIP run; `vip_rare` and `fleet_rare` are phases 18 and 19).
 
 The synthetic sequences render in four worker processes from the start,
 beside phases 2-8. Each phase's end time goes to standard error as the
@@ -284,6 +288,74 @@ def bound(nbytes, flops):
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
+def trace_events(prof):
+    """The chrome-trace events of a finished torch.profiler session (the
+    file is exported into the kernels' build directory, read and removed)."""
+    from uvipslam_torch import kernels
+
+    path = os.path.join(kernels.BUILD_DIR, f"_trace_{os.getpid()}.json")
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            return json.load(fh)["traceEvents"]
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+
+
+def kernel_timing(torch, launch, name):
+    """A kernel launched alone, three ways, each over BATCH launches:
+    (alone_ms, device_us, trace_us). alone_ms: back to back from the host,
+    per launch (median of 20 CUDA-event timings; the host's launch time
+    wherever that exceeds the kernel's). device_us: the launches captured
+    in one torch.cuda.CUDAGraph, per launch (median of 20 replays, CUDA
+    events), the kernels back to back with no host between them; fails if
+    the replay does not reproduce the eager launch's outputs (`launch`
+    returns them). trace_us: the mean duration of the kernels named `name`
+    in a torch.profiler trace of the eager launches, as the paths'
+    profiles read it; None where the profiler dropped every record (it
+    drops some records of a short kernel, at times all of them, in up to
+    three tries)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def batch():
+        for _ in range(BATCH):
+            launch()
+
+    eager = [t.clone() for t in launch()]
+    alone_ms = time_ms(torch, batch) / BATCH
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        outs = launch()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        batch()
+    for t in outs:
+        t.fill_(7)
+    device_us = time_ms(torch, graph.replay) / BATCH * 1e3
+    if not all(torch.equal(torch.nan_to_num(a, 7.0), torch.nan_to_num(b, 7.0))
+               if a.is_floating_point() else torch.equal(a, b) for a, b in zip(eager, outs)):
+        raise AssertionError(f"{name}: the CUDA graph's replay differs from the eager launch")
+    trace_us = None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            batch()
+            torch.cuda.synchronize()
+        durs = [e["dur"] for e in trace_events(prof)
+                if e.get("ph") == "X" and e.get("cat") == "kernel" and name in e["name"]]
+        if durs:
+            trace_us = sum(durs) / len(durs)
+            break
+    return alone_ms, device_us, trace_us
+
+
+def trace_text(trace_us):
+    return ("the trace dropped every record" if trace_us is None
+            else f"{trace_us:.2f} us in the trace")
+
+
 def window_pixels(torch, tklt, img, pts, psize, sel=None):
     """Distinct image pixels under the patches at pts (rows `sel`): what
     a patch pull must read of the image."""
@@ -325,40 +397,39 @@ def patch_phase(torch, tklt, dev):
         if not torch.equal(torch.nan_to_num(lk, 7.0, 8.0, 9.0), torch.nan_to_num(lp, 7.0, 8.0, 9.0)):
             raise AssertionError(f"local differs at {h}x{w} psize {psize}")
         max_err = max(max_err, (kern - plain).abs().max().item())
-        if i < 5 or psize == 35 and (h, w) == (427, 533):
-            # as the path calls them: one launch / corners in torch + gather
-            ms = time_ms(torch, lambda: tklt.extract_patches_cuda(img, pts, psize))
-            pms = time_ms(torch, lambda: tklt._extract_patches(img, pts, psize))
-            # alone: the kernel into preallocated outputs, and the plain
-            # gather from precomputed indices, BATCH calls back to back
-            out = torch.empty((n, psize, psize), device=dev)
-            local = torch.empty((n, 2), device=dev)
-            x0, y0, _ = tklt.patch_corners(pts, h, w, psize)
-            d = torch.arange(psize, device=dev)
-            ri = y0.long()[:, None, None] + d[None, :, None]
-            ci = x0.long()[:, None, None] + d[None, None, :]
+        # as the path calls them: one launch / corners in torch + gather
+        ms = time_ms(torch, lambda: tklt.extract_patches_cuda(img, pts, psize))
+        pms = time_ms(torch, lambda: tklt._extract_patches(img, pts, psize))
+        # alone: the kernel into preallocated outputs, and the plain
+        # gather from precomputed indices, BATCH calls back to back
+        out = torch.empty((n, psize, psize), device=dev)
+        local = torch.empty((n, 2), device=dev)
+        x0, y0, _ = tklt.patch_corners(pts, h, w, psize)
+        d = torch.arange(psize, device=dev)
+        ri = y0.long()[:, None, None] + d[None, :, None]
+        ci = x0.long()[:, None, None] + d[None, None, :]
 
-            def kern_only():
-                for _ in range(BATCH):
-                    tklt.launch_extract_patches(img, pts, psize, out, local)
+        def launch():
+            tklt.launch_extract_patches(img, pts, psize, out, local)
+            return out, local
 
-            def plain_only():
-                for _ in range(BATCH):
-                    img[ri, ci]
+        def plain_only():
+            for _ in range(BATCH):
+                img[ri, ci]
 
-            kms = time_ms(torch, kern_only) / BATCH
-            kpms = time_ms(torch, plain_only) / BATCH
-            nbytes = 4 * window_pixels(torch, tklt, img, pts, psize) + 4 * n * psize * psize + 16 * n
-            bms, by = bound(nbytes, 0)
-            rows.append(dict(shape=[h, w], psize=psize, n=n, ms=ms, plain_ms=pms,
-                             alone_ms=kms, plain_gather_alone_ms=kpms, bytes=nbytes,
-                             bound_ms=bms, bound_by=by))
-            log(f"  extract_patches {h}x{w} psize {psize} N {n}: exact; as called kernel "
-                f"{ms:.4f} ms vs plain {pms:.4f} ms; alone kernel {kms:.4f} ms vs plain gather "
-                f"{kpms:.4f} ms (medians of 20 runs, CUDA events); bound {bms * 1e3:.3f} us "
-                f"({nbytes} B)")
-        else:
-            log(f"  extract_patches {h}x{w} psize {psize} N {n}: exact")
+        kpms = time_ms(torch, plain_only) / BATCH
+        kms, dus, tus = kernel_timing(torch, launch, "extract_patches_kernel")
+        nbytes = 4 * window_pixels(torch, tklt, img, pts, psize) + 4 * n * psize * psize + 16 * n
+        bms, by = bound(nbytes, 0)
+        rows.append(dict(shape=[h, w], psize=psize, n=n, ms=ms, plain_ms=pms,
+                         alone_ms=kms, plain_gather_alone_ms=kpms, device_us_per_launch=dus,
+                         trace_us_per_launch=tus, bytes=nbytes, bound_ms=bms, bound_by=by,
+                         bound_share=bms * 1e3 / dus))
+        log(f"  extract_patches {h}x{w} psize {psize} N {n}: exact; as called kernel "
+            f"{ms:.4f} ms vs plain {pms:.4f} ms; alone kernel {kms:.4f} ms vs plain gather "
+            f"{kpms:.4f} ms (medians of 20 runs, CUDA events); device {dus:.2f} us per launch "
+            f"(CUDA graph), {trace_text(tus)}; bound {bms * 1e3:.3f} us ({nbytes} B), "
+            f"{100 * bms * 1e3 / dus:.1f}% of it")
     return max_err, rows
 
 
@@ -421,11 +492,11 @@ def refine_phase(torch, tklt, dev):
         o2 = torch.empty_like(out)
         a2 = torch.empty_like(acc)
 
-        def kern_only():
-            for _ in range(BATCH):
-                tklt.launch_anchor_refine(*args, win, iters, mc, mr, o2, a2)
+        def launch():
+            tklt.launch_anchor_refine(*args, win, iters, mc, mr, o2, a2)
+            return o2, a2
 
-        kms = time_ms(torch, kern_only) / BATCH
+        kms, dus, tus = kernel_timing(torch, launch, "anchor_refine_kernel")
         # what this run's data needs: templates of the valid tracks with a
         # finite start, the image under the patches of those with good_G;
         # per template pixel 6 flops for G, 14 per iteration, 12 for the
@@ -439,11 +510,13 @@ def refine_phase(torch, tklt, dev):
         flops = win * win * (6 * n_work + (14 * iters + 12) * n_good)
         bms, by = bound(nbytes, flops)
         rows.append(dict(shape=[h, w], psize=psize, iters=iters, n=n, ms=ms, plain_ms=pms,
-                         alone_ms=kms, bytes=nbytes, flops=flops, bound_ms=bms, bound_by=by,
-                         max_abs_err=err))
+                         alone_ms=kms, device_us_per_launch=dus, trace_us_per_launch=tus,
+                         bytes=nbytes, flops=flops, bound_ms=bms, bound_by=by,
+                         bound_share=bms * 1e3 / dus, max_abs_err=err))
         log(f"    as called kernel {ms:.4f} ms vs plain {pms:.4f} ms; alone kernel {kms:.4f} ms "
-            f"(medians of 20 runs, CUDA events); bound {bms * 1e3:.3f} us by {by} ({nbytes} B, "
-            f"{flops} flop)")
+            f"(medians of 20 runs, CUDA events); device {dus:.2f} us per launch (CUDA graph), "
+            f"{trace_text(tus)}; bound {bms * 1e3:.3f} us by {by} ({nbytes} B, "
+            f"{flops} flop), {100 * bms * 1e3 / dus:.1f}% of it")
     return max_err, rows
 
 
@@ -605,14 +678,7 @@ def profile_phase(torch, step, st, feeds, start, n, out_name):
         wall_ms = (time.perf_counter() - t0) * 1e3   # the profiler's teardown excluded
     t1 = time.perf_counter()
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
-    path = os.path.join(HERE, "chiprun_out", f"_trace_{os.getpid()}.json")
-    try:
-        prof.export_chrome_trace(path)
-        with open(path) as fh:
-            events = json.load(fh)["traceEvents"]
-    finally:
-        if os.path.exists(path):
-            os.remove(path)
+    events = trace_events(prof)
     dev, host, span_us, launches = trace_summary(events)
     post_s = time.perf_counter() - t1
 
@@ -1228,19 +1294,21 @@ def batched_kernel_phase(torch, tklt, dev):
         pms = time_ms(torch, lambda: tklt._extract_patches(img, pts, psize))
         out, local = torch.empty_like(kern), torch.empty_like(lk)
 
-        def kern_only():
-            for _ in range(BATCH):
-                tklt.launch_extract_patches(img, pts, psize, out, local)
+        def launch():
+            tklt.launch_extract_patches(img, pts, psize, out, local)
+            return out, local
 
-        kms = time_ms(torch, kern_only) / BATCH
+        kms, dus, tus = kernel_timing(torch, launch, "extract_patches_kernel")
         nbytes = sum(4 * window_pixels(torch, tklt, img[s], pts[s], psize) for s in range(S)) \
             + S * (4 * n * psize * psize + 16 * n)
         bms, by = bound(nbytes, 0)
         prow.append(dict(streams=S, shape=[h, w], psize=psize, n=n, ms=ms, plain_ms=pms,
-                         alone_ms=kms, bytes=nbytes, bound_ms=bms, bound_by=by))
+                         alone_ms=kms, device_us_per_launch=dus, trace_us_per_launch=tus,
+                         bytes=nbytes, bound_ms=bms, bound_by=by, bound_share=bms * 1e3 / dus))
         log(f"  extract_patches S {S} {h}x{w} psize {psize} N {n}: exact, one launch; as called "
-            f"kernel {ms:.4f} ms vs plain {pms:.4f} ms; alone {kms:.4f} ms; bound "
-            f"{bms * 1e3:.3f} us ({nbytes} B)")
+            f"kernel {ms:.4f} ms vs plain {pms:.4f} ms; alone {kms:.4f} ms; device {dus:.2f} us "
+            f"per launch (CUDA graph), {trace_text(tus)}; bound {bms * 1e3:.3f} us "
+            f"({nbytes} B), {100 * bms * 1e3 / dus:.1f}% of it")
     for i, ((h, w), iters, mc, mr) in enumerate([((256, 320), 10, 5.0, 45.0),
                                                  ((512, 640), 8, 4.0, 32.0)]):
         a = torch.stack([wave_image(torch, h, w, dev, 0.3 * s, -0.2 * s) for s in range(S)])
@@ -1283,11 +1351,11 @@ def batched_kernel_phase(torch, tklt, dev):
         pms = time_ms(torch, lambda: tklt._anchor_refine_plain(*args, **kw), reps=5)
         o2, a2 = torch.empty_like(out), torch.empty_like(acc)
 
-        def kern_only():
-            for _ in range(BATCH):
-                tklt.launch_anchor_refine(*args, win, iters, mc, mr, o2, a2)
+        def launch():
+            tklt.launch_anchor_refine(*args, win, iters, mc, mr, o2, a2)
+            return o2, a2
 
-        kms = time_ms(torch, kern_only) / BATCH
+        kms, dus, tus = kernel_timing(torch, launch, "anchor_refine_kernel")
         work = valid & torch.isfinite(local).all(-1)
         n_work, n_good = int(work.sum()), int((work & good).sum())
         nbytes = 3 * 4 * win * win * n_work + S * n * 18 + sum(
@@ -1296,10 +1364,13 @@ def batched_kernel_phase(torch, tklt, dev):
         flops = win * win * (6 * n_work + (14 * iters + 12) * n_good)
         bms, by = bound(nbytes, flops)
         rrow.append(dict(streams=S, shape=[h, w], psize=psize, iters=iters, n=n, ms=ms,
-                         plain_ms=pms, alone_ms=kms, bytes=nbytes, flops=flops, bound_ms=bms,
-                         bound_by=by, max_abs_err=err))
-        log(f"    as called kernel {ms:.4f} ms vs plain {pms:.4f} ms; alone {kms:.4f} ms; bound "
-            f"{bms * 1e3:.3f} us by {by} ({nbytes} B, {flops} flop)")
+                         plain_ms=pms, alone_ms=kms, device_us_per_launch=dus,
+                         trace_us_per_launch=tus, bytes=nbytes, flops=flops, bound_ms=bms,
+                         bound_by=by, bound_share=bms * 1e3 / dus, max_abs_err=err))
+        log(f"    as called kernel {ms:.4f} ms vs plain {pms:.4f} ms; alone {kms:.4f} ms; device "
+            f"{dus:.2f} us per launch (CUDA graph), {trace_text(tus)}; bound "
+            f"{bms * 1e3:.3f} us by {by} ({nbytes} B, {flops} flop), "
+            f"{100 * bms * 1e3 / dus:.1f}% of it")
     return prow, rrow, max_err
 
 
@@ -2823,6 +2894,26 @@ def main() -> int:
         renders.shutdown()
 
 
+def kernel_phases(torch, tklt, dev, smi):
+    """Phase 3: both kernels against their plain versions at one stream
+    and at FLEET_S, with their timings; prints one JSON line of the rows
+    (`kernel rows:`), the card beside them."""
+    log("phase kernel-vs-plain: extract_patches (exact equality)")
+    patch_err, patch_rows = patch_phase(torch, tklt, dev)
+    log("phase kernel-vs-plain: anchor_refine (1e-3 px where both accept)")
+    refine_err, refine_rows = refine_phase(torch, tklt, dev)
+    log(f"phase kernel-vs-plain: both kernels over {FLEET_S} streams in one launch")
+    fleet_patch_rows, fleet_refine_rows, fleet_refine_err = batched_kernel_phase(torch, tklt, dev)
+    refine_err = max(refine_err, fleet_refine_err)
+    mark("kernel_vs_plain")
+    log("kernel rows: " + json.dumps(dict(card=smi, extract_patches=patch_rows,
+                                          anchor_refine=refine_rows,
+                                          extract_patches_fleet=fleet_patch_rows,
+                                          anchor_refine_fleet=fleet_refine_rows)))
+    return (patch_err, patch_rows, refine_err, refine_rows, fleet_patch_rows,
+            fleet_refine_rows)
+
+
 def run_phases(torch, np, dev, smi, renders) -> int:
     """Phases 2-19 and the result lines."""
     import uvipslam_torch  # noqa: F401  (turns TF32 off)
@@ -2855,14 +2946,14 @@ def run_phases(torch, np, dev, smi, renders) -> int:
     mark("build")
 
     if only is not None:
-        # development aid: the stream, fleet or app phases alone; prints no result line
+        # development aid: the kernel, stream, fleet or app phases alone; prints no result line
         fleet_outs = None
+        if "kernels" in only:
+            kernel_phases(torch, tklt, dev, smi)
         if "stream" in only:
             stream_mono_phase(torch, np, tklt, dev, smi, renders.get("stream_mono"))
         if "vip_stream" in only:
             stream_vip_phase(torch, np, tklt, dev, smi, renders.get("stream_vip"))
-        if "fleet_kernels" in only:
-            batched_kernel_phase(torch, tklt, dev)
         if "fleet_vip" in only:
             _, _, fleet_outs = fleet_vip_phase(torch, np, tklt, dev, smi, None,
                                                [renders.get(n) for n in FLEET_VIP_SEQS])
@@ -2897,14 +2988,8 @@ def run_phases(torch, np, dev, smi, renders) -> int:
         return 0
 
     # -- phase 3: kernels vs plain ---------------------------------------
-    log("phase kernel-vs-plain: extract_patches (exact equality)")
-    patch_err, patch_rows = patch_phase(torch, tklt, dev)
-    log("phase kernel-vs-plain: anchor_refine (1e-3 px where both accept)")
-    refine_err, refine_rows = refine_phase(torch, tklt, dev)
-    log(f"phase kernel-vs-plain: both kernels over {FLEET_S} streams in one launch")
-    fleet_patch_rows, fleet_refine_rows, fleet_refine_err = batched_kernel_phase(torch, tklt, dev)
-    refine_err = max(refine_err, fleet_refine_err)
-    mark("kernel_vs_plain")
+    (patch_err, patch_rows, refine_err, refine_rows, fleet_patch_rows,
+     fleet_refine_rows) = kernel_phases(torch, tklt, dev, smi)
 
     # -- phase 4/5 need the synthetic sequences -------------------------
     from uvipslam_torch.frontend.tracker import LOST, WORKING, TrackerConfig
@@ -3065,6 +3150,7 @@ def run_phases(torch, np, dev, smi, renders) -> int:
     if foreign:
         raise AssertionError(f"the reference stack was imported: {foreign[:5]}")
 
+    vip_hand = vip_record["profile"]["hand_kernels"]
     big = [r for r in patch_rows if r["psize"] == 35 and r["shape"] == [512, 640]][0]
     full = [r for r in refine_rows if r["shape"] == [512, 640]][0]
     by_path = {"vip": vip_launches, "mono": launches, "mono_reloc": reloc_launches,
@@ -3087,8 +3173,12 @@ def run_phases(torch, np, dev, smi, renders) -> int:
         "plain_ms": big["plain_ms"],
         "alone_ms": big["alone_ms"],
         "plain_gather_alone_ms": big["plain_gather_alone_ms"],
+        "device_us_per_launch": big["device_us_per_launch"],
+        "vip_path_device_us_per_launch": vip_hand["extract_patches_kernel"][
+            "device_us_per_launch"],
         "bound_ms": big["bound_ms"],
         "bound_by": big["bound_by"],
+        "bound_share": big["bound_share"],
         "library_ms": None,
         "shapes": patch_rows,
         "fleet_shapes": fleet_patch_rows,
@@ -3103,8 +3193,12 @@ def run_phases(torch, np, dev, smi, renders) -> int:
         "ms": full["ms"],
         "plain_ms": full["plain_ms"],
         "alone_ms": full["alone_ms"],
+        "device_us_per_launch": full["device_us_per_launch"],
+        "vip_path_device_us_per_launch": vip_hand["anchor_refine_kernel"][
+            "device_us_per_launch"],
         "bound_ms": full["bound_ms"],
         "bound_by": full["bound_by"],
+        "bound_share": full["bound_share"],
         "library_ms": None,
         "shapes": refine_rows,
         "fleet_shapes": fleet_refine_rows,

@@ -138,6 +138,119 @@ def test_anchor_refine_kernel_serves_a_fleet_in_one_launch(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("psize", [7, 19, 35])
+@pytest.mark.parametrize("n", [1, 3, 401])
+def test_extract_patches_kernel_exact_at_any_count(cuda_device, psize, n):
+    """One block per feature at any count: N 1, 3 and 401, with the
+    smallest block (psize 7: one warp, two loads per thread, most of them
+    past the end) and the main path's (psize 19 and 35)."""
+    img = torch.rand((H, W), generator=torch.Generator().manual_seed(4)) * 255.0
+    pts = _points(401)[:n].contiguous()
+    plain, local_plain = klt._extract_patches(img, pts, psize)
+    kern, local_kern = klt.extract_patches_cuda(img.to(cuda_device), pts.to(cuda_device), psize)
+    torch.cuda.synchronize()
+    assert torch.equal(kern.cpu(), plain)
+    assert torch.equal(torch.nan_to_num(local_kern.cpu()), torch.nan_to_num(local_plain))
+
+
+def _refine_inputs(device, S=None, n=400, win=13, seed=0):
+    """Templates from a smooth image, refined on it shifted by (0.7, -0.4)
+    px, at the probe points (5% invalid); [S, ...] with S streams."""
+    lead = () if S is None else (S,)
+    shifts = [(0.3 * s, -0.2 * s) for s in range(S or 1)]
+    a = torch.stack([_wave_image(H, W, *sh) for sh in shifts])
+    b = torch.stack([_wave_image(H, W, sh[0] + 0.7, sh[1] - 0.4) for sh in shifts])
+    pts = torch.stack([torch.roll(_points(n, seed=seed + s), 5 * s, 0) for s in range(S or 1)])
+    T, Tx, Ty = klt.extract_templates_fast(a, torch.nan_to_num(pts), win)
+    valid = torch.rand((S or 1, n), generator=torch.Generator().manual_seed(seed)) > 0.05
+    args = [t.reshape(lead + tuple(t.shape[1:])) for t in (b, T, Tx, Ty, pts, valid)]
+    return [t.to(device) for t in args]
+
+
+def _same(a, b):
+    return torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["extract_patches", "anchor_refine"])
+def test_kernels_capture_into_a_cuda_graph(cuda_device, kernel):
+    """Each kernel's raw launch captured into a torch.cuda.CUDAGraph: the
+    replay writes what the eager call returns (the capture needs the
+    launch on the current stream, which a ctypes call takes from torch)."""
+    if kernel == "extract_patches":
+        img = (torch.rand((H, W), generator=torch.Generator().manual_seed(5)) * 255.0).to(
+            cuda_device)
+        pts = _points().to(cuda_device)
+        eager = klt.extract_patches_cuda(img, pts, 35)
+        outs = [torch.empty_like(t) for t in eager]
+
+        def launch():
+            klt.launch_extract_patches(img, pts, 35, *outs)
+    else:
+        args = _refine_inputs(cuda_device)
+        kw = dict(win=13, iters=8, max_correction=4.0, max_residual=32.0)
+        eager = klt.anchor_refine_cuda(*args, **kw)
+        outs = [torch.empty_like(t) for t in eager]
+
+        def launch():
+            klt.launch_anchor_refine(*args, *kw.values(), *outs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        launch()
+    for t in outs:
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(_same(a, b) for a, b in zip(outs, eager))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [None, 8])
+def test_anchor_refine_kernel_repeats_bit_for_bit(cuda_device, S):
+    """No atomics and a fixed reduction order: three launches on the same
+    inputs give the same bits, one stream or eight in one launch."""
+    args = _refine_inputs(cuda_device, S)
+    kw = dict(win=13, iters=10, max_correction=5.0, max_residual=45.0)
+    runs = [klt.anchor_refine_cuda(*args, **kw) for _ in range(3)]
+    torch.cuda.synchronize()
+    for out, acc in runs[1:]:
+        assert _same(out, runs[0][0]) and torch.equal(acc, runs[0][1])
+    assert int(runs[0][1].sum()) > 0.8 * runs[0][1].numel()
+
+
+@pytest.mark.cuda
+def test_anchor_refine_kernel_at_the_psize_limit(cuda_device):
+    """psize 55 (win 13, max_correction 19) is the largest patch the
+    kernel keeps in shared memory: it runs and agrees with the plain form
+    with the main-path tolerances; psize 56 (win 14) is refused before
+    any launch."""
+    args = _refine_inputs(cuda_device)
+    kw = dict(win=13, iters=8, max_correction=19.0, max_residual=32.0)
+    assert klt.refine_psize(13, 19.0) == klt.MAX_REFINE_PSIZE == 55
+    plain_out, plain_acc = klt._anchor_refine_plain(*args, **kw)
+    out, acc = klt.anchor_refine_cuda(*args, **kw)
+    _, _, _, resid, corr = klt._refine_terms(*args[:5], 13, 8, 19.0)
+    torch.cuda.synchronize()
+    near = ((corr - 19.0).abs() < 1e-3) | ((resid - 32.0).abs() < 1e-3)
+    assert torch.equal(acc[~near], plain_acc[~near])
+    both = acc & plain_acc
+    assert int(both.sum()) > 0.8 * acc.numel()
+    assert (out[both] - plain_out[both]).abs().max().item() <= 1e-3
+    assert _same(out[~acc], args[4][~acc])
+    T = torch.zeros((400, 14 * 14), device=cuda_device)
+    before = klt.refine_launches
+    with pytest.raises(ValueError, match="above 55"):
+        klt.anchor_refine_cuda(args[0], T, T, T, args[4], args[5], win=14, iters=8,
+                               max_correction=19.0)
+    assert klt.refine_launches == before
+
+
+@pytest.mark.cuda
 def test_extract_patches_kernel_rejects_cpu_tensors(cuda_device):
     with pytest.raises(ValueError):
         klt.extract_patches_cuda(torch.zeros((40, 50)), torch.zeros((3, 2)), 19)

@@ -8,6 +8,9 @@ Gauss-Newton stages sum float32 products in another order than XLA, so
 they are held at atol 1e-4 (pixels, and intensities on a 0..255 scale).
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import jax
@@ -70,6 +73,31 @@ def test_extract_patches_rejects_bad_arguments():
         tklt.extract_patches_any(img.double(), pts, 19)
     with pytest.raises(ValueError):
         tklt.extract_patches_any(torch.zeros((50, 40)).T, pts, 19)
+
+
+def test_refine_psize_limit_is_the_kernels():
+    """`_check_refine_args` refuses what csrc/anchor_refine.cu refuses:
+    its limit is the kernel's kMaxPsize, read from the source."""
+    src = (Path(tklt.__file__).parents[1] / "csrc" / "anchor_refine.cu").read_text()
+    found = re.findall(r"constexpr int kMaxPsize = (\d+);", src)
+    assert [int(v) for v in found] == [tklt.MAX_REFINE_PSIZE]
+
+
+@pytest.mark.parametrize("win,max_correction", [(13, 19.0), (14, 19.0)])
+def test_refine_args_hold_the_psize_limit(win, max_correction):
+    psize = tklt.refine_psize(win, max_correction)
+    n = 3
+    img = torch.zeros((64, 64))
+    z = torch.zeros((n, win * win))
+    args = (img, z, z, z, torch.zeros((n, 2)), torch.ones(n, dtype=torch.bool), win, 8,
+            max_correction)
+    if psize <= tklt.MAX_REFINE_PSIZE:
+        assert psize == 55
+        tklt._check_refine_args(*args)
+    else:
+        assert psize == 56
+        with pytest.raises(ValueError, match="above 55"):
+            tklt._check_refine_args(*args)
 
 
 def test_cpu_dispatch_does_not_count_launches():

@@ -48,6 +48,10 @@ INT32_MAX = 2 ** 31 - 1
 patch_launches = 0
 refine_launches = 0
 
+# the largest patch side the refinement kernel takes (kMaxPsize of
+# csrc/anchor_refine.cu, whose patch lives in shared memory)
+MAX_REFINE_PSIZE = 55
+
 
 def build_flow_pyramid(img: torch.Tensor, levels: int = 5) -> list:
     """[H, W] -> list of `levels` images, each 2x downsampled."""
@@ -406,8 +410,9 @@ def _check_refine_args(img, T, Tx, Ty, pts, valid, win: int, iters: int,
     if not 0 < win * win <= 256 or iters < 0 or not 0.0 <= max_correction < 1e6:
         raise ValueError(f"win {win} (win^2 <= 256), iters {iters} or max_correction "
                          f"{max_correction} out of range")
-    if refine_psize(win, max_correction) > 55:
-        raise ValueError(f"patch side {refine_psize(win, max_correction)} above 55")
+    if refine_psize(win, max_correction) > MAX_REFINE_PSIZE:
+        raise ValueError(f"patch side {refine_psize(win, max_correction)} above "
+                         f"{MAX_REFINE_PSIZE}")
 
 
 def launch_anchor_refine(img, T, Tx, Ty, pts, valid, win: int, iters: int,
