@@ -26,8 +26,13 @@ result):
      256x320, N 400, the same psizes and iterations, the border, outside
      and non-finite points in different rows of each stream) against the
      plain versions with the same tolerances and timings, and one row
-     against its single-stream launch. One `kernel rows:` JSON line holds
-     every shape's numbers;
+     against its single-stream launch; then `anchor_refine_fast` on the
+     card at two shapes outside the fused kernel's limits (512x640, win 17
+     / max_correction 4, psize 29; win 13 / max_correction 20, psize 57),
+     which take the wide route (the patch kernel, then the plain loop: one
+     patch launch, no refinement launch), against the CPU plain form with
+     the same tolerances. One `kernel rows:` JSON line holds every shape's
+     numbers;
   4. small-input agreement: the first frame of a 120x160 sequence through
      the step on the card and on the CPU (plain versions) gives the same
      tracks;
@@ -169,11 +174,22 @@ result):
      again within three frames with its centre within 0.15 of the
      keyframe's, its labels equal to phase 8's; both with exactly the
      launches their streams' states imply.
+ 20. the port's benchmark as a user runs it: `bench_torch.py --mode vip
+     --frames 34 --reps 1 --no-profile` in its own process (bench.py's VIP
+     sequence, configuration and gates at 34 frames; the mono mode is
+     phase 5's sequence and gates and is left out): its line ok with a
+     value above 0, its half run bitwise equal to its first 17 frames and
+     no wide-route refinement.
 
-`--only kernels,stream,vip_stream,fleet_vip,fleet_mono,app,host_vip,frontend_ops,shard,vip_rare,fleet_rare`
+Every path's launch counts are read from zero just before it and just
+after it, and no main path may take the wide refinement route
+(`ops.klt.refine_wide_calls` stays 0).
+
+`--only kernels,stream,vip_stream,fleet_vip,fleet_mono,app,host_vip,frontend_ops,shard,vip_rare,fleet_rare,bench`
 (any subset) runs those phases alone after the build and prints no result
 line (`kernels` is phase 3; `host_vip` is phase 15; `app` includes phase
-14's host VIP run; `vip_rare` and `fleet_rare` are phases 18 and 19).
+14's host VIP run; `vip_rare` and `fleet_rare` are phases 18 and 19;
+`bench` is phase 20).
 
 The synthetic sequences render in four worker processes from the start,
 beside phases 2-8. Each phase's end time goes to standard error as the
@@ -236,15 +252,6 @@ def mark(phase):
     gc.freeze()
 
 
-def nvidia_smi_line() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True, text=True,
-                       timeout=60)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {r.stderr}")
-    return r.stdout.strip().splitlines()[0]
-
-
 def probe_points(torch, h, w, n, seed):
     """n points: mostly inside, plus border, outside and non-finite ones
     (the first N_SPECIAL; from index 4 on they lie outside the image or
@@ -288,21 +295,6 @@ def bound(nbytes, flops):
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
-def trace_events(prof):
-    """The chrome-trace events of a finished torch.profiler session (the
-    file is exported into the kernels' build directory, read and removed)."""
-    from uvipslam_torch import kernels
-
-    path = os.path.join(kernels.BUILD_DIR, f"_trace_{os.getpid()}.json")
-    try:
-        prof.export_chrome_trace(path)
-        with open(path) as fh:
-            return json.load(fh)["traceEvents"]
-    finally:
-        if os.path.exists(path):
-            os.remove(path)
-
-
 def kernel_timing(torch, launch, name):
     """A kernel launched alone, three ways, each over BATCH launches:
     (alone_ms, device_us, trace_us). alone_ms: back to back from the host,
@@ -317,6 +309,8 @@ def kernel_timing(torch, launch, name):
     drops some records of a short kernel, at times all of them, in up to
     three tries)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from uvipslam_torch.utils import chiptime
 
     def batch():
         for _ in range(BATCH):
@@ -343,7 +337,7 @@ def kernel_timing(torch, launch, name):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             batch()
             torch.cuda.synchronize()
-        durs = [e["dur"] for e in trace_events(prof)
+        durs = [e["dur"] for e in chiptime.trace_events(prof)
                 if e.get("ph") == "X" and e.get("cat") == "kernel" and name in e["name"]]
         if durs:
             trace_us = sum(durs) / len(durs)
@@ -520,39 +514,60 @@ def refine_phase(torch, tklt, dev):
     return max_err, rows
 
 
-def drive(torch, new_tracker, feeds):
-    """A fresh tracker from `new_tracker()` passed once over the sequence's
-    per-frame inputs: the step, per-frame states, poses, VIO flags (VIP)
-    and ms (host clock around a step that ends in a synchronize). No
-    reference to the initial state outlives its first frame, so peak
-    memory is the step's own."""
-    st, step = new_tracker()
-    states, Rs, ts, vios, frame_ms = [], [], [], [], []
-    for x in feeds:
-        t1 = time.perf_counter()
-        st, out = step(st, x)
+WIDE_SHAPES = ((17, 4.0), (13, 20.0))   # (win, max_correction): psize 29 (win^2 > 256), 57
+
+
+def wide_refine_phase(torch, tklt, dev):
+    """`anchor_refine_fast` on the card at shapes outside the fused
+    kernel's limits (WIDE_SHAPES at 512x640, 8 iterations, N 400): one
+    patch launch, no refinement launch and one wide-route call per call,
+    against the CPU plain form on the same inputs with `refine_phase`'s
+    tolerances. Returns (max_abs_err, timing rows)."""
+    rows, max_err = [], 0.0
+    h, w, n, iters, mr = 512, 640, 400, 8, 32.0
+    a = wave_image(torch, h, w, dev)
+    b = wave_image(torch, h, w, dev, 0.7, -0.4)
+    pts = probe_points(torch, h, w, n, seed=40).to(dev)
+    valid = (torch.rand(n, generator=torch.Generator().manual_seed(7)) > 0.05).to(dev)
+    for win, mc in WIDE_SHAPES:
+        T, Tx, Ty = tklt.extract_templates_fast(a, torch.nan_to_num(pts), win)
+        args = (b, T, Tx, Ty, pts, valid)
+        cpu = [t.cpu() for t in args]
+        kw = dict(win=win, iters=iters, max_correction=mc, max_residual=mr)
+        before = (tklt.patch_launches, tklt.refine_launches, tklt.refine_wide_calls)
+        out, acc = tklt.anchor_refine_fast(*args, **kw)
         torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t1) * 1e3)
-        states.append(int(out.state))
-        vios.append(bool(getattr(out, "vio_ok", False)))
-        Rs.append(out.Rcw)
-        ts.append(out.tcw)
-    return step, states, Rs, ts, vios, frame_ms
-
-
-def timed_runs(torch, new_tracker, feeds, first, repeats=REPEATS):
-    """`repeats` more runs after `first` (a drive() result); each must give
-    the same states and poses bit for bit. Returns the run medians of the
-    per-frame ms over frames 3 on."""
-    _, states, Rs, ts, _, frame_ms = first
-    meds = [statistics.median(frame_ms[2:])]
-    for _ in range(repeats):
-        _, states_r, Rs_r, ts_r, _, ms_r = drive(torch, new_tracker, feeds)
-        meds.append(statistics.median(ms_r[2:]))
-        if states_r != states or not all(
-                torch.equal(a, b) for a, b in zip(Rs_r + ts_r, Rs + ts)):
-            raise AssertionError("a repeat run of the step differs from the main run")
-    return meds
+        counts = tuple(x - y for x, y in zip(
+            (tklt.patch_launches, tklt.refine_launches, tklt.refine_wide_calls), before))
+        p_out, p_acc = tklt._anchor_refine_plain(*cpu, **kw)
+        _, _, _, resid, corr = tklt._refine_terms(*cpu[:5], win, iters, mc)
+        out, acc = out.cpu(), acc.cpu()
+        near = ((corr - mc).abs() < 1e-3) | ((resid - mr).abs() < 1e-3)
+        flips = int(((acc != p_acc) & ~near).sum())
+        both = acc & p_acc
+        err = (out[both] - p_out[both]).abs().max().item() if bool(both.any()) else 0.0
+        sp = slice(4, N_SPECIAL)
+        edge_ok = not bool(acc[sp].any()) and torch.equal(
+            torch.nan_to_num(out[sp], 7.0, 8.0, 9.0), torch.nan_to_num(cpu[4][sp], 7.0, 8.0, 9.0))
+        inner = cpu[5].clone()
+        inner[:N_SPECIAL] = False
+        share = int((acc & inner).sum()) / int(inner.sum())
+        psize = tklt.refine_psize(win, mc)
+        ms = time_ms(torch, lambda: tklt.anchor_refine_fast(*args, **kw))
+        pms = time_ms(torch, lambda: tklt._anchor_refine_plain(*args, **kw))
+        log(f"  anchor_refine wide route 512x640 win {win} psize {psize} iters {iters} N {n}: "
+            f"launches (extract_patches, anchor_refine, wide calls) {counts}; card vs CPU plain "
+            f"form: accept flips outside the 1e-3 margins {flips}, max |out - plain| where both "
+            f"accept {err:.3e} px over {int(both.sum())} tracks, outside and non-finite points "
+            f"{'rejected with out = pts' if edge_ok else 'WRONG'}, valid interior accepted "
+            f"{100 * share:.1f}%; as called {ms:.4f} ms vs the plain form on the card "
+            f"{pms:.4f} ms (medians of 20 runs, CUDA events)")
+        if counts != (1, 0, 1) or flips or not err <= 1e-3 or not edge_ok or share < 0.9:
+            raise AssertionError(f"the wide refinement route disagrees at win {win} psize {psize}")
+        max_err = max(max_err, err)
+        rows.append(dict(shape=[h, w], win=win, psize=psize, iters=iters, n=n, ms=ms,
+                         plain_ms=pms, max_abs_err=err, launches=list(counts)))
+    return max_err, rows
 
 
 def centres(torch, np, Rs, ts):
@@ -590,140 +605,18 @@ def expected_launches(states, n_orb_levels, prev=None):
 
 
 def read_launches(tklt):
+    """The path's launches of each kernel since `reset_launches`; fails if
+    the path took the wide refinement route (no main path's shape does)."""
+    if tklt.refine_wide_calls:
+        raise AssertionError(f"{tklt.refine_wide_calls} anchor refinements took the wide "
+                             f"route on a main path")
     return {"extract_patches": tklt.patch_launches, "anchor_refine": tklt.refine_launches}
 
 
 def reset_launches(tklt):
     tklt.patch_launches = 0
     tklt.refine_launches = 0
-
-
-LAUNCH_NAMES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
-
-
-def trace_summary(events):
-    """The numbers a profile reports, from a torch.profiler trace's events
-    (its chrome-trace `traceEvents`; reading them takes a second where
-    `key_averages()` takes up to half a minute): {name: [count, µs]} of the
-    device events, {name: [count, self µs]} of the host events (their
-    time less that of the events nested in them on the same thread),
-    {span: [count, host µs, device µs]} of the `step.*` spans (the device
-    time of the kernels launched inside them) and the kernel launches."""
-    import bisect
-
-    dev, host, spans, launch_at, threads = {}, {}, {}, {}, {}
-    dev_events = []
-    for e in events:
-        if e.get("ph") != "X":
-            continue
-        cat = e.get("cat")
-        if cat in DEVICE_CATS:
-            c = dev.setdefault(e["name"], [0, 0.0])
-            c[0] += 1
-            c[1] += e["dur"]
-            dev_events.append(e)
-        elif cat in HOST_CATS:
-            threads.setdefault((e["pid"], e["tid"]), []).append(e)
-            if cat in ("cuda_runtime", "cuda_driver"):
-                launch_at[e.get("args", {}).get("correlation")] = ((e["pid"], e["tid"]), e["ts"])
-    launches = 0
-    span_at = {}
-    for key, evs in threads.items():
-        evs.sort(key=lambda e: (e["ts"], -e["dur"]))
-        stack, self_us = [], [e["dur"] for e in evs]
-        for i, e in enumerate(evs):
-            while stack and evs[stack[-1]]["ts"] + evs[stack[-1]]["dur"] <= e["ts"] + 1e-3:
-                stack.pop()
-            if stack:
-                self_us[stack[-1]] -= e["dur"]
-            stack.append(i)
-        for e, us in zip(evs, self_us):
-            h = host.setdefault(e["name"], [0, 0.0])
-            h[0] += 1
-            h[1] += us
-            launches += e["name"] in LAUNCH_NAMES
-        sp = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in evs
-                    if e.get("cat") == "user_annotation" and e["name"].startswith("step."))
-        for t0, t1, name in sp:
-            c = spans.setdefault(name, [0, 0.0, 0.0])
-            c[0] += 1
-            c[1] += t1 - t0
-        span_at[key] = (sp, [x[0] for x in sp])
-    for e in dev_events:
-        at = launch_at.get(e.get("args", {}).get("correlation"))
-        if at is None or at[0] not in span_at:
-            continue
-        sp, starts = span_at[at[0]]
-        for t0, t1, name in sp[:bisect.bisect_right(starts, at[1])]:
-            if t0 <= at[1] <= t1:
-                spans[name][2] += e["dur"]
-    return dev, host, spans, launches
-
-
-def profile_phase(torch, step, st, feeds, start, n, out_name):
-    """torch.profiler over frames start..start+n-1: device busy time and
-    the top operators by device and by host time (tables to
-    chiprun_out/<out_name>), host and device time per `step.*` span. Fails
-    when the profiler sees no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for f in range(start, start + n):
-            st, _ = step(st, feeds[f])
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3   # the profiler's teardown excluded
-    t1 = time.perf_counter()
-    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
-    events = trace_events(prof)
-    dev, host, span_us, launches = trace_summary(events)
-    post_s = time.perf_counter() - t1
-
-    device_ms = sum(us for _, us in dev.values()) / 1e3
-    kernels = sum(c for c, _ in dev.values())
-    spans = {k: dict(host_ms=h / 1e3 / n, device_ms=d / 1e3 / n, calls=c / n)
-             for k, (c, h, d) in span_us.items()}
-    top_dev = sorted(dev.items(), key=lambda kv: -kv[1][1])
-    top_cpu = sorted(host.items(), key=lambda kv: -kv[1][1])
-    with open(os.path.join(HERE, "chiprun_out", out_name), "w") as fh:
-        fh.write(f"frames {start}-{start + n - 1}; device events by device time (count, ms)\n")
-        fh.writelines(f"{c:8d} {us / 1e3:10.3f}  {k}\n" for k, (c, us) in top_dev[:60])
-        fh.write("\nhost events by self time (count, ms)\n")
-        fh.writelines(f"{c:8d} {us / 1e3:10.3f}  {k}\n" for k, (c, us) in top_cpu[:40])
-    if device_ms <= 0:
-        raise AssertionError("the profiler saw no device time")
-    log(f"  frames {start}-{start + n - 1} under torch.profiler, which slows the host: "
-        f"wall {wall_ms / n:.1f} ms/frame, device busy {device_ms / n:.2f} ms/frame, "
-        f"{kernels / n:.0f} device kernels and {launches / n:.0f} kernel launches/frame; "
-        f"{len(events)} trace events read in {post_s:.1f} s")
-    log("  top device: " + "; ".join(f"{k[:60]} {us / 1e3 / n:.3f} ms x{c // n}"
-                                     for k, (c, us) in top_dev[:8]))
-    log("  top host: " + "; ".join(f"{k[:40]} {us / 1e3 / n:.2f} ms x{c // n}"
-                                   for k, (c, us) in top_cpu[:8]))
-    log("  per phase (ms/frame, host under the profiler / device): " + "; ".join(
-        f"{k[5:]} {v['host_ms']:.1f} / {v['device_ms']:.2f} (x{v['calls']:.2f})"
-        for k, v in sorted(spans.items(), key=lambda kv: -kv[1]["host_ms"])))
-    prop = spans.get("step.propagate")
-    if prop is None:
-        raise AssertionError("no step.propagate span in the profile window")
-    log(f"  {launches / n:.0f} kernel launches per frame; step.propagate host {prop['host_ms']:.2f} "
-        f"ms / device {prop['device_ms']:.3f} ms per frame")
-    # the hand-written kernels' own device time per launch on the path
-    ours = {}
-    for name in ("extract_patches_kernel", "anchor_refine_kernel"):
-        c = sum(v[0] for k, v in dev.items() if name in k)
-        us = sum(v[1] for k, v in dev.items() if name in k)
-        ours[name] = dict(launches=c, device_us_per_launch=us / max(1, c))
-    log("  hand kernels on the path: " + "; ".join(
-        f"{k} {v['launches']} launches, {v['device_us_per_launch']:.2f} us device each"
-        for k, v in ours.items()))
-    return dict(frames=n, post_processing_s=post_s,
-                wall_ms_per_frame_profiled=wall_ms / n, device_ms_per_frame=device_ms / n,
-                device_kernels_per_frame=kernels / n, launches_per_frame=launches / n,
-                phases=spans, hand_kernels=ours)
+    tklt.refine_wide_calls = 0
 
 
 def sync_audit(torch, step, st, feeds, n):
@@ -891,9 +784,10 @@ def vip_phase(torch, np, tklt, dev, smi, seq):
     """Phase 9 on `seq` (SEQUENCES["vip"]). Returns (the step record,
     launches on the VIP path, phase 18's prefix: the per-frame lists of
     frames 0 to RARE_BLACK[0] - 1 and the states kept on the host)."""
+    import bench_torch
     from uvipslam_torch.frontend.device_vip import build_vip_tracker, make_bundles
     from uvipslam_torch.frontend.tracker import IMU_RELOC, LOST, WORKING
-    from uvipslam_torch.io.synthetic import ate_rmse
+    from uvipslam_torch.utils import chiptime
 
     cam, cfg = vip_cam_cfg(seq.K)
     bundles = make_bundles(seq, device=dev)[:VIP_FRAMES]   # uploaded once
@@ -912,23 +806,18 @@ def vip_phase(torch, np, tklt, dev, smi, seq):
                                             keep_on="cpu")
     launches = read_launches(tklt)
     states, Rs, ts, vios, frame_ms = (run[k] for k in ("states", "Rs", "ts", "vios", "ms"))
-    first = step, states, Rs, ts, vios, frame_ms
+    first = chiptime.Run(step, states, Rs, ts, vios, frame_ms, run["new_kf"], float("nan"))
     syncs = step.host_syncs
     peak = torch.cuda.max_memory_allocated()
-    run_meds = timed_runs(torch, new_tracker, bundles, first)
+    run_meds = chiptime.timed_runs(new_tracker, bundles, first, REPEATS)
     med = statistics.median(run_meds)
 
     states = np.asarray(states)
     vios = np.asarray(vios)
     working = states == WORKING
     C = centres(torch, np, Rs, ts)
-    span = float(np.linalg.norm(seq.positions_w[VIP_FRAMES - 1] - seq.positions_w[0]))
-    init_f = int(np.argmax(vios)) if vios.any() else -1
-    sel = np.asarray([i for i in range(VIP_FRAMES) if init_f >= 0 and i >= init_f + 3
-                      and working[i]], dtype=np.int64)
-    ate = float("inf")
-    if len(sel) > 5:
-        ate, _ = ate_rmse(C[sel], seq.positions_w[sel], align_scale=False)
+    gate = bench_torch.vip_gate(states, vios, C, seq.positions_w[:VIP_FRAMES])
+    init_f, ate, span = gate["vio_init_frame"], gate["ate_metric_m"], gate["span_m"]
     n_levels = orb_levels(*seq.images.shape[1:])
     clean = not ((states == LOST) | (states == IMU_RELOC)).any()
     expect = expected_launches_vip(states.tolist(), n_levels) if clean else None
@@ -936,7 +825,7 @@ def vip_phase(torch, np, tklt, dev, smi, seq):
     log(f"phase VIP step 512x640 / 400 tracks / {VIP_FRAMES} frames: VIO init at frame "
         f"{init_f}, {int(working.sum())}/{VIP_FRAMES} WORKING, {int((states == LOST).sum())} "
         f"LOST, {int((states == IMU_RELOC).sum())} IMU_RELOC, metric ATE {ate:.5f} m over "
-        f"{len(sel)} frames (threshold {0.05 * span:.5f} m, 5% of span {span:.4f} m)")
+        f"{gate['ate_frames']} frames (threshold {0.05 * span:.5f} m, 5% of span {span:.4f} m)")
     log(f"  median {med:.2f} ms/frame over {len(run_meds)} runs (host clock to synchronize, "
         f"frames 3-{VIP_FRAMES}; run medians {' / '.join(f'{m:.2f}' for m in run_meds)}; "
         f"states and poses bitwise equal across runs; first frame {frame_ms[0]:.1f} ms), "
@@ -946,12 +835,10 @@ def vip_phase(torch, np, tklt, dev, smi, seq):
         f"{f' (expected {expect})' if expect is not None else ''}, "
         f"peak allocated {peak / 2**20:.1f} MiB")
     log(f"  states {''.join(str(s) for s in states.tolist())}")
-    if init_f < 0:
-        raise AssertionError("VIO never initialized")
-    if working.sum() < 0.8 * VIP_FRAMES:
-        raise AssertionError(f"only {int(working.sum())}/{VIP_FRAMES} frames WORKING")
-    if not ate < 0.05 * span:
-        raise AssertionError(f"metric ATE {ate} >= 5% of span {span}")
+    if not gate["ok"]:
+        raise AssertionError(f"bench.py's VIP gates fail: VIO init frame {init_f}, "
+                             f"{int(working.sum())}/{VIP_FRAMES} frames WORKING, metric ATE "
+                             f"{ate} over {gate['ate_frames']} frames against 5% of span {span}")
     if min(launches.values()) <= 0 or (expect is not None and launches != expect):
         raise AssertionError(f"kernel launches {launches}, expected {expect}")
     mark("vip_step")
@@ -975,8 +862,8 @@ def vip_phase(torch, np, tklt, dev, smi, seq):
 
     mark("vip_audit")
     log("phase VIP profile:")
-    profile = profile_phase(torch, step_a, st_a, bundles, start, PROFILE_FRAMES,
-                            "profile_vip.txt")
+    profile = chiptime.profile_phase(step_a, st_a, bundles, start, PROFILE_FRAMES,
+                                     "profile_vip.txt")
     profile["device_idle_share"] = 1.0 - profile["device_ms_per_frame"] / med
     mark("vip_profile")
     log(f"  device busy {profile['device_ms_per_frame']:.2f} ms/frame in the window; idle "
@@ -1510,6 +1397,7 @@ def fleet_vip_phase(torch, np, tklt, dev, smi, single, seqs):
     from uvipslam_torch.frontend.tracker import IMU_RELOC, LOST, WORKING
     from uvipslam_torch.frontend.device_vip import VipFleetStep
     from uvipslam_torch.io.synthetic import ate_rmse
+    from uvipslam_torch.utils import chiptime
     from uvipslam_torch.parallel.replay import (_over_time, batched_replay_vip, fleet_bundles,
                                                 stream_generators)
     from uvipslam_torch.frontend.device_vip import VipStepOut
@@ -1603,8 +1491,8 @@ def fleet_vip_phase(torch, np, tklt, dev, smi, single, seqs):
     log("phase VIP fleet profile:")
     # one frame: the profiler's post-processing of a fleet frame's events
     # takes about a minute
-    profile = profile_phase(torch, lambda s_, b_: step2(s_, b_, gens), st_prof, frames, start, 1,
-                            "profile_fleet_vip.txt")
+    profile = chiptime.profile_phase(lambda s_, b_: step2(s_, b_, gens), st_prof, frames, start,
+                                     1, "profile_fleet_vip.txt")
     if "step.vi_ba" in profile["phases"] or (single and "step.vi_ba" in
                                              single["profile"]["phases"]):
         raise AssertionError("a profile window holds a keyframe: the launch counts compare "
@@ -2867,6 +2755,47 @@ def fleet_rare_phase(torch, np, tklt, dev, smi, seq, singles, mono, mono_reloc):
     return record, {"fleet_vip_blackout": launches_a, "fleet_mono_reloc": launches_m}
 
 
+# phase 20: the VIP mode only (the mono mode's sequence, config and gates
+# are phase 5's); VIO initializes at frame 22, so at 34 frames the metric
+# ATE sees frames 25-33, more than the 5 its gate needs
+BENCH_ARGS = ("--mode", "vip", "--frames", "34", "--reps", "1", "--no-profile")
+BENCH_TIMEOUT = 300.0   # s; the run takes under a minute
+
+
+def bench_phase():
+    """Phase 20: `bench_torch.py` as a user runs it, in its own process, at
+    a cut depth (BENCH_ARGS). Its line must be ok (bench.py's gates, the
+    runs and the half run bitwise equal) with a value above 0 and no
+    wide-route refinement. Returns the line and the process's seconds."""
+    cmd = [sys.executable, os.path.join(HERE, "bench_torch.py"), *BENCH_ARGS]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+    secs = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"bench_torch.py {' '.join(BENCH_ARGS)} exited {r.returncode}: "
+                             f"{r.stderr[-3000:]}")
+    lines = [json.loads(x) for x in r.stdout.strip().splitlines()]
+    log(f"phase bench: bench_torch.py {' '.join(BENCH_ARGS)} in {secs:.1f} s")
+    if len(lines) != 1 or "VIP" not in lines[0]["metric"]:
+        raise AssertionError(f"bench_torch.py printed {len(lines)} lines, not the VIP line")
+    line = lines[0]
+    ex = line["extra"]
+    pl = ex["plausibility"]
+    log(f"  {line['metric']}: {line['value']:.3f} fps, ok {ex['ok']}, "
+        f"{ex['wall_ms_per_frame']:.2f} ms/frame over all frames (median frame "
+        f"{ex['ms_per_frame']:.2f}), first frame {ex['first_frame_ms']:.1f} ms, "
+        f"{ex['frames_tracked']}/{ex['n_frames']} WORKING, host reads "
+        f"{ex['host_reads_per_frame']:.2f}/frame, hand-kernel launches/frame "
+        f"{ex['hand_kernel_launches_per_frame']}, marginal {pl['marginal_ms_per_frame']:.2f} "
+        f"ms/frame against the second half's median {pl['second_half_median_ms']:.2f}")
+    log("  line: " + json.dumps(line))
+    if not (ex["ok"] and line["value"] > 0 and pl["half_run_bitwise_equal"]
+            and ex["refine_wide_calls"] == 0):
+        raise AssertionError(f"bench_torch.py's line fails: {json.dumps(line)}")
+    mark("bench")
+    return {"seconds": secs, "args": list(BENCH_ARGS), "line": line}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "uvipslam_torch")):
         print("chip_smoke.py must run from a checkout holding uvipslam_torch/",
@@ -2882,6 +2811,8 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     log("python", sys.version.split()[0], "torch", torch.__version__, "cuda", torch.version.cuda)
+    from uvipslam_torch.utils.chiptime import nvidia_smi_line
+
     smi = nvidia_smi_line()
     log(smi)
 
@@ -2904,22 +2835,27 @@ def kernel_phases(torch, tklt, dev, smi):
     refine_err, refine_rows = refine_phase(torch, tklt, dev)
     log(f"phase kernel-vs-plain: both kernels over {FLEET_S} streams in one launch")
     fleet_patch_rows, fleet_refine_rows, fleet_refine_err = batched_kernel_phase(torch, tklt, dev)
-    refine_err = max(refine_err, fleet_refine_err)
+    log("phase kernel-vs-plain: anchor_refine outside the fused kernel's limits (the wide "
+        "route: the patch kernel, then the plain loop), card vs CPU plain form")
+    wide_err, wide_rows = wide_refine_phase(torch, tklt, dev)
+    refine_err = max(refine_err, fleet_refine_err, wide_err)
     mark("kernel_vs_plain")
     log("kernel rows: " + json.dumps(dict(card=smi, extract_patches=patch_rows,
                                           anchor_refine=refine_rows,
                                           extract_patches_fleet=fleet_patch_rows,
-                                          anchor_refine_fleet=fleet_refine_rows)))
+                                          anchor_refine_fleet=fleet_refine_rows,
+                                          anchor_refine_wide=wide_rows)))
     return (patch_err, patch_rows, refine_err, refine_rows, fleet_patch_rows,
-            fleet_refine_rows)
+            fleet_refine_rows, wide_rows)
 
 
 def run_phases(torch, np, dev, smi, renders) -> int:
-    """Phases 2-19 and the result lines."""
+    """Phases 2-20 and the result lines."""
     import uvipslam_torch  # noqa: F401  (turns TF32 off)
     from uvipslam_torch import kernels
     from uvipslam_torch.frontend.device_tracker import build_tracker
     from uvipslam_torch.ops import klt as tklt
+    from uvipslam_torch.utils import chiptime
 
     only = sys.argv[sys.argv.index("--only") + 1].split(",") if "--only" in sys.argv else None
     if only is None:
@@ -2950,6 +2886,8 @@ def run_phases(torch, np, dev, smi, renders) -> int:
         fleet_outs = None
         if "kernels" in only:
             kernel_phases(torch, tklt, dev, smi)
+        if "bench" in only:
+            bench_phase()
         if "stream" in only:
             stream_mono_phase(torch, np, tklt, dev, smi, renders.get("stream_mono"))
         if "vip_stream" in only:
@@ -2989,11 +2927,12 @@ def run_phases(torch, np, dev, smi, renders) -> int:
 
     # -- phase 3: kernels vs plain ---------------------------------------
     (patch_err, patch_rows, refine_err, refine_rows, fleet_patch_rows,
-     fleet_refine_rows) = kernel_phases(torch, tklt, dev, smi)
+     fleet_refine_rows, wide_rows) = kernel_phases(torch, tklt, dev, smi)
 
     # -- phase 4/5 need the synthetic sequences -------------------------
+    import bench_torch
     from uvipslam_torch.frontend.tracker import LOST, WORKING, TrackerConfig
-    from uvipslam_torch.io.synthetic import ate_rmse, make_sequence
+    from uvipslam_torch.io.synthetic import make_sequence
     from uvipslam_torch.models.camera import CameraModel
 
     small = make_sequence(n_frames=1, H=120, W=160, n_points=800, seed=3, speed=1.2)
@@ -3037,20 +2976,18 @@ def run_phases(torch, np, dev, smi, renders) -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(tklt)
-    first = drive(torch, new_tracker, imgs)
+    first = chiptime.drive(new_tracker, imgs)
     launches = read_launches(tklt)
-    step, states, Rs, ts, _, frame_ms = first
+    step, states, Rs, ts, frame_ms = first.step, first.states, first.Rs, first.ts, first.frame_ms
     syncs = step.host_syncs
     peak = torch.cuda.max_memory_allocated()
-    run_meds = timed_runs(torch, new_tracker, imgs, first, MONO_REPEATS)
+    run_meds = chiptime.timed_runs(new_tracker, imgs, first, MONO_REPEATS)
 
     states = np.asarray(states)
     working = states == WORKING
     C = centres(torch, np, Rs, ts)
-    span = float(np.linalg.norm(seq.positions_w[-1] - seq.positions_w[0]))
-    ate = float("inf")
-    if working.sum() > 5:
-        ate, _ = ate_rmse(C[working], seq.positions_w[np.nonzero(working)[0]])
+    gate = bench_torch.mono_gate(states, C, seq.positions_w)
+    ate, span = gate["ate_m"], gate["span_m"]
     n_levels = 8
     expect = expected_launches(states.tolist(), n_levels)
     med = statistics.median(run_meds)
@@ -3064,10 +3001,9 @@ def run_phases(torch, np, dev, smi, renders) -> int:
         f"({syncs} total), kernel launches {launches} (expected {expect}), "
         f"peak allocated {peak / 2**20:.1f} MiB")
     log(f"  states {''.join(str(s) for s in states.tolist())}")
-    if working.sum() < 0.8 * N_FRAMES:
-        raise AssertionError(f"only {int(working.sum())}/{N_FRAMES} frames WORKING")
-    if not ate < 0.02 * span:
-        raise AssertionError(f"ATE {ate} >= 2% of span {span}")
+    if not gate["ok"]:
+        raise AssertionError(f"bench.py's mono gates fail: {int(working.sum())}/{N_FRAMES} "
+                             f"frames WORKING, ATE {ate} against 2% of span {span}")
     if (states == LOST).any():
         raise AssertionError("LOST frames")
     if min(launches.values()) <= 0 or launches != expect:
@@ -3087,8 +3023,8 @@ def run_phases(torch, np, dev, smi, renders) -> int:
     # -- phase 7: profile ---------------------------------------------------
     mark("mono_audit")
     log("phase profile:")
-    profile = profile_phase(torch, step_a, st_a, imgs, audit_frames, PROFILE_FRAMES,
-                            "profile.txt")
+    profile = chiptime.profile_phase(step_a, st_a, imgs, audit_frames, PROFILE_FRAMES,
+                                     "profile.txt")
     mark("mono_profile")
     # device time does not depend on the profiler; the host clock does
     profile["device_idle_share"] = 1.0 - profile["device_ms_per_frame"] / med
@@ -3144,6 +3080,9 @@ def run_phases(torch, np, dev, smi, renders) -> int:
     frare_record, frare_launches = fleet_rare_phase(
         torch, np, tklt, dev, smi, vip_seq,
         {"black": rare_labels, "clean": [int(c) for c in vip_record["labels"]]}, mono, mono_reloc)
+
+    # -- phase 20: the port's bench as a user runs it -------------------------------
+    bench_record = bench_phase()
 
     log("phase end times (s since start): " + ", ".join(f"{k} {v}" for k, v in MARKS.items()))
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "uvipslam_tpu"))
@@ -3202,6 +3141,7 @@ def run_phases(torch, np, dev, smi, renders) -> int:
         "library_ms": None,
         "shapes": refine_rows,
         "fleet_shapes": fleet_refine_rows,
+        "wide_route_shapes": wide_rows,
     }]}
     step_record = {"step": {"frames_working": int(working.sum()), "n_frames": N_FRAMES,
                             "ate_m": ate, "ate_threshold_m": 0.02 * span,
@@ -3217,7 +3157,7 @@ def run_phases(torch, np, dev, smi, renders) -> int:
                    "replay_mono": mfleet_record, "app": app_record,
                    "host_vip_blackout": blackout_record, "frontend_ops": fops_record,
                    "shard": shard_record, "vip_rare": rare_record, "fleet_rare": frare_record,
-                   "phase_end_s": MARKS}
+                   "bench": bench_record, "phase_end_s": MARKS}
     print(json.dumps(step_record), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

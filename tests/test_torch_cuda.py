@@ -251,6 +251,39 @@ def test_anchor_refine_kernel_at_the_psize_limit(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("win,max_correction", [(17, 4.0), (13, 20.0)])
+def test_anchor_refine_outside_the_kernel_limits(cuda_device, win, max_correction):
+    """psize 29 at win 17 (win^2 > 256) and psize 57 at max_correction 20
+    (above 55): the card takes the wide route, one patch launch and no
+    refinement launch per call (one for a fleet, also through the vmap
+    rule), and agrees with the CPU plain form with the tolerances of
+    `test_anchor_refine_kernel_matches_plain` (the same loop, float32
+    sums in the card's order; a fleet's stream need not equal the single
+    stream's bits, as `bmm` over more matrices may round otherwise)."""
+    cpu = _refine_inputs("cpu", S=2, win=win)
+    args = [t.to(cuda_device) for t in cpu]
+    kw = dict(win=win, iters=8, max_correction=max_correction, max_residual=32.0)
+    plain_out, plain_acc = klt._anchor_refine_plain(*cpu, **kw)
+    _, _, _, resid, corr = klt._refine_terms(*cpu[:5], win, 8, max_correction)
+    near = ((corr - max_correction).abs() < 1e-3) | ((resid - 32.0).abs() < 1e-3)
+    before = (klt.patch_launches, klt.refine_launches, klt.refine_wide_calls)
+    one = klt.anchor_refine_fast(*(t[0] for t in args), **kw)
+    fleet = klt.anchor_refine_fast(*args, **kw)
+    mapped = torch.func.vmap(lambda *x: klt.anchor_refine_fast(*x, **kw))(*args)
+    torch.cuda.synchronize()
+    assert (klt.patch_launches, klt.refine_launches, klt.refine_wide_calls) == (
+        before[0] + 3, before[1], before[2] + 3)
+    for res, sel in ((fleet, slice(None)), (one, 0)):
+        out, acc = res[0].cpu(), res[1].cpu()
+        assert torch.equal(acc[~near[sel]], plain_acc[sel][~near[sel]])
+        both = acc & plain_acc[sel]
+        assert int(both.sum()) > 0.8 * acc.numel()
+        assert (out[both] - plain_out[sel][both]).abs().max().item() <= 1e-3
+        assert _same(out[~acc], cpu[4][sel][~acc])
+    assert _same(mapped[0], fleet[0]) and torch.equal(mapped[1], fleet[1])
+
+
+@pytest.mark.cuda
 def test_extract_patches_kernel_rejects_cpu_tensors(cuda_device):
     with pytest.raises(ValueError):
         klt.extract_patches_cuda(torch.zeros((40, 50)), torch.zeros((3, 2)), 19)

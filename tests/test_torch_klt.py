@@ -208,3 +208,71 @@ def test_anchor_refine_fast_edge_cases(case, max_correction, iters):
     np.testing.assert_array_equal(to.numpy()[~ja], start[~ja])
     assert not ja[:len(edge)].any() and not ja[~valid].any()
     assert ja[len(edge):][valid[len(edge):]].sum() >= 0.8 * valid[len(edge):].sum()
+
+
+@pytest.mark.parametrize("win,max_correction,fits", [
+    (13, 4.0, True), (11, 5.0, True), (13, 19.0, True), (16, 4.0, True),
+    (17, 4.0, False), (13, 20.0, False), (14, 19.0, False)])
+def test_refine_route_is_a_function_of_the_shape(win, max_correction, fits):
+    """The card's route of `anchor_refine_fast` is chosen from (win,
+    max_correction) alone: the fused kernel inside its limits (win^2 <=
+    256, patch side <= 55), the wide route (patch kernel + plain loop)
+    outside them."""
+    assert tklt.refine_in_kernel_limits(win, max_correction) is fits
+    assert fits == (win * win <= 256
+                    and tklt.refine_psize(win, max_correction) <= tklt.MAX_REFINE_PSIZE)
+
+
+@pytest.mark.parametrize("win,max_correction,psize", [(17, 4.0, 29), (13, 20.0, 57)])
+def test_anchor_refine_fast_outside_the_kernel_limits(win, max_correction, psize):
+    """Shapes the fused kernel refuses: on CPU tensors the public call is
+    `_anchor_refine_plain` bit for bit, counts no launch and no wide call,
+    and agrees with the reference (accept equal, out at ATOL)."""
+    assert tklt.refine_psize(win, max_correction) == psize
+    a, b = _shifted_pair()
+    rs = np.random.RandomState(7)
+    pts = np.stack([rs.uniform(14, 114, 64), rs.uniform(14, 82, 64)], -1).astype(np.float32)
+    T, Tx, Ty = (np.array(x) for x in jklt.extract_templates_fast(
+        jnp.asarray(a), jnp.asarray(pts), win=win))
+    start = (pts + np.array([1.0, 0.4], np.float32)
+             + rs.uniform(-0.5, 0.5, pts.shape).astype(np.float32))
+    valid = rs.uniform(size=64) > 0.1
+    kw = dict(win=win, iters=8, max_correction=max_correction, max_residual=32.0)
+    args = tuple(torch.from_numpy(x) for x in (b, T, Tx, Ty, start, valid))
+    before = (tklt.patch_launches, tklt.refine_launches, tklt.refine_wide_calls)
+    to, ta = tklt.anchor_refine_fast(*args, **kw)
+    assert (tklt.patch_launches, tklt.refine_launches, tklt.refine_wide_calls) == before
+    po, pa = tklt._anchor_refine_plain(*args, **kw)
+    assert torch.equal(to, po) and torch.equal(ta, pa)
+    jo, ja = jklt.anchor_refine_fast(*(jnp.asarray(x) for x in (b, T, Tx, Ty, start, valid)),
+                                     **kw)
+    np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=ATOL, rtol=0)
+    assert np.asarray(ja).sum() > 30
+
+
+def test_wide_refine_pulls_a_fleet_in_one_call():
+    """The wide route's pull is handed the stacked [S, H, W] images once
+    (a raw kernel launch cannot take vmap's batched tensors), and the
+    fleet's result is each stream's."""
+    S, n, win, mc = 3, 32, 17, 4.0
+    imgs = torch.stack([torch.from_numpy(smooth_image(seed=s)) for s in range(S)])
+    rs = np.random.RandomState(8)
+    pts = torch.from_numpy(np.stack([rs.uniform(14, 114, (S, n)), rs.uniform(14, 82, (S, n))],
+                                    -1).astype(np.float32))
+    T, Tx, Ty = tklt.extract_templates_fast(imgs, pts, win)
+    valid = torch.ones((S, n), dtype=torch.bool)
+    calls = []
+
+    def pull(img, p, psize):
+        calls.append((type(img), tuple(img.shape), psize))
+        return tklt._extract_patches(img, p, psize)
+
+    start = pts + 0.6
+    out, acc = tklt._anchor_refine_plain(imgs, T, Tx, Ty, start, valid, win=win,
+                                         max_correction=mc, pull=pull)
+    assert calls == [(torch.Tensor, (S, 96, 128), 29)]
+    for s in range(S):
+        o, a = tklt.anchor_refine_fast(imgs[s], T[s], Tx[s], Ty[s], start[s], valid[s],
+                                       win=win, max_correction=mc)
+        assert torch.equal(a, acc[s]) and torch.equal(o, out[s])

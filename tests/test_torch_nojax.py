@@ -1,7 +1,8 @@
 """The port stands alone and covers the reference: importing every
-uvipslam_torch module and chip_smoke.py pulls in neither jax nor the
-reference package, every public top-level name of every reference module
-has its counterpart in the same module of the port, no module of the port
+uvipslam_torch module, chip_smoke.py, bench_torch.py and
+scripts/eval_ate_torch.py pulls in neither jax nor the reference
+package, every public top-level name of every reference module has its
+counterpart in the same module of the port, no module of the port
 names a path under the reference package, chip_smoke.py
 refuses to run without a card or outside a checkout, and the constants the
 port regenerates or carries (BRIEF pattern, vocabulary, haloc projections)
@@ -37,10 +38,14 @@ def test_import_every_module_without_jax():
               "frontend.stream", "loop.closer", "loop.clusters", "loop.dbscan", "ops.sim3solver",
               "solver.essential_graph", "parallel", "parallel.replay", "app", "io.config",
               "io.bag", "io.trajectory", "io.evaluate", "io.checkpoint", "utils.metrics",
-              "viz", "viz.publishers"):
+              "utils.chiptime", "viz", "viz.publishers"):
         assert "uvipslam_torch." + m in mods, m
-    code = ("import importlib, sys\n"
-            f"for m in {mods + ['chip_smoke']!r}: importlib.import_module(m)\n"
+    code = ("import importlib, importlib.util, sys\n"
+            f"for m in {mods + ['chip_smoke', 'bench_torch']!r}: importlib.import_module(m)\n"
+            "spec = importlib.util.spec_from_file_location('eval_ate_torch', "
+            "'scripts/eval_ate_torch.py')\n"
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "assert 'uvipslam_torch.io.evaluate' in sys.modules\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
             "             or k == 'uvipslam_tpu' or k.startswith('uvipslam_tpu.'))\n"
             "assert not bad, bad\n"

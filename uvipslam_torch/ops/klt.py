@@ -19,7 +19,10 @@ and raises if it cannot.
   whose different patch shape changes the clamp bounds of
   `anchor_refine_fast`. The template and ORB pulls use it.
 - `anchor_refine_fast`: `csrc/anchor_refine.cu`, the patch pull fused
-  with the whole Gauss-Newton loop, or `_anchor_refine_plain`.
+  with the whole Gauss-Newton loop, or `_anchor_refine_plain`. A shape
+  outside the fused kernel's limits (`refine_in_kernel_limits`) takes,
+  on the card, the reference's structure instead: the patch kernel's
+  pull, then the plain loop (`anchor_refine_wide`).
 
 Every function here that takes an image takes a fleet of them as well:
 img [S, H, W] with pts [S, N, 2] (and T/Tx/Ty [S, N, win^2], valid
@@ -44,9 +47,11 @@ INT32_MIN = -(2 ** 31)
 INT32_MAX = 2 ** 31 - 1
 
 # kernel launches on CUDA tensors: csrc/extract_patches.cu by
-# `extract_patches_cuda`, csrc/anchor_refine.cu by `anchor_refine_cuda`
+# `extract_patches_cuda`, csrc/anchor_refine.cu by `anchor_refine_cuda`;
+# and calls of the card's wide refinement route, `anchor_refine_wide`
 patch_launches = 0
 refine_launches = 0
+refine_wide_calls = 0
 
 # the largest patch side the refinement kernel takes (kMaxPsize of
 # csrc/anchor_refine.cu, whose patch lives in shared memory)
@@ -349,18 +354,25 @@ def refine_psize(win: int, max_correction: float) -> int:
     return win + 2 * (int(max_correction) + 2)
 
 
-def _refine_terms(img, T, Tx, Ty, pts, win: int, iters: int, max_correction: float):
-    """The plain form's Gauss-Newton loop: returns the refined patch
-    position p, `local`, good_G, the mean absolute residual and the
-    correction norm, each per track."""
-    if img.dim() == 3:
-        return torch.func.vmap(lambda *a: _refine_terms(*a, win, iters, max_correction))(
-            img, T, Tx, Ty, pts)
-    N = pts.shape[0]
+def _refine_terms(img, T, Tx, Ty, pts, win: int, iters: int, max_correction: float,
+                  pull=_extract_patches):
+    """The plain form's patch pull (`pull`: the plain gather, or the patch
+    kernel on the card's wide route) and Gauss-Newton loop: returns the
+    refined patch position p, `local`, good_G, the mean absolute residual
+    and the correction norm, each per track."""
     psize = refine_psize(win, max_correction)
     _check_patch_args(img, pts, psize)
-    patches, local = _extract_patches(img, pts, psize)
+    patches, local = pull(img, pts, psize)
+    return _refine_loop(patches, local, T, Tx, Ty, win, iters)
 
+
+def _refine_loop(patches, local, T, Tx, Ty, win: int, iters: int):
+    """`_refine_terms`' Gauss-Newton loop on pulled [N, psize, psize]
+    patches (a fleet's [S, N, psize, psize] mapped over its streams)."""
+    if patches.dim() == 4:
+        return torch.func.vmap(lambda *a: _refine_loop(*a, win, iters))(
+            patches, local, T, Tx, Ty)
+    N = local.shape[0]
     Gxx, Gxy, Gyy, det, safe_det = _normal_matrix(Tx, Ty)
     good_G = det > 1e-9
 
@@ -384,16 +396,23 @@ def _refine_terms(img, T, Tx, Ty, pts, win: int, iters: int, max_correction: flo
 
 
 def _anchor_refine_plain(img, T, Tx, Ty, pts, valid, win: int = 13, iters: int = 8,
-                         max_correction: float = 4.0, max_residual: float = 32.0):
+                         max_correction: float = 4.0, max_residual: float = 32.0,
+                         pull=_extract_patches):
     """Plain torch form of `anchor_refine_fast` (the reference's
     arithmetic: a patch gather, then interpolation-matmul sampling in each
     Gauss-Newton iteration)."""
     p, local, good_G, resid, corr = _refine_terms(img, T, Tx, Ty, pts, win, iters,
-                                                  max_correction)
+                                                  max_correction, pull)
     accept = valid & good_G & (corr <= max_correction) & (resid < max_residual)
     out_pts = pts + (p - local)
     out = torch.where(accept[..., None], out_pts, pts)
     return out, accept
+
+
+def refine_in_kernel_limits(win: int, max_correction: float) -> bool:
+    """Whether csrc/anchor_refine.cu takes this shape (win^2 <= 256, patch
+    side <= MAX_REFINE_PSIZE): the card's route of `anchor_refine_fast`."""
+    return win * win <= 256 and refine_psize(win, max_correction) <= MAX_REFINE_PSIZE
 
 
 def _check_refine_args(img, T, Tx, Ty, pts, valid, win: int, iters: int,
@@ -457,13 +476,29 @@ def anchor_refine_cuda(img, T, Tx, Ty, pts, valid, win: int = 13, iters: int = 8
     return out, accept
 
 
+def anchor_refine_wide(img, T, Tx, Ty, pts, valid, win: int = 13, iters: int = 8,
+                       max_correction: float = 4.0, max_residual: float = 32.0):
+    """`anchor_refine_fast` on CUDA tensors for shapes outside the fused
+    kernel's limits, in the reference's own structure: the patch kernel's
+    pull (psize up to 127, one counted launch for one stream or all S of
+    a fleet), then the plain Gauss-Newton loop. Counted in
+    `refine_wide_calls`."""
+    global refine_wide_calls
+    _require_cuda("anchor_refine_wide", img)
+    out = _anchor_refine_plain(img, T, Tx, Ty, pts, valid, win, iters, max_correction,
+                               max_residual, pull=extract_patches_cuda)
+    refine_wide_calls += 1
+    return out
+
+
 def anchor_refine_fast(img, T, Tx, Ty, pts, valid, win: int = 13,
                        iters: int = 8, max_correction: float = 4.0,
                        max_residual: float = 32.0):
     """Refine [N, 2] start positions against [N, win*win] birth templates:
     one patch pull per track, then fixed inverse-compositional GN
-    iterations with bilinear sampling. CUDA tensors take the fused kernel,
-    CPU tensors the plain torch form.
+    iterations with bilinear sampling. CUDA tensors take the fused kernel
+    (outside its limits `anchor_refine_wide`), CPU tensors the plain
+    torch form.
     Returns (pts_refined [N, 2], accepted [N] bool)."""
     return _RefineOp.apply(img, T, Tx, Ty, pts, valid, win, iters, max_correction,
                            max_residual)
@@ -472,7 +507,9 @@ def anchor_refine_fast(img, T, Tx, Ty, pts, valid, win: int = 13,
 def _refine_by_device(img, T, Tx, Ty, pts, valid, win, iters, max_correction, max_residual):
     kw = dict(win=win, iters=iters, max_correction=max_correction, max_residual=max_residual)
     if img.device.type == "cuda":
-        return anchor_refine_cuda(img, T, Tx, Ty, pts, valid, **kw)
+        if refine_in_kernel_limits(win, max_correction):
+            return anchor_refine_cuda(img, T, Tx, Ty, pts, valid, **kw)
+        return anchor_refine_wide(img, T, Tx, Ty, pts, valid, **kw)
     if img.device.type != "cpu":
         raise ValueError(f"no anchor refinement for device {img.device}")
     return _anchor_refine_plain(img, T, Tx, Ty, pts, valid, **kw)
