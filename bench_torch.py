@@ -5,6 +5,7 @@ the counterpart of bench.py, with its sequences, configurations and gates.
     python bench_torch.py                     # the VIP line, then the mono line
     python bench_torch.py --mode vip          # one line (--mode mono likewise)
     python bench_torch.py --frames 40 --reps 1 --no-profile
+    python bench_torch.py --eager             # the steps without CUDA graphs
     python bench_torch.py --device cpu        # the plain versions on the CPU
 
 Prints ONE JSON line per mode on standard output (progress goes to
@@ -24,8 +25,11 @@ bit for bit, the half run over its frames. When any fails, `value` and
 Measurement mode: bench.py scans the whole sequence in one XLA program.
 The port has no such program: the step runs frame by frame from the host
 with a synchronize after each frame, so what is timed is the host clock of
-a per-frame dispatched step (its streamed fps is its fps). The frame
-bundles are uploaded once. A run of the sequence's first N/2 frames goes
+a per-frame dispatched step (its streamed fps is its fps). On the card the
+steps replay their WORKING frames' segments as captured CUDA graphs (the
+steps' default, `utils/graphs.py`); `--eager` runs them op by op. Each run
+starts from a fresh tracker, so it captures its graphs again, and the
+captures are timed with it. The frame bundles are uploaded once. A run of the sequence's first N/2 frames goes
 first: its first frame builds or loads the kernels (`first_frame_ms`, the
 counterpart of bench.py's `compile_s`). Then `--reps` runs of all N
 frames, each from a fresh tracker; fps is N over the median of their
@@ -49,7 +53,10 @@ window BA.
 - `hand_kernel_launches_per_frame` (`ops.klt` counters of the first timed
   run) and `refine_wide_calls` (the wide refinement route; 0 on this path);
 - `peak_allocated_mib`: `torch.cuda.max_memory_allocated` over the first
-  timed run (null on the CPU);
+  timed run, the half run's step released before it (null on the CPU);
+- `graphed` (whether the steps replayed captured graphs), `captures`,
+  `replays_per_frame` and `capture_seconds` of the first timed run (0
+  when eager);
 - `plausibility`: whether the half run repeats the first N/2 frames bit
   for bit (a gate), and, as a statistic, the marginal ms/frame of the
   median timed run over the half run against the median ms/frame of its
@@ -57,9 +64,12 @@ window BA.
 - `dispatch_rtt_ms` (mono): the median of 10 launches of a trivial op,
   each followed by a synchronize (null on the CPU);
 - `profile`: one more run under torch.profiler over one keyframe-free VI
-  frame (VIP) or keyframe-free WORKING frame (mono): `launches_per_frame`,
-  `device_ms_per_frame`, `device_idle_share` = 1 - device / ms_per_frame;
-  null when skipped, on the CPU, or where the trace lacks its records;
+  frame (VIP) or keyframe-free WORKING frame (mono): the host's launch
+  calls (`host_launch_calls_per_frame`: kernel launches plus CUDA graph
+  launches, the latter also alone) apart from the kernels the device ran
+  (`device_kernels_per_frame`), `device_ms_per_frame`,
+  `device_idle_share` = 1 - device / ms_per_frame; null when skipped, on
+  the CPU, or where the trace lacks its records;
 - `device`: the card's name and power limit as nvidia-smi prints them
   ("cpu" on the CPU).
 
@@ -206,6 +216,11 @@ def dispatch_rtt_ms(device):
     return statistics.median(out)
 
 
+def dispatch_form(extra) -> str:
+    """How the line's steps dispatched their WORKING frames."""
+    return "WORKING frames as CUDA graphs" if extra["graphed"] else "eager"
+
+
 def profile_frame(mode, run) -> int | None:
     """The profile window's frame (see PROFILE_FROM), or None."""
     from uvipslam_torch.frontend.tracker import WORKING
@@ -234,7 +249,9 @@ def profile_window(mode, new_tracker, feeds, run, ms_per_frame, device):
     except chiptime.ProfileGap as e:
         note(f"{mode} profile: {e}")
         return None
-    return dict(frame=f, launches_per_frame=p["launches_per_frame"],
+    return dict(frame=f, host_launch_calls_per_frame=p["launches_per_frame"],
+                graph_launches_per_frame=p["graph_launches_per_frame"],
+                device_kernels_per_frame=p["device_kernels_per_frame"],
                 device_ms_per_frame=p["device_ms_per_frame"],
                 device_idle_share=1.0 - p["device_ms_per_frame"] / ms_per_frame,
                 hand_kernels=p["hand_kernels"])
@@ -252,7 +269,9 @@ def measure(mode, new_tracker, feeds, reps, device, init_frame_of, profile=True)
 
     n = len(feeds)
     cuda = device.type == "cuda"
-    half = chiptime.drive(new_tracker, feeds[:n // 2], device)
+    # the half run's step (and on the card its graphs) is dropped before
+    # the timed runs, so their peak memory is one step's
+    half = chiptime.drive(new_tracker, feeds[:n // 2], device)._replace(step=None)
     note(f"{mode} half run ({n // 2} frames): first frame {half.frame_ms[0]:.1f} ms")
     if cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -262,6 +281,7 @@ def measure(mode, new_tracker, feeds, reps, device, init_frame_of, profile=True)
     wide = klt.refine_wide_calls
     peak = torch.cuda.max_memory_allocated() / 2 ** 20 if cuda else None
     syncs = runs[0].step.host_syncs
+    seg = runs[0].step.segments
     for r in range(1, reps):
         runs.append(chiptime.drive(new_tracker, feeds, device))
     equal = all(chiptime.same_run(r, runs[0]) for r in runs[1:])
@@ -291,8 +311,10 @@ def measure(mode, new_tracker, feeds, reps, device, init_frame_of, profile=True)
                  first_frame_ms=half.frame_ms[0], runs_bitwise_equal=equal,
                  host_reads_per_frame=syncs / n,
                  hand_kernel_launches_per_frame={k: v / n for k, v in launches.items()},
-                 refine_wide_calls=wide, peak_allocated_mib=peak, plausibility=plaus,
-                 profile=prof)
+                 refine_wide_calls=wide, peak_allocated_mib=peak,
+                 graphed=seg.enabled, captures=seg.captures, replays_per_frame=seg.replays / n,
+                 capture_seconds=seg.capture_seconds,
+                 plausibility=plaus, profile=prof)
     if mode == "vip":
         extra["vio_init_frame_ms"] = (statistics.median(r.frame_ms[init_f] for r in runs)
                                       if init_f >= 0 else None)
@@ -301,7 +323,7 @@ def measure(mode, new_tracker, feeds, reps, device, init_frame_of, profile=True)
 
 
 def run_vip(n_frames=VIP_FRAMES, reps=REPS, device="cuda", H=None, W=None,
-            profile=True) -> dict:
+            profile=True, graphs=None) -> dict:
     """bench.py --mode vip on the port: the line."""
     from uvipslam_torch.frontend.device_vip import build_vip_tracker, make_bundles
     from uvipslam_torch.frontend.tracker import step_device
@@ -318,7 +340,7 @@ def run_vip(n_frames=VIP_FRAMES, reps=REPS, device="cuda", H=None, W=None,
     feeds = make_bundles(seq, device=device)
 
     def new_tracker():
-        return build_vip_tracker(cam, cfg, **CAPS, device=device)
+        return build_vip_tracker(cam, cfg, **CAPS, device=device, graphs=graphs)
 
     def init_frame_of(run):
         return int(np.argmax(run.vios)) if any(run.vios) else -1
@@ -331,12 +353,12 @@ def run_vip(n_frames=VIP_FRAMES, reps=REPS, device="cuda", H=None, W=None,
     extra.update(m["extra"], device=device_name(device))
     where = "" if device.type == "cuda" else ", CPU: plain versions"
     metric = (f"PyTorch/CUDA port: VIP tracking+VI-BA fps ({kw['H']}x{kw['W']}, 400 feats, "
-              f"IMU+pressure, per-frame dispatch{where})")
+              f"IMU+pressure, per-frame dispatch, {dispatch_form(extra)}{where})")
     return bench_line(metric, m["fps"], gate["ok"] and m["checks_ok"], extra)
 
 
 def run_mono(n_frames=MONO_FRAMES, reps=REPS, device="cuda", H=None, W=None,
-             profile=True) -> dict:
+             profile=True, graphs=None) -> dict:
     """bench.py's mono mode on the port: the line."""
     import torch
 
@@ -354,7 +376,7 @@ def run_mono(n_frames=MONO_FRAMES, reps=REPS, device="cuda", H=None, W=None,
     feeds = torch.from_numpy(seq.images.astype(np.float32)).to(device)
 
     def new_tracker():
-        return build_tracker(cam, cfg, **CAPS, device=device)
+        return build_tracker(cam, cfg, **CAPS, device=device, graphs=graphs)
 
     m = measure("mono", new_tracker, feeds, reps, device, lambda run: -1, profile)
     run = m["run"]
@@ -364,7 +386,7 @@ def run_mono(n_frames=MONO_FRAMES, reps=REPS, device="cuda", H=None, W=None,
                  device=device_name(device))
     where = "" if device.type == "cuda" else ", CPU: plain versions"
     metric = (f"PyTorch/CUDA port: mono tracking+local-BA fps ({kw['H']}x{kw['W']}, 400 feats, "
-              f"synthetic Aqualoc-like, per-frame dispatch{where})")
+              f"synthetic Aqualoc-like, per-frame dispatch, {dispatch_form(extra)}{where})")
     return bench_line(metric, m["fps"], gate["ok"] and m["checks_ok"], extra)
 
 
@@ -380,6 +402,9 @@ def main(argv=None, H=None, W=None) -> int:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--no-profile", action="store_true",
                     help="skip the profile window")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the steps op by op, without CUDA graphs (the default on the "
+                         "card replays their WORKING frames as graphs)")
     args = ap.parse_args(argv)
     if args.reps < 1 or (args.frames is not None and args.frames < 4):
         ap.error("--reps must be >= 1 and --frames >= 4")
@@ -392,7 +417,8 @@ def main(argv=None, H=None, W=None) -> int:
               "(pass --device cpu for a run of the plain versions on the CPU)",
               file=sys.stderr)
         return 1
-    kw = dict(reps=args.reps, device=args.device, H=H, W=W, profile=not args.no_profile)
+    kw = dict(reps=args.reps, device=args.device, H=H, W=W, profile=not args.no_profile,
+              graphs=False if args.eager else None)
     if args.mode in (None, "vip"):
         print(json.dumps(run_vip(args.frames or VIP_FRAMES, **kw)), flush=True)
     if args.mode in (None, "mono"):

@@ -49,8 +49,10 @@ result):
   7. torch.profiler over one WORKING frame: device time per frame,
      kernels and launches per frame, host and device time per phase of the
      step (its `step.*` spans, `step.propagate` on a line of its own),
-     the hand kernels' device time per launch, the top operators (the
-     full table goes to profile.txt in the output directory);
+     the hand kernels' device time per launch and their launches in the
+     trace, which must equal their counters' change over the frame, the
+     top operators (the full table goes to profile.txt in the output
+     directory);
   8. mono relocalization: the mono step on the same sequence, then three
      black frames (the state must be LOST), then the last keyframe's image
      again: WORKING within three frames with the camera centre within 0.15
@@ -66,7 +68,8 @@ result):
      below 5% of the trajectory span; the VIO-init frame's own ms, host
      reads, kernel launches, peak memory, a sync audit over the first 30
      or more frames and a profile split by phase over the keyframe-free VI
-     frame after them (table in chiprun_out/profile_vip.txt).
+     frame after them (table in chiprun_out/profile_vip.txt), whose trace
+     must hold the hand kernels' counted launches.
  10. the mono stream with loop closing (`frontend.stream.DeviceStream`,
      mode "mono", `loop_closing=True`) fed one frame at a time over a
      512x640 `motion="loop"` sequence that returns to its start (400
@@ -180,16 +183,39 @@ result):
      phase 5's sequence and gates and is left out): its line ok with a
      value above 0, its half run bitwise equal to its first 17 frames and
      no wide-route refinement.
+ 21. the graphed steps against the eager ones: the first 34 frames of
+     phase 9's graphed run (VIO init at frame 22, then VI keyframes) and
+     the first 30 of phase 5's, recorded as those runs went (each frame's
+     output and state on the host, the host reads, counters, captures and
+     replays after it), against one run of each with `graphs=False`:
+     every frame's output and state, the final state with them, bit for
+     bit equal; the same host reads; the same hand-kernel launches, equal
+     to what the frames' branches imply; then the eager run's frame that
+     phase 9 or 7 profiled under torch.profiler, its trace held to the
+     counters. Prints per form ms per frame (over all frames and the
+     keyframe-free frames' median), host launch calls (kernel and graph
+     launches) and device kernels per frame (the graphed form's from
+     phases 9 and 7), the device's busy share, captures, replays per
+     frame and peak memory.
+
+Every phase before 21 runs the steps' default: on the card the WORKING
+frames replay captured CUDA graphs. A replay runs no Python, so on a
+graphed frame the launch counters move by each graph's captured launches
+per replay; phases 7, 9 and 21 hold that count against the profiler
+trace's kernel records of their profiled frame (`hold_trace`: the same
+launches of each hand kernel, no capture in the window). Phase 18c alone
+runs an eager step (its forced failure patches a function inside a
+captured segment with a host read).
 
 Every path's launch counts are read from zero just before it and just
 after it, and no main path may take the wide refinement route
 (`ops.klt.refine_wide_calls` stays 0).
 
-`--only kernels,stream,vip_stream,fleet_vip,fleet_mono,app,host_vip,frontend_ops,shard,vip_rare,fleet_rare,bench`
+`--only kernels,stream,vip_stream,fleet_vip,fleet_mono,app,host_vip,frontend_ops,shard,vip_rare,fleet_rare,bench,graphs`
 (any subset) runs those phases alone after the build and prints no result
 line (`kernels` is phase 3; `host_vip` is phase 15; `app` includes phase
 14's host VIP run; `vip_rare` and `fleet_rare` are phases 18 and 19;
-`bench` is phase 20).
+`bench` is phase 20; `graphs` is phase 21).
 
 The synthetic sequences render in four worker processes from the start,
 beside phases 2-8. Each phase's end time goes to standard error as the
@@ -621,22 +647,42 @@ def reset_launches(tklt):
 
 def sync_audit(torch, step, st, feeds, n):
     """Runs frames 0..n-1 under torch.cuda sync-debug mode. Returns (the
-    synchronizing calls seen, by call site, the state after frame n-1)."""
+    synchronizing calls of the step, by call site, the state after frame
+    n-1, the synchronizing calls made inside the graphs' captures). A
+    graphed step captures each segment at its first call (a warm-up, a
+    synchronize and the capture); what the captures do is counted apart
+    from the step's own."""
     torch.cuda.synchronize()
+    seg = step.segments
+    spans = []
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
+        real_capture = seg._capture
+
+        def capture(*a):
+            at = len(caught)
+            try:
+                return real_capture(*a)
+            finally:
+                spans.append((at, len(caught)))
+
+        seg._capture = capture
         torch.cuda.set_sync_debug_mode("warn")
         try:
             for f in range(n):
                 st, _ = step(st, feeds[f])
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    real = [w for w in caught if "synchroniz" in str(w.message).lower()]
+            del seg._capture
+    inside = {i for a, b in spans for i in range(a, b)}
+    real = [w for i, w in enumerate(caught)
+            if "synchroniz" in str(w.message).lower() and i not in inside]
+    in_captures = sum(1 for i in inside if "synchroniz" in str(caught[i].message).lower())
     where = {}
     for w in real:
         key = f"{os.path.basename(w.filename)}:{w.lineno}"
         where[key] = where.get(key, 0) + 1
-    return real, where, st
+    return real, where, st, in_captures
 
 
 def reloc_phase(torch, np, tklt, new_tracker, imgs):
@@ -762,10 +808,13 @@ def expected_launches_host_vip(statuses, n_orb_levels):
 class PreintCounter:
     """Counts the calls of `core.preintegration.preint_step` (one IMU
     sample of a running preintegration, a fixed set of launches) while
-    active."""
+    active. A graph captured meanwhile adds its capture's calls on every
+    replay (`utils.graphs.counted`), as it adds its hand-kernel launches,
+    so a graphed frame counts what the eager frame calls."""
 
     def __enter__(self):
         from uvipslam_torch.core import preintegration as pre
+        from uvipslam_torch.utils import graphs
 
         self.mod, self.real, self.calls = pre, pre.preint_step, 0
 
@@ -774,16 +823,20 @@ class PreintCounter:
             return self.real(*a, **kw)
 
         pre.preint_step = counted
+        self.registered = graphs.counted(self, "calls")
+        self.registered.__enter__()
         return self
 
     def __exit__(self, *exc):
+        self.registered.__exit__(*exc)
         self.mod.preint_step = self.real
 
 
 def vip_phase(torch, np, tklt, dev, smi, seq):
     """Phase 9 on `seq` (SEQUENCES["vip"]). Returns (the step record,
     launches on the VIP path, phase 18's prefix: the per-frame lists of
-    frames 0 to RARE_BLACK[0] - 1 and the states kept on the host)."""
+    frames 0 to RARE_BLACK[0] - 1 and the states kept on the host, phase
+    21's FrameRecord of the first GRAPH_FRAMES["vip"] frames)."""
     import bench_torch
     from uvipslam_torch.frontend.device_vip import build_vip_tracker, make_bundles
     from uvipslam_torch.frontend.tracker import IMU_RELOC, LOST, WORKING
@@ -800,15 +853,18 @@ def vip_phase(torch, np, tklt, dev, smi, seq):
     reset_launches(tklt)
     # the states after frames FIRST_TRY_AFTER and RARE_BLACK[0] - 1 go to
     # the host: phase 18 starts from them
+    graphed = FrameRecord(torch, tklt, GRAPH_FRAMES["vip"])
     with PreintCounter() as preint:
         step, _, run, kept = drive_vip_rare(torch, new_tracker, bundles,
                                             keep=(FIRST_TRY_AFTER, RARE_BLACK[0] - 1),
-                                            keep_on="cpu")
+                                            keep_on="cpu", on_frame=graphed)
+    graphed.ms = run["ms"][:graphed.n]
     launches = read_launches(tklt)
     states, Rs, ts, vios, frame_ms = (run[k] for k in ("states", "Rs", "ts", "vios", "ms"))
     first = chiptime.Run(step, states, Rs, ts, vios, frame_ms, run["new_kf"], float("nan"))
     syncs = step.host_syncs
     peak = torch.cuda.max_memory_allocated()
+    seg = step.segments
     run_meds = chiptime.timed_runs(new_tracker, bundles, first, REPEATS)
     med = statistics.median(run_meds)
 
@@ -833,7 +889,8 @@ def vip_phase(torch, np, tklt, dev, smi, seq):
         f"({syncs} total), IMU sample steps {preint.calls / VIP_FRAMES:.1f}/frame (windows of "
         f"{seq.imu_mask.shape[1]}), kernel launches {launches}"
         f"{f' (expected {expect})' if expect is not None else ''}, "
-        f"peak allocated {peak / 2**20:.1f} MiB")
+        f"peak allocated {peak / 2**20:.1f} MiB, graph captures {seg.captures} "
+        f"({seg.capture_seconds:.2f} s), replays {seg.replays / VIP_FRAMES:.2f}/frame")
     log(f"  states {''.join(str(s) for s in states.tolist())}")
     if not gate["ok"]:
         raise AssertionError(f"bench.py's VIP gates fail: VIO init frame {init_f}, "
@@ -853,10 +910,12 @@ def vip_phase(torch, np, tklt, dev, smi, seq):
     if start is None:
         raise AssertionError("no keyframe-free VI frame after the audit frames to profile")
     st_a, step_a = new_tracker()
-    real, where, st_a = sync_audit(torch, step_a, st_a, bundles, start)
+    real, where, st_a, in_captures = sync_audit(torch, step_a, st_a, bundles, start)
     log(f"phase VIP sync audit ({start} frames, VIO init included): "
         f"{len(real) / start:.2f} synchronizing calls/frame seen by torch.cuda "
-        f"sync-debug mode, {step_a.host_syncs / start:.2f}/frame counted by the step")
+        f"sync-debug mode, {step_a.host_syncs / start:.2f}/frame counted by the step; "
+        f"{in_captures} more inside its {step_a.segments.captures} "
+        f"graph captures")
     log("  by call site: " + ", ".join(f"{k} x{v}" for k, v in sorted(
         where.items(), key=lambda kv: -kv[1])[:12]))
 
@@ -864,6 +923,8 @@ def vip_phase(torch, np, tklt, dev, smi, seq):
     log("phase VIP profile:")
     profile = chiptime.profile_phase(step_a, st_a, bundles, start, PROFILE_FRAMES,
                                      "profile_vip.txt")
+    hold_trace(profile, f"phase VIP profile, frame {start}")
+    graphed.profile, graphed.profile_frame = profile, start
     profile["device_idle_share"] = 1.0 - profile["device_ms_per_frame"] / med
     mark("vip_profile")
     log(f"  device busy {profile['device_ms_per_frame']:.2f} ms/frame in the window; idle "
@@ -881,7 +942,7 @@ def vip_phase(torch, np, tklt, dev, smi, seq):
               "peak_allocated_bytes": peak, "profile": profile, "card": smi}
     prefix = {k: v[:RARE_BLACK[0]] for k, v in run.items() if k != "lane1"}
     prefix["lane1"] = [c for c in run["lane1"] if c[0] < RARE_BLACK[0]]
-    return record, launches, (prefix, kept)
+    return record, launches, (prefix, kept), graphed
 
 
 def drive_stream(torch, new_stream, feeds):
@@ -1493,19 +1554,21 @@ def fleet_vip_phase(torch, np, tklt, dev, smi, single, seqs):
     # takes about a minute
     profile = chiptime.profile_phase(lambda s_, b_: step2(s_, b_, gens), st_prof, frames, start,
                                      1, "profile_fleet_vip.txt")
-    if "step.vi_ba" in profile["phases"] or (single and "step.vi_ba" in
-                                             single["profile"]["phases"]):
+    if "step.vi_ba" in profile["phases"] or (single and {"step.vi_ba", "step.graph.D"} & set(
+            single["profile"]["phases"])):
         raise AssertionError("a profile window holds a keyframe: the launch counts compare "
                              "unlike branches")
     profile["device_busy_share"] = profile["device_ms_per_frame"] / ms_frame
-    # on a partial run: a single stream's keyframe-free VI frame as phase 9
-    # of a whole run of this script read it on an NVIDIA H100
-    base = single["profile"]["launches_per_frame"] if single else 23957.0
+    # the single stream's kernels per frame: its launches when eager, the
+    # same kernels from a few graph launches when graphed (phase 9's
+    # default); on a partial run, a keyframe-free VI frame as phase 9 of a
+    # whole run of this script read it on an NVIDIA H100 80GB HBM3
+    base = single["profile"]["device_kernels_per_frame"] if single else 24050.0
     ratio = profile["launches_per_frame"] / base
     profile["launch_ratio_to_single"] = ratio
     log(f"  launches on the all-VI batched frame {start} (no stream makes a keyframe on it, as "
         f"on the single stream's profiled frames) {profile['launches_per_frame']:.0f} = "
-        f"{ratio:.2f}x a single stream's {base:.0f} (gate {FLEET_LAUNCH_RATIO}x; a loop over "
+        f"{ratio:.2f}x a single stream's {base:.0f} device kernels (gate {FLEET_LAUNCH_RATIO}x; a loop over "
         f"{S} streams would be {S}x); device busy {profile['device_ms_per_frame']:.1f} ms of "
         f"the unprofiled {ms_frame:.1f} ms batched frame = "
         f"{100 * profile['device_busy_share']:.1f}%")
@@ -2282,7 +2345,7 @@ class FirstTryLog:
         del self.step._vi_lane1
 
 
-def drive_vip_rare(torch, new_tracker, feeds, first=0, keep=(), keep_on=None):
+def drive_vip_rare(torch, new_tracker, feeds, first=0, keep=(), keep_on=None, on_frame=None):
     """A tracker from `new_tracker()` = (state, step) over `feeds` (frames
     `first`, `first` + 1, ...) one frame at a time, the step's first-try
     lane logged. Per frame: the label, the VIO flag, whether the frame
@@ -2292,7 +2355,9 @@ def drive_vip_rare(torch, new_tracker, feeds, first=0, keep=(), keep_on=None):
     frame. Returns (the step, the final state, the per-frame lists with
     the lane's (frame, label) calls under "lane1", {frame: a copy of the
     state after it} for the frames in `keep`, on `keep_on`, which
-    default to the state's device, copied outside the frames' timing)."""
+    default to the state's device, copied outside the frames' timing).
+    `on_frame(step, state, out)`, when given, is called after each frame's
+    timing."""
     run = {k: [] for k in ("states", "vios", "anchored", "new_kf", "Rs", "ts", "ms")}
     kept = {}
     st, step = new_tracker()
@@ -2311,6 +2376,8 @@ def drive_vip_rare(torch, new_tracker, feeds, first=0, keep=(), keep_on=None):
             run["ts"].append(out.tcw)
             if f in keep:
                 kept[f] = clone_vip_state(torch, st, keep_on)
+            if on_frame is not None:
+                on_frame(step, st, out)
     run["lane1"] = lane1.calls
     return step, st, run, kept
 
@@ -2514,7 +2581,10 @@ def vip_rare_phase(torch, np, tklt, dev, smi, seq, host_labels=None, prefix=None
         raise AssertionError(f"frame {FIRST_TRY_AFTER} of (a) is no WORKING VI frame")
     st_ft = clone_vip_state(torch, kept[FIRST_TRY_AFTER], dev)
     n_kf0 = int(st_ft.map.n_kf)
-    step_c = VipStep(cam, cfg, 64, device=dev)
+    # eager: the failure is forced by a patched `_vi_track` inside segment
+    # B, whose host read of the inliers no capture could take (lane 1 runs
+    # eagerly in both forms)
+    step_c = VipStep(cam, cfg, 64, device=dev, graphs=False)
     calls = []
     real = device_vip._vi_track
 
@@ -2796,6 +2866,243 @@ def bench_phase():
     return {"seconds": secs, "args": list(BENCH_ARGS), "line": line}
 
 
+class FrameRecord:
+    """Phase 21's record of a graphed main path's first `n` frames, taken
+    as phase 5's or 9's run goes (`on_frame`, outside the frames' timing):
+    per frame the output's and the state's bytes on the host, the label,
+    VIO flag, keyframe slot and recovery-anchor flag (before the frame),
+    and after it the step's host reads, the hand-kernel counters, the
+    graph captures and replays and the peak memory above the run's start.
+    The run's `ms` and its profile are added after it."""
+
+    def __init__(self, torch, tklt, n):
+        self.torch, self.tklt, self.n = torch, tklt, n
+        self.base = torch.cuda.memory_allocated()
+        self.bits, self.labels, self.vios, self.new_kf, self.tally = [], [], [], [], []
+        self.anchored = [False]
+        self.ms, self.profile, self.profile_frame = [], None, None
+
+    def __call__(self, step, st, out):
+        if len(self.bits) >= self.n:
+            return
+        torch, tklt, seg = self.torch, self.tklt, step.segments
+        self.bits.append((tree_bits(torch, out), tree_bits(torch, st)))
+        self.labels.append(int(out.state))
+        self.vios.append(bool(getattr(out, "vio_ok", True)))
+        self.new_kf.append(int(out.new_kf))
+        self.anchored.append(bool(getattr(st, "rec_frame", -1) >= 0))
+        self.tally.append(dict(
+            host_syncs=step.host_syncs, wide=tklt.refine_wide_calls,
+            launches={"extract_patches": tklt.patch_launches,
+                      "anchor_refine": tklt.refine_launches},
+            captures=seg.captures, replays=seg.replays, capture_seconds=seg.capture_seconds,
+            peak=torch.cuda.max_memory_allocated() - self.base))
+
+
+def hold_trace(profile, what):
+    """Fails unless the profiler's trace of a profile window holds exactly
+    the hand kernels' launches that their counters added over it: on a
+    graphed frame the counters add each replay's captured launches, and
+    the trace records the kernels the device ran. A capture inside the
+    window (its warm-up launches are not counted) fails it too."""
+    hk = profile["hand_kernels"]
+    bad = {k: (v["launches"], v["counted"]) for k, v in hk.items()
+           if v["launches"] != v["counted"] or v["counted"] <= 0}
+    if bad or profile["captures_in_window"]:
+        raise AssertionError(f"{what}: hand-kernel launches in the trace against the counters' "
+                             f"change {bad}, {profile['captures_in_window']} captures in the "
+                             f"window")
+
+
+GRAPH_FRAMES = {"vip": 34, "mono": 30}   # phase 21: the first frames of bench VIP and mono
+MONO_PROFILE_FRAME = 12                  # phase 7 profiles the frame after its 12-frame audit
+
+
+def tree_bits(torch, tree):
+    """Every tensor leaf of `tree` (a state, an output) as one flat byte
+    tensor on the host (each leaf copied over alone, so the card
+    allocates nothing): two trees hold the same bits iff these are
+    equal."""
+    from uvipslam_torch.core.tree import tree_leaves
+
+    return torch.cat([t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+                      for t in tree_leaves(tree)])
+
+
+def graphed_records(torch, np, tklt, dev, vseq, mseq):
+    """What phases 5, 7 and 9 hand phase 21 on a whole run, made alone
+    for `--only graphs`: each path's graphed FrameRecord over its first
+    GRAPH_FRAMES frames, and a profile of the frame phases 7 and 9
+    profile, from a second graphed run up to it (as they run it, after
+    their audits)."""
+    from uvipslam_torch.frontend.device_tracker import build_tracker
+    from uvipslam_torch.frontend.device_vip import build_vip_tracker, make_bundles
+    from uvipslam_torch.frontend.tracker import WORKING
+    from uvipslam_torch.utils import chiptime
+
+    cam, cfg = vip_cam_cfg(vseq.K)
+    _, mcam, mcfg, imgs = mono_inputs(torch, np, dev, mseq)
+    cases = {"vip": (lambda: build_vip_tracker(cam, cfg, kf_cap=64, pt_cap=8192, device=dev),
+                     make_bundles(vseq, device=dev)[:GRAPH_FRAMES["vip"]]),
+             "mono": (lambda: build_tracker(mcam, mcfg, kf_cap=64, pt_cap=8192, device=dev),
+                      imgs[:GRAPH_FRAMES["mono"]])}
+    records = {}
+    for name, (new_tracker, feeds) in cases.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(tklt)
+        rec = FrameRecord(torch, tklt, len(feeds))
+        rec.ms = chiptime.drive(new_tracker, feeds, on_frame=rec).frame_ms
+        f = MONO_PROFILE_FRAME if name == "mono" else next(
+            (f for f in range(VIP_AUDIT_FRAMES, len(feeds)) if rec.labels[f - 1] == WORKING
+             and rec.vios[f - 1] and rec.labels[f] == WORKING and rec.new_kf[f] < 0), None)
+        if f is not None:
+            st, step = new_tracker()
+            for x in feeds[:f]:
+                st, _ = step(st, x)
+            log(f"phase graphs {name} profile, graphed, frame {f}:")
+            rec.profile = chiptime.profile_phase(step, st, feeds, f, 1,
+                                                 f"profile_graphs_{name}_graphed.txt")
+            hold_trace(rec.profile, f"graphs {name}, the graphed frame {f}")
+            rec.profile_frame = f
+        records[name] = rec
+    return records
+
+
+def graphs_phase(torch, np, tklt, dev, smi, vseq, mseq, graphed):
+    """Phase 21: the graphed step against the eager one. `graphed` holds
+    the FrameRecords of phase 9's graphed run over bench VIP's first
+    GRAPH_FRAMES["vip"] frames (VIO init at frame 22, then VI keyframes)
+    and of phase 5's over bench mono's first GRAPH_FRAMES["mono"], with
+    the profiles of phases 9 and 7. One run of each with `graphs=False`
+    over the same frames must give every frame's output and state bit for
+    bit (the final state with them), the same host reads, the same
+    hand-kernel launches, equal to what the frames' branches imply, and no
+    wide-route refinement. The eager run's frame that phase 7 or 9
+    profiled (the same frame of a fresh run, so the same draws) goes
+    under torch.profiler from its state, its trace held to the counters.
+    Prints for both forms the ms per frame, the host's launch calls and
+    the device kernels per frame, the device's busy share, captures,
+    replays per frame and peak memory over the frames. Returns the
+    record."""
+    from uvipslam_torch.frontend.device_tracker import build_tracker
+    from uvipslam_torch.frontend.device_vip import build_vip_tracker, make_bundles
+    from uvipslam_torch.frontend.tracker import WORKING
+    from uvipslam_torch.utils import chiptime
+
+    cam, cfg = vip_cam_cfg(vseq.K)
+    _, mcam, mcfg, imgs = mono_inputs(torch, np, dev, mseq)
+    cases = {
+        "vip": (lambda: build_vip_tracker(cam, cfg, kf_cap=64, pt_cap=8192, device=dev,
+                                          graphs=False),
+                make_bundles(vseq, device=dev)[:GRAPH_FRAMES["vip"]],
+                orb_levels(*vseq.images.shape[1:])),
+        "mono": (lambda: build_tracker(mcam, mcfg, kf_cap=64, pt_cap=8192, device=dev,
+                                       graphs=False),
+                 imgs[:GRAPH_FRAMES["mono"]], orb_levels(*mseq.images.shape[1:]))}
+    record = {"card": smi}
+    for name, (new_tracker, feeds, n_levels) in cases.items():
+        g = graphed[name]
+        n = len(feeds)
+        if len(g.bits) != n:
+            raise AssertionError(f"graphs {name}: {len(g.bits)} graphed frames recorded, not {n}")
+        f_prof = g.profile_frame
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_launches(tklt)
+        st, step = new_tracker()
+        differ, labels, ms, before_prof = [], [], [], None
+        for f, x in enumerate(feeds):
+            t1 = time.perf_counter()
+            st, out = step(st, x)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            labels.append(int(out.state))
+            same = all(torch.equal(tree_bits(torch, a), b) for a, b in zip((out, st), g.bits[f]))
+            if not same:
+                differ.append(f)
+            if f_prof is not None and f == f_prof - 1:
+                before_prof = clone_vip_state(torch, st, "cpu")
+        peak = torch.cuda.max_memory_allocated() - base
+        launches, syncs = read_launches(tklt), step.host_syncs
+        if name == "vip":
+            expect = expected_launches_vip(g.labels, n_levels, g.anchored[:n])
+        else:
+            expect = expected_launches(g.labels, n_levels)
+        e_prof = None
+        if before_prof is not None:
+            log(f"phase graphs {name} profile, eager, frame {f_prof}:")
+            e_prof = chiptime.profile_phase(step, clone_vip_state(torch, before_prof, dev), feeds,
+                                            f_prof, 1, f"profile_graphs_{name}_eager.txt")
+            hold_trace(e_prof, f"graphs {name}, the eager frame {f_prof}")
+        last = g.tally[-1]
+        forms = {"eager": dict(ms=ms, host_syncs=syncs, launches=launches, captures=0,
+                               replays=0, capture_s=0.0, peak=peak, profile=e_prof),
+                 "graphed": dict(ms=g.ms[:n], host_syncs=last["host_syncs"],
+                                 launches=last["launches"], captures=last["captures"],
+                                 replays=last["replays"], capture_s=last["capture_seconds"],
+                                 peak=last["peak"], profile=g.profile)}
+        rec = {"frames": n, "labels": "".join(str(x) for x in g.labels),
+               "differing_frames": differ, "expected_launches": expect, "profile_frame": f_prof}
+        kf_free = [f for f in range(2, n) if g.new_kf[f] < 0 and g.labels[f] == WORKING
+                   and g.vios[f] and g.vios[f - 1]]
+        for form, r in forms.items():
+            med = statistics.median([r["ms"][f] for f in kf_free]) if kf_free else float("nan")
+            p = r["profile"]
+            rec[form] = dict(
+                ms_per_frame_all=sum(r["ms"]) / n, ms_keyframe_free_median=med,
+                host_reads_per_frame=r["host_syncs"] / n, launches=r["launches"],
+                captures=r["captures"], replays_per_frame=r["replays"] / n,
+                capture_seconds=r["capture_s"], peak_above_start_bytes=r["peak"],
+                host_launch_calls_per_frame=p["launches_per_frame"] if p else None,
+                graph_launches_per_frame=p["graph_launches_per_frame"] if p else None,
+                device_kernels_per_frame=p["device_kernels_per_frame"] if p else None,
+                device_ms_per_frame=p["device_ms_per_frame"] if p else None,
+                device_busy_share=p["device_ms_per_frame"] / med if p else None,
+                hand_kernels_traced=({k: v["launches"] for k, v in p["hand_kernels"].items()}
+                                     if p else None))
+            x = rec[form]
+            log(f"phase graphs {name} 512x640 / 400 tracks / {n} frames, {form}: "
+                f"{x['ms_per_frame_all']:.2f} ms/frame over all frames, keyframe-free WORKING "
+                f"frames' median {med:.2f} ms; host reads {x['host_reads_per_frame']:.3f}/frame; "
+                f"kernel launches {x['launches']} (expected {expect}); captures {x['captures']} "
+                f"({x['capture_seconds']:.2f} s), replays {x['replays_per_frame']:.2f}/frame; "
+                f"peak allocated {x['peak_above_start_bytes'] / 2**20:.1f} MiB above the "
+                f"run's start"
+                + (f"; frame {f_prof}: {x['host_launch_calls_per_frame']:.0f} host launch calls "
+                   f"({x['graph_launches_per_frame']:.0f} graph launches), "
+                   f"{x['device_kernels_per_frame']:.0f} device kernels, device busy "
+                   f"{x['device_ms_per_frame']:.2f} ms = {100 * x['device_busy_share']:.1f}% of "
+                   f"the median frame; hand kernels in the trace {x['hand_kernels_traced']}"
+                   if p else "; profile not read"))
+        log(f"  states {rec['labels']}; outputs and states bit for bit equal on "
+            f"{n - len(differ)}/{n} frames")
+        fails = []
+        if differ:
+            fails.append(f"graphed and eager differ on frames {differ[:10]}")
+        if labels != g.labels:
+            fails.append("labels differ")
+        if syncs != last["host_syncs"]:
+            fails.append(f"host reads {syncs} eager, {last['host_syncs']} graphed")
+        if not (launches == last["launches"] == expect) or min(expect.values()) <= 0 \
+                or last["wide"]:
+            fails.append(f"launches eager {launches}, graphed {last['launches']} "
+                         f"({last['wide']} wide), expected {expect}")
+        if last["captures"] <= 0 or last["replays"] < n:
+            fails.append(f"{last['captures']} captures, {last['replays']} replays")
+        if f_prof is None or e_prof is None:
+            fails.append("no profiled frame among the compared ones")
+        if fails:
+            raise AssertionError(f"graphs {name}: " + "; ".join(fails))
+        record[name] = rec
+        del st, step, before_prof
+        gc.collect()
+        torch.cuda.empty_cache()
+        mark(f"graphs_{name}")
+    return record
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "uvipslam_torch")):
         print("chip_smoke.py must run from a checkout holding uvipslam_torch/",
@@ -2867,8 +3174,8 @@ def run_phases(torch, np, dev, smi, renders) -> int:
         renders.submit(*[n for names, need in (
             (("stream_mono",), {"stream"}), (("stream_vip",), {"vip_stream"}),
             (FLEET_VIP_SEQS, {"fleet_vip", "shard"}), (FLEET_MONO_SEQS, {"fleet_mono"}),
-            (("vip",), {"app", "host_vip", "frontend_ops", "vip_rare", "fleet_rare"}),
-            (("mono",), {"fleet_rare"})) if need & set(only) for n in names])
+            (("vip",), {"app", "host_vip", "frontend_ops", "vip_rare", "fleet_rare", "graphs"}),
+            (("mono",), {"fleet_rare", "graphs"})) if need & set(only) for n in names])
 
     # -- phase 2: build ------------------------------------------------
     t0 = time.time()
@@ -2921,6 +3228,10 @@ def run_phases(torch, np, dev, smi, renders) -> int:
                     cam_m, cfg_m, kf_cap=64, pt_cap=8192, device=dev), imgs_m)
                 fleet_rare_phase(torch, np, tklt, dev, smi, vseq, {"black": rare_labels}, mono,
                                  reloc)
+        if "graphs" in only:
+            vseq, mseq = renders.get("vip"), renders.get("mono")
+            graphs_phase(torch, np, tklt, dev, smi, vseq, mseq,
+                         graphed_records(torch, np, tklt, dev, vseq, mseq))
         log("phase end times (s since start): " + ", ".join(f"{k} {v}" for k, v in MARKS.items()))
         log("partial run (--only): no result line")
         return 0
@@ -2976,7 +3287,9 @@ def run_phases(torch, np, dev, smi, renders) -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(tklt)
-    first = chiptime.drive(new_tracker, imgs)
+    mono_graphed = FrameRecord(torch, tklt, GRAPH_FRAMES["mono"])
+    first = chiptime.drive(new_tracker, imgs, on_frame=mono_graphed)
+    mono_graphed.ms = first.frame_ms[:mono_graphed.n]
     launches = read_launches(tklt)
     step, states, Rs, ts, frame_ms = first.step, first.states, first.Rs, first.ts, first.frame_ms
     syncs = step.host_syncs
@@ -3011,12 +3324,13 @@ def run_phases(torch, np, dev, smi, renders) -> int:
     mark("mono_step")
 
     # -- phase 6: sync audit ----------------------------------------------
-    audit_frames = 12
+    audit_frames = MONO_PROFILE_FRAME
     st_a, step_a = new_tracker()
-    real, where, st_a = sync_audit(torch, step_a, st_a, imgs, audit_frames)
+    real, where, st_a, in_captures = sync_audit(torch, step_a, st_a, imgs, audit_frames)
     log(f"phase sync audit ({audit_frames} frames): {len(real) / audit_frames:.2f} "
         f"synchronizing calls/frame seen by torch.cuda sync-debug mode, "
-        f"{step_a.host_syncs / audit_frames:.2f}/frame counted by the step")
+        f"{step_a.host_syncs / audit_frames:.2f}/frame counted by the step; {in_captures} "
+        f"more inside its {step_a.segments.captures} graph captures")
     log("  by call site: " + ", ".join(f"{k} x{v}" for k, v in sorted(
         where.items(), key=lambda kv: -kv[1])[:12]))
 
@@ -3025,6 +3339,8 @@ def run_phases(torch, np, dev, smi, renders) -> int:
     log("phase profile:")
     profile = chiptime.profile_phase(step_a, st_a, imgs, audit_frames, PROFILE_FRAMES,
                                      "profile.txt")
+    hold_trace(profile, f"phase profile, frame {audit_frames}")
+    mono_graphed.profile, mono_graphed.profile_frame = profile, audit_frames
     mark("mono_profile")
     # device time does not depend on the profiler; the host clock does
     profile["device_idle_share"] = 1.0 - profile["device_ms_per_frame"] / med
@@ -3044,7 +3360,8 @@ def run_phases(torch, np, dev, smi, renders) -> int:
     vip_seq = renders.get("vip")
     renders.wait_all()
     mark("vip_sequence")
-    vip_record, vip_launches, rare_prefix = vip_phase(torch, np, tklt, dev, smi, vip_seq)
+    vip_record, vip_launches, rare_prefix, vip_graphed = vip_phase(torch, np, tklt, dev, smi,
+                                                                   vip_seq)
 
     # -- phases 10 and 11: the streams with loop closing -----------------------
     stream_record, stream_launches = stream_mono_phase(torch, np, tklt, dev, smi,
@@ -3084,6 +3401,11 @@ def run_phases(torch, np, dev, smi, renders) -> int:
     # -- phase 20: the port's bench as a user runs it -------------------------------
     bench_record = bench_phase()
 
+    # -- phase 21: the graphed step against the eager one ---------------------------
+    graphs_record = graphs_phase(torch, np, tklt, dev, smi, vip_seq, seq,
+                                 {"vip": vip_graphed, "mono": mono_graphed})
+    del vip_graphed, mono_graphed
+
     log("phase end times (s since start): " + ", ".join(f"{k} {v}" for k, v in MARKS.items()))
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "uvipslam_tpu"))
     if foreign:
@@ -3100,6 +3422,10 @@ def run_phases(torch, np, dev, smi, renders) -> int:
     # the VIP step is the system's main path; every path's own counts are
     # read from zero just before it and just after it. No single PyTorch
     # call computes either function (library_ms null)
+    counted_as = ("launches of the wrapper on eager frames; on graphed WORKING frames (the "
+                  "default of the single-stream steps) each captured graph's launches times "
+                  "its replays, held to the profiler trace's kernel records on the profiled "
+                  "graphed frames of phases 7 and 9 (vip_profile_frame_launches)")
     record = {"kernels": [{
         "name": "extract_patches",
         "route": "cuda",
@@ -3107,6 +3433,9 @@ def run_phases(torch, np, dev, smi, renders) -> int:
         "replaces": "uvipslam_tpu/ops/klt.py:230",
         "launches": vip_launches["extract_patches"],
         "launches_by_path": {k: v["extract_patches"] for k, v in by_path.items()},
+        "launches_counted_as": counted_as,
+        "vip_profile_frame_launches": {k: vip_hand["extract_patches_kernel"][k]
+                                       for k in ("launches", "counted")},
         "max_abs_err": patch_err,
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
@@ -3128,6 +3457,9 @@ def run_phases(torch, np, dev, smi, renders) -> int:
         "replaces": "uvipslam_tpu/ops/klt.py:230",
         "launches": vip_launches["anchor_refine"],
         "launches_by_path": {k: v["anchor_refine"] for k, v in by_path.items()},
+        "launches_counted_as": counted_as,
+        "vip_profile_frame_launches": {k: vip_hand["anchor_refine_kernel"][k]
+                                       for k in ("launches", "counted")},
         "max_abs_err": refine_err,
         "ms": full["ms"],
         "plain_ms": full["plain_ms"],
@@ -3157,7 +3489,7 @@ def run_phases(torch, np, dev, smi, renders) -> int:
                    "replay_mono": mfleet_record, "app": app_record,
                    "host_vip_blackout": blackout_record, "frontend_ops": fops_record,
                    "shard": shard_record, "vip_rare": rare_record, "fleet_rare": frare_record,
-                   "bench": bench_record, "phase_end_s": MARKS}
+                   "bench": bench_record, "graphs": graphs_record, "phase_end_s": MARKS}
     print(json.dumps(step_record), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

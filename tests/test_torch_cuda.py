@@ -463,3 +463,137 @@ def test_vip_blackout_on_card_matches_cpu(cuda_device, monkeypatch):
     assert card == cpu, (card, cpu)
     assert cpu[black[0]] == IMU_RELOC and cpu[-1] == WORKING, cpu
     assert cpu_launched == (0, 0) and min(card_launched) > 0, card_launched
+
+
+def _bits(tree):
+    """Every tensor leaf of a state or output as one flat byte tensor."""
+    from uvipslam_torch.core.tree import tree_leaves
+
+    return torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8)
+                      for t in tree_leaves(tree)])
+
+
+def _graph_runs(mode, device):
+    """The parity sequences of tests/test_torch_vip.py (40 frames, VIO init
+    and VI keyframes) and tests/test_torch_step.py (20 frames) at 120x160
+    on the card, eager and graphed: per form the per-frame outputs and
+    states, the step and the hand-kernel counters."""
+    import numpy as np
+
+    from uvipslam_torch.frontend import device_tracker, device_vip
+    from uvipslam_torch.frontend.tracker import TrackerConfig
+    from uvipslam_torch.frontend.vip_tracker import VipConfig
+    from uvipslam_torch.io.synthetic import make_sequence
+    from uvipslam_torch.models.camera import CameraModel
+
+    if mode == "vip":
+        seq = make_sequence(n_frames=40, H=120, W=160, n_points=800, seed=3, speed=1.2,
+                            gyr_noise=0.005, acc_noise=0.05, gyr_bias=(0.004, -0.006, 0.003),
+                            depth_noise=0.02, z_amp=0.5)
+        cfg = VipConfig(n_tracks=100, min_init_tracks=60, local_window=6, gyr_noise_sd=0.01,
+                        acc_noise_sd=0.1, depth_noise_sd=0.05, vio_init_min_kfs=5,
+                        vio_init_min_time=1.0, imu_cap_per_kf=256)
+        feeds = device_vip.make_bundles(seq, device=device)
+    else:
+        seq = make_sequence(n_frames=20, H=120, W=160, n_points=800, seed=3, speed=1.2)
+        cfg = TrackerConfig(n_tracks=100, min_init_tracks=60, local_window=8)
+        feeds = torch.from_numpy(seq.images.astype(np.float32)).to(device)
+    cam = CameraModel.create(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2], width=160,
+                             height=120)
+    build = device_vip.build_vip_tracker if mode == "vip" else device_tracker.build_tracker
+    runs = {}
+    for form, graphs in (("eager", False), ("graphed", None)):
+        st, step = build(cam, cfg, 16, 1024, device=device, graphs=graphs)
+        before = (klt.patch_launches, klt.refine_launches, klt.refine_wide_calls)
+        outs, states = [], []
+        for x in feeds:
+            st, out = step(st, x)
+            outs.append(out)
+            states.append(st)
+        torch.cuda.synchronize()
+        counts = tuple(a - b for a, b in zip(
+            (klt.patch_launches, klt.refine_launches, klt.refine_wide_calls), before))
+        runs[form] = (outs, states, step, counts)
+    return runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["vip", "mono"])
+def test_graphed_step_equals_eager_on_card(cuda_device, mode):
+    """The step's WORKING segments replayed from captured CUDA graphs (the
+    default on the card) against `graphs=False` on the 120x160 parity
+    sequences: every frame's output and state bit for bit equal, the
+    same host reads and hand-kernel launches, no wide-route refinement;
+    the graphed run captured and replayed, and its returned states did
+    not change under later frames."""
+    from uvipslam_torch.frontend.tracker import WORKING
+
+    runs = _graph_runs(mode, cuda_device)
+    (e_outs, e_states, e_step, e_counts) = runs["eager"]
+    (g_outs, g_states, g_step, g_counts) = runs["graphed"]
+    assert not e_step.graphs and g_step.graphs
+    for f in range(len(e_outs)):
+        assert torch.equal(_bits(e_outs[f]), _bits(g_outs[f])), f
+        assert torch.equal(_bits(e_states[f]), _bits(g_states[f])), f
+    assert e_step.host_syncs == g_step.host_syncs
+    assert e_counts == g_counts and min(e_counts[:2]) > 0 and e_counts[2] == 0, (e_counts,
+                                                                                 g_counts)
+    labels = [int(o.state) for o in g_outs]
+    assert labels[-1] == WORKING
+    if mode == "vip":
+        assert any(bool(o.vio_ok) for o in g_outs)
+        assert ("D", True) in g_step.segments.keys     # a VI keyframe was graphed
+    seg = g_step.segments
+    assert seg.captures == len(seg.graphs) >= len(seg.keys) > 0 and seg.replays > len(g_outs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["host_read", "host_to_device_copy"])
+def test_graph_capture_of_a_syncing_segment_raises(cuda_device, fault):
+    """A segment that reads a value to the host, or makes a tensor from
+    host memory, cannot be captured: the helper raises naming the key,
+    and the device stays usable."""
+    from uvipslam_torch.utils.graphs import SegmentError, Segments
+
+    seg = Segments(cuda_device)
+
+    def fn(x):
+        if fault == "host_read":
+            return x * float(x.sum())
+        return x + torch.tensor([1.0, 2.0, 3.0], device=x.device)
+
+    x = torch.arange(3.0, device=cuda_device)
+    with pytest.raises(SegmentError, match="'bad'"):
+        seg.run(("bad", fault), fn, x)
+    assert not seg.graphs and seg.captures == 0
+    y = seg.run(("good",), lambda t: t * 2.0, x)
+    assert torch.equal(y, x * 2.0) and seg.replays == 1
+
+
+@pytest.mark.cuda
+def test_graphed_step_raises_on_a_syncing_stage(cuda_device, monkeypatch):
+    """A stage of segment B that makes a host read fails the step's
+    capture loudly (SegmentError naming the key); nothing carries on
+    eagerly."""
+    from uvipslam_torch.frontend import device_tracker
+    from uvipslam_torch.frontend.tracker import TrackerConfig
+    from uvipslam_torch.io.synthetic import make_sequence
+    from uvipslam_torch.models.camera import CameraModel
+    from uvipslam_torch.utils.graphs import SegmentError
+
+    seq = make_sequence(n_frames=6, H=120, W=160, n_points=800, seed=3, speed=1.2)
+    cam = CameraModel.create(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2], width=160,
+                             height=120)
+    st, step = device_tracker.build_tracker(cam, TrackerConfig(n_tracks=100, min_init_tracks=60),
+                                            16, 1024, device=cuda_device)
+    real = step._working_solve
+
+    def syncing(s):
+        int(s.frame_id)            # a host read
+        return real(s)
+
+    monkeypatch.setattr(step, "_working_solve", syncing)
+    with pytest.raises(SegmentError, match=r"\('B',\)"):
+        for img in seq.images:
+            st, _ = step(st, torch.from_numpy(img.astype("float32")).to(cuda_device))
+    assert ("B",) not in step.segments.keys

@@ -38,7 +38,7 @@ def test_import_every_module_without_jax():
               "frontend.stream", "loop.closer", "loop.clusters", "loop.dbscan", "ops.sim3solver",
               "solver.essential_graph", "parallel", "parallel.replay", "app", "io.config",
               "io.bag", "io.trajectory", "io.evaluate", "io.checkpoint", "utils.metrics",
-              "utils.chiptime", "viz", "viz.publishers"):
+              "utils.chiptime", "utils.graphs", "viz", "viz.publishers"):
         assert "uvipslam_torch." + m in mods, m
     code = ("import importlib, importlib.util, sys\n"
             f"for m in {mods + ['chip_smoke', 'bench_torch']!r}: importlib.import_module(m)\n"

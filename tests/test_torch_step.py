@@ -84,21 +84,59 @@ def jax_run(seq):
                     tracks0=tracks0, carried=carried)
 
 
-@pytest.fixture(scope="module")
-def torch_run(seq):
+def _port_run(seq, graphs):
+    """The port's step over the sequence on the CPU, eager or graphed (the
+    plain form of its captured segments): per-frame labels, centres,
+    outputs and states."""
     cam = TCam.create(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2],
                       width=160, height=120)
-    st, step = tdt.build_tracker(cam, ttr.TrackerConfig(**CFG), KF_CAP, PT_CAP, device="cpu")
-    states, Rs, ts = [], [], []
+    st, step = tdt.build_tracker(cam, ttr.TrackerConfig(**CFG), KF_CAP, PT_CAP, device="cpu",
+                                 graphs=graphs)
+    states, Rs, ts, outs, frames = [], [], [], [], []
     for f in range(N_FRAMES):
         st, out = step(st, torch.from_numpy(seq.images[f].astype(np.float32)))
         states.append(int(out.state))
         Rs.append(out.Rcw.numpy())
         ts.append(out.tcw.numpy())
+        outs.append(out)
+        frames.append(st)
         if f == 0:
             tracks0 = st.tracks
-    return dict(cam=cam, states=np.asarray(states), C=_centers(Rs, ts), tracks0=tracks0,
-                syncs=step.host_syncs)
+    return dict(cam=cam, step=step, states=np.asarray(states), C=_centers(Rs, ts),
+                tracks0=tracks0, syncs=step.host_syncs, outs=outs, frames=frames)
+
+
+@pytest.fixture(scope="module")
+def torch_run(seq):
+    return _port_run(seq, graphs=False)
+
+
+@pytest.fixture(scope="module")
+def torch_graph_run(seq):
+    return _port_run(seq, graphs=True)
+
+
+def test_graphed_run_equals_eager_bit_for_bit(torch_run, torch_graph_run):
+    """The graphed step (segments A-E in their plain CPU form) gives the
+    eager step's outputs and states bit for bit on every frame, keyframes
+    included, with the same host reads."""
+    g = torch_graph_run
+    assert g["step"].graphs and not torch_run["step"].graphs
+    for f in range(N_FRAMES):
+        for tree in ("outs", "frames"):
+            for (name, a), (_, b) in zip(_leaves(torch_run[tree][f]), _leaves(g[tree][f])):
+                assert torch.equal(a.contiguous().view(-1).view(torch.uint8),
+                                   b.contiguous().view(-1).view(torch.uint8)), (f, tree, name)
+    assert g["syncs"] == torch_run["syncs"]
+    assert {("B",), ("C", False), ("C", True), ("D",), ("E",)} <= g["step"].segments.keys
+
+
+def test_graphed_run_against_reference(seq, jax_run, torch_graph_run):
+    """The graphed run held to the reference as the eager run is."""
+    test_frame0_tracks_equal(jax_run, torch_graph_run)
+    test_working_onset_and_no_lost(jax_run, torch_graph_run)
+    test_trajectories_gated_and_agree(seq, jax_run, torch_graph_run)
+    test_host_syncs_counted(torch_graph_run)
 
 
 def test_frame0_tracks_equal(jax_run, torch_run):

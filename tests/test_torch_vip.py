@@ -115,24 +115,40 @@ def jax_run(seq):
                     final=final, try_init_vio=jax.jit(closure["try_init_vio"]))
 
 
-@pytest.fixture(scope="module")
-def torch_run(seq):
+def _port_run(seq, graphs):
+    """The port's step over the sequence on the CPU, eager or graphed (the
+    plain form of its captured segments): per-frame labels, VIO flags,
+    centres, outputs and states."""
     cam = TCam.create(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2], width=W, height=H)
-    st, step = tdv.build_vip_tracker(cam, tvt.VipConfig(**CFG), KF_CAP, PT_CAP, device="cpu")
-    states, vios, C = [], [], []
+    st, step = tdv.build_vip_tracker(cam, tvt.VipConfig(**CFG), KF_CAP, PT_CAP, device="cpu",
+                                     graphs=graphs)
+    states, vios, C, outs, frames = [], [], [], [], []
     for f, b in enumerate(tdv.make_bundles(seq, device="cpu")):
         st, out = step(st, b)
         states.append(int(out.state))
         vios.append(bool(out.vio_ok))
         C.append(_centre(out.Rcw.numpy(), out.tcw.numpy()))
+        outs.append(out)
+        frames.append(st)
         if f == 0:
             tracks0 = st.tracks
     return dict(cam=cam, step=step, states=np.asarray(states), vios=np.asarray(vios),
-                C=np.asarray(C), tracks0=tracks0, syncs=step.host_syncs)
+                C=np.asarray(C), tracks0=tracks0, syncs=step.host_syncs, outs=outs,
+                frames=frames)
 
 
-def test_frame0_tracks_equal(jax_run, torch_run):
-    tj, tt = jax_run["tracks0"], torch_run["tracks0"]
+@pytest.fixture(scope="module")
+def torch_run(seq):
+    return _port_run(seq, graphs=False)
+
+
+@pytest.fixture(scope="module")
+def torch_graph_run(seq):
+    return _port_run(seq, graphs=True)
+
+
+def _frame0_tracks_equal(jax_run, run):
+    tj, tt = jax_run["tracks0"], run["tracks0"]
     for f in ("xy", "desc", "level", "valid", "pt_id", "birth_frame"):
         np.testing.assert_array_equal(getattr(tt, f).numpy(), getattr(tj, f), err_msg=f)
     for f in ("xy_und", "tpl", "tpl2"):
@@ -140,9 +156,38 @@ def test_frame0_tracks_equal(jax_run, torch_run):
                                    err_msg=f)
 
 
+def test_frame0_tracks_equal(jax_run, torch_run):
+    _frame0_tracks_equal(jax_run, torch_run)
+
+
 def test_vio_init_working_and_metric_ate(seq, jax_run, torch_run):
+    _vio_init_working_and_metric_ate(seq, jax_run, torch_run)
+
+
+def test_graphed_run_equals_eager_bit_for_bit(torch_run, torch_graph_run):
+    """The graphed step (segments A-E in their plain CPU form) gives the
+    eager step's outputs and states bit for bit on every frame, through
+    VIO init and the VI keyframes, with the same host reads."""
+    g = torch_graph_run
+    assert g["step"].graphs and not torch_run["step"].graphs
+    for f in range(N_FRAMES):
+        for tree in ("outs", "frames"):
+            for (name, a), (_, b) in zip(_leaves(torch_run[tree][f]), _leaves(g[tree][f])):
+                assert torch.equal(a.contiguous().view(-1).view(torch.uint8),
+                                   b.contiguous().view(-1).view(torch.uint8)), (f, tree, name)
+    assert g["syncs"] == torch_run["syncs"]
+    assert g["vios"].any() and ("D", True) in g["step"].segments.keys   # a VI keyframe
+
+
+def test_graphed_run_against_reference(seq, jax_run, torch_graph_run):
+    """The graphed run held to the reference as the eager run is."""
+    _frame0_tracks_equal(jax_run, torch_graph_run)
+    _vio_init_working_and_metric_ate(seq, jax_run, torch_graph_run)
+
+
+def _vio_init_working_and_metric_ate(seq, jax_run, port):
     spans = {}
-    for name, run in (("reference", jax_run), ("port", torch_run)):
+    for name, run in (("reference", jax_run), ("port", port)):
         assert run["vios"].any(), name
         working = run["states"] == ttr.WORKING
         assert working.sum() >= 0.8 * N_FRAMES, (name, run["states"])
@@ -158,10 +203,10 @@ def test_vio_init_working_and_metric_ate(seq, jax_run, torch_run):
     both = np.intersect1d(spans["reference"][1], spans["port"][1])
     gt = seq.positions_w[both]
     span = float(np.linalg.norm(gt[-1] - gt[0]))
-    mutual, _ = ate_rmse(torch_run["C"][both], jax_run["C"][both])
+    mutual, _ = ate_rmse(port["C"][both], jax_run["C"][both])
     assert mutual < 0.04 * span, (mutual, span)
     # one state read per frame plus the branch decisions
-    assert N_FRAMES < torch_run["syncs"] <= 4 * N_FRAMES
+    assert N_FRAMES < port["syncs"] <= 4 * N_FRAMES
 
 
 def test_first_try_lane_forces_a_keyframe(jax_run, torch_run, seq, monkeypatch):

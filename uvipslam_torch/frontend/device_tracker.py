@@ -12,8 +12,27 @@ conditions are ready together: per frame the state (1), then in
 INITIALIZING the (ok, stale) pair, in NOT_INITIALIZED the go flag, in
 WORKING the (lost, need_kf) pair, in LOST the accept flag, and on
 keyframe frames the compaction flag of the map hygiene.
-`MonoStep.host_syncs` counts them. Removing them (CUDA graphs over
-device-side predication) is later work.
+`MonoStep.host_syncs` counts them.
+
+The reference compiles the whole step into one program (`jax.jit`). Its
+counterpart here is `MonoStep(graphs=...)` (on by default on a CUDA
+device): a WORKING frame, cut at its host reads, replays captured CUDA
+graphs (`utils.graphs.Segments`), each segment keyed by the Python values
+that pick its path: A, the images and the frame id (every frame, before
+the state read); B, after the RANSAC uniforms are drawn eagerly (a
+captured graph must not consume the generator), the propagation and the
+pose + local-map solve up to the (lost, need_kf) read; C, the solve
+taken with the refill and refresh, and on a keyframe-free frame the ring
+and the output; on a keyframe frame D, triangulation, the keyframe, the
+window BA and the hygiene up to the compaction read (the compaction runs
+eagerly when it is due), and E, the keyframe's bookkeeping, the ring and
+the output. With `graphs=False` the same segments are called eagerly, so
+both forms compose the frame alike; the graphed frame launches the same
+kernels on the same inputs and gives the eager step's outputs and states
+bit for bit, with the same host reads. NOT_INITIALIZED, INITIALIZING,
+LOST and a WORKING frame that turns LOST stay eager after A: they are
+rare, their two-view and relocalization draw from the generator inside,
+and each would be graphs of its own. `MonoFleetStep` stays eager.
 
 Each phase runs inside a `torch.profiler.record_function` span named
 `step.<phase>` (propagate, refill, two_view_init, pose_localmap,
@@ -52,6 +71,7 @@ from uvipslam_torch.models.camera import CameraModel
 from uvipslam_torch.ops.clahe import clahe
 from uvipslam_torch.ops.klt import build_flow_pyramid
 from uvipslam_torch.ops.twoview import draw_uniform, initialize_two_view
+from uvipslam_torch.utils.graphs import Segments
 
 RING = 64
 
@@ -153,12 +173,18 @@ def init_state(cfg: TrackerConfig, kf_cap: int, pt_cap: int, height: int, width:
 class MonoStep:
     """The per-frame step of the device mono tracker (no weights, so no
     nn.Module): `st, out = step(st, img)`. Counts its host reads in
-    `host_syncs`."""
+    `host_syncs`. `graphs` (default: on for a CUDA device, off on the
+    CPU) replays the WORKING frames' segments as captured graphs
+    (`self.segments`, a `utils.graphs.Segments`); off, the same segments
+    run eagerly; `graphs=True` on the CPU runs their plain form."""
 
-    def __init__(self, cam: CameraModel, cfg: TrackerConfig, device="cuda"):
+    def __init__(self, cam: CameraModel, cfg: TrackerConfig, device="cuda",
+                 graphs: bool | None = None):
         self.cam = cam
         self.cfg = cfg
         self.device = step_device(device)
+        self.graphs = self.device.type == "cuda" if graphs is None else bool(graphs)
+        self.segments = Segments(self.device, graphs=self.graphs)
         self.scale_sigmas = torch.tensor(cfg.scale_sigmas, dtype=torch.float32).to(self.device)
         self.K = torch.as_tensor(cam.K).to(self.device)
         self.host_syncs = 0
@@ -336,17 +362,6 @@ class MonoStep:
         return dataclasses.replace(st, tracks=tracks, Rcw=Rcw, tcw=t1,
                                    R_vel=lie.normalize_rotation(R_vel), t_vel=t_vel)
 
-    def _working(self, st: TrackerState, img):
-        ml, flags = self._working_solve(st)
-        lost, need = self._read(*flags)
-        if lost:
-            return self._state(st, LOST), LOST
-        st = self._working_apply(st, ml, img)
-        if need:
-            with record_function("step.keyframe"):
-                st = self._create_kf(st)
-        return st, WORKING
-
     def _kf_front(self, st: TrackerState):
         """Triangulation, the keyframe, the window BA, its pose adopted,
         and the map hygiene up to its compaction flag (returned beside the
@@ -379,12 +394,6 @@ class MonoStep:
         return dataclasses.replace(
             st, n_ref_tracked=torch.sum(t.valid & (t.pt_id >= 0)).to(torch.int32))
 
-    def _create_kf(self, st: TrackerState) -> TrackerState:
-        st, compact = self._kf_front(st)
-        if self.cfg.map_hygiene and self._read_bool(compact):
-            st = self._compact(st)
-        return self._kf_finish(st)
-
     def _relocalize(self, st, img):
         """A fresh detection, relocalized against the map
         (`relocalize_pose`)."""
@@ -410,13 +419,15 @@ class MonoStep:
             state=_i32(WORKING, dev)), WORKING
 
     # ------------------------------------------------------------------
-    def __call__(self, st: TrackerState, img: torch.Tensor):
-        """One frame. The RANSAC minimal samples draw from `st.gen`."""
+    def _start(self, st: TrackerState, img):
+        """Segment A: the frame's images and its id."""
         img, pyr = self._images(img)
-        st = dataclasses.replace(st, frame_id=st.frame_id + 1)
+        return dataclasses.replace(st, frame_id=st.frame_id + 1), img, pyr
 
-        state = self._read(st.state)
-        if state in (INITIALIZING, WORKING):
+    def _frame(self, st: TrackerState, img, pyr, state: int):
+        """A frame that starts in another state than WORKING, after A
+        (eager)."""
+        if state == INITIALIZING:
             with record_function("step.propagate"):
                 u = draw_uniform(st.gen, 200, self.cfg.n_tracks, self.device)
                 st = dataclasses.replace(st, tracks=self._propagate(st, pyr, u))
@@ -425,11 +436,56 @@ class MonoStep:
             st, _ = self._not_initialized(st, img)
         elif state == INITIALIZING:
             st, _ = self._initializing(st, img)
-        elif state == WORKING:
-            st, _ = self._working(st, img)
         else:
             st, _ = self._lost(st, img)
         return self._ring_and_out(st, pyr)
+
+    # -- the WORKING frame's segments (see the module docstring) ----------
+    def _working_body(self, st: TrackerState, pyr, u):
+        """Segment B: propagation and the WORKING solve with its (lost,
+        need-keyframe) flags."""
+        with record_function("step.propagate"):
+            st = dataclasses.replace(st, tracks=self._propagate(st, pyr, u))
+        ml, flags = self._working_solve(st)
+        return st, ml, flags
+
+    def _accept(self, st: TrackerState, ml, img, pyr, need: bool):
+        """Segment C: the solve taken, refill and refresh; without a
+        keyframe also the ring and the output."""
+        st = self._working_apply(st, ml, img)
+        return st if need else self._ring_and_out(st, pyr)
+
+    def _kf_end(self, st: TrackerState, pyr):
+        """Segment E: the keyframe's bookkeeping, the ring and the output."""
+        return self._ring_and_out(self._kf_finish(st), pyr)
+
+    def __call__(self, st: TrackerState, img: torch.Tensor):
+        """One frame. The RANSAC minimal samples draw from `st.gen`. A
+        WORKING frame runs segments A-E, replayed from captured graphs
+        when `graphs` is on and called eagerly when it is off; every
+        other branch runs eagerly after A."""
+        seg, gen = self.segments, st.gen
+        st, img, pyr = seg.run(("A",), self._start, dataclasses.replace(st, gen=None), img)
+        state = self._read(st.state)
+        st = dataclasses.replace(st, gen=gen)
+        if state != WORKING:
+            return self._frame(st, img, pyr, state)
+        u = draw_uniform(gen, 200, self.cfg.n_tracks, self.device)
+        st, ml, flags = seg.run(("B",), self._working_body, dataclasses.replace(st, gen=None),
+                                pyr, u)
+        lost, need = self._read(*flags)
+        if lost:
+            return self._ring_and_out(self._state(dataclasses.replace(st, gen=gen), LOST), pyr)
+        need = bool(need)
+        st = seg.run(("C", need), lambda *a: self._accept(*a, need=need), st, ml, img, pyr)
+        if need:
+            with record_function("step.keyframe"):
+                st, compact = seg.run(("D",), self._kf_front, st)
+                if self.cfg.map_hygiene and self._read_bool(compact):
+                    st = self._compact(st)
+                st = seg.run(("E",), self._kf_end, st, pyr)
+        st, out = st
+        return dataclasses.replace(st, gen=gen), out
 
 
 class Fleet:
@@ -497,7 +553,7 @@ class MonoFleetStep(Fleet):
     relocalization run per stream through `MonoStep`'s own code."""
 
     def __init__(self, cam: CameraModel, cfg: TrackerConfig, device="cuda"):
-        super().__init__(MonoStep(cam, cfg, device=device))
+        super().__init__(MonoStep(cam, cfg, device=device, graphs=False))
 
     def __call__(self, st: TrackerState, imgs: torch.Tensor, gens):
         one, cfg, dev = self.one, self.cfg, self.device
@@ -595,11 +651,11 @@ def relocalize_pose(tracks, m: MapState, gen, cam: CameraModel, scale_sigmas):
 
 
 def build_tracker(cam: CameraModel, cfg: TrackerConfig, kf_cap: int, pt_cap: int,
-                  device="cuda", seed: int = 0):
+                  device="cuda", seed: int = 0, graphs: bool | None = None):
     """Returns (state0, step) with step = MonoStep(...), on the card
-    unless `device` names another."""
+    unless `device` names another; `graphs` as `MonoStep` takes it."""
     st0 = init_state(cfg, kf_cap, pt_cap, cam.height, cam.width, seed=seed, device=device)
-    return st0, MonoStep(cam, cfg, device=device)
+    return st0, MonoStep(cam, cfg, device=device, graphs=graphs)
 
 
 def run_sequence(cam: CameraModel, cfg: TrackerConfig, images, kf_cap: int = 64,

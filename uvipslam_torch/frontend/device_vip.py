@@ -28,6 +28,34 @@ batched where the conditions are ready together: per frame (state,
 vio_ok, recovery anchor set), then the branch's own decision, and on
 keyframe frames the VIO-init trigger and the hygiene compaction flag.
 Each stage runs in a `torch.profiler.record_function` span `step.<stage>`.
+
+The reference's step is one jitted program per frame bundle. Its
+counterpart here is `VipStep(graphs=...)` (on by default on a CUDA
+device): a WORKING frame, cut at its host reads, replays captured CUDA
+graphs (`utils.graphs.Segments`), each segment keyed by the Python values
+that pick its path:
+
+- A, every frame: the images and the inertial prediction, up to the
+  (state, vio_ok, anchor) read. The bundle is copied into A's static
+  inputs outside the graph (a host bundle's upload cannot be captured);
+- B (vio_ok), after the RANSAC uniforms are drawn eagerly (a captured
+  graph must not consume the generator): propagation, detection, and VI
+  lane 0 or, before VIO init, the mono seed solve, up to the (ok, need)
+  or (lost, need) read;
+- C (vio_ok, need): the solve taken; without a keyframe also the ring and
+  the output;
+- D (hygiene), a VI keyframe: the keyframe and the window BA up to the
+  compaction read (the compaction runs eagerly when it is due); E: the
+  keyframe's bookkeeping, the ring and the output.
+
+With `graphs=False` the same segments are called eagerly, so both forms
+compose the frame alike; the graphed frame launches the same kernels on
+the same inputs and gives the eager step's outputs and states bit for
+bit, with the same host reads. These stay eager, after A: NOT_INITIALIZED, INITIALIZING, LOST and
+IMU_RELOC (rare; their two-view and relocalization draw from the
+generator inside), lane 1 after a failed VI solve, the pre-VIO keyframe
+with its VIO-init trigger read, and the VIO-init frame (`_try_init_vio`,
+~0.4M launches once per run). `VipFleetStep` stays eager.
 """
 
 from __future__ import annotations
@@ -63,6 +91,7 @@ from uvipslam_torch.ops.clahe import clahe
 from uvipslam_torch.ops.klt import build_flow_pyramid
 from uvipslam_torch.ops.twoview import draw_uniform, initialize_two_view
 from uvipslam_torch.solver.global_ba import global_ba_visual
+from uvipslam_torch.utils.graphs import Segments
 from uvipslam_torch.vio import init as vio_init
 
 
@@ -191,13 +220,20 @@ class _Ctl:
 
 class VipStep:
     """The per-frame step of the device VIP tracker:
-    `st, out = step(st, bundle)`. Counts its host reads in `host_syncs`."""
+    `st, out = step(st, bundle)`. Counts its host reads in `host_syncs`.
+    `graphs` (default: on for a CUDA device, off on the CPU) replays the
+    WORKING frames' segments as captured graphs (`self.segments`, a
+    `utils.graphs.Segments`); off, the same segments run eagerly;
+    `graphs=True` on the CPU runs their plain form."""
 
-    def __init__(self, cam: CameraModel, cfg: VipConfig, kf_cap: int, device="cuda"):
+    def __init__(self, cam: CameraModel, cfg: VipConfig, kf_cap: int, device="cuda",
+                 graphs: bool | None = None):
         self.cam = cam
         self.cfg = cfg
         self.kf_cap = kf_cap
         self.device = dev = step_device(device)
+        self.graphs = dev.type == "cuda" if graphs is None else bool(graphs)
+        self.segments = Segments(dev, graphs=self.graphs)
         f32 = dict(dtype=torch.float32)
         self.scale_sigmas = torch.tensor(cfg.scale_sigmas, **f32).to(dev)
         self.K = torch.as_tensor(cam.K).to(dev)
@@ -550,12 +586,6 @@ class VipStep:
         return dataclasses.replace(st, tracks=tr_ml, Rcw=lie.normalize_rotation(R_ml), tcw=t_ml,
                                    R_vel=lie.normalize_rotation(R_vel), t_vel=t_vel)
 
-    def _mono_working(self, st, ml):
-        lost, need = self._read(*self._mono_flags(st, ml))
-        if lost:
-            return self._state(st, LOST), LOST, _Ctl()
-        return self._mono_apply(st, ml), WORKING, self._kf_ctl(bool(need), trigger=bool(need))
-
     def _vi_solve(self, st, tracks, b, ns_pred, pre_frame):
         cfg, cam = self.cfg, self.cam
         depth_info = torch.where(b.depth_valid, torch.full_like(b.depth, self.depth_info),
@@ -598,14 +628,6 @@ class VipStep:
                                  state=_i32(IMU_RELOC, self.device),
                                  rec_frame=_i32(-1, self.device), H_prior=self.H0)
         return st, IMU_RELOC, _Ctl()
-
-    def _vi_working(self, st, b, ns_pred, Rcw_pred, tcw_pred, pre_frame):
-        with record_function("step.vi_track"):
-            out, flags = self._vi_lane0(st, b, ns_pred, pre_frame)
-        ok, need = self._read(*flags)
-        if not ok:
-            return self._vi_lane1(st, b, ns_pred, Rcw_pred, tcw_pred, pre_frame)
-        return self._vi_apply(st, out), WORKING, self._kf_ctl(bool(need), trigger=False)
 
     def _dead_reckon(self, st, b, ns_pred):
         p = ns_pred.p.clone()
@@ -769,8 +791,8 @@ class VipStep:
     # ------------------------------------------------------------------
     def _branch(self, st, b, s: int, vio_ok: bool, has_anchor: bool, ns_pred, Rcw_pred,
                 tcw_pred, pre_frame):
-        """One stream's state branch with the stages only it runs (the
-        two-view reconstruction, the mono solve, the relocalization).
+        """One stream's state branch other than WORKING, with the stages
+        only it runs (the two-view reconstruction, the relocalization).
         Returns (state, label, ctl)."""
         rec = cand_tv = None
         if s == INITIALIZING or (s == IMU_RELOC and has_anchor):
@@ -779,47 +801,126 @@ class VipStep:
             return self._not_initialized(st)
         if s == INITIALIZING:
             return self._initializing(st, b, rec, cand_tv)
-        if s == WORKING and vio_ok:
-            return self._vi_working(st, b, ns_pred, Rcw_pred, tcw_pred, pre_frame)
-        if s == WORKING:
-            with record_function("step.pose_localmap"):
-                ml = self._mono_seed_solve(st)
-            return self._mono_working(st, ml)
         if s == LOST:
             with record_function("step.relocalize"):
                 ml = relocalize_pose(st.tracks, st.map, st.gen, self.cam, self.scale_sigmas)
             return self._lost(st, ml)
         return self._recovery(st, b, ns_pred, rec, cand_tv, has_anchor)
 
-    def __call__(self, st: VipTrackerState, b: FrameBundle):
-        """One frame bundle. RANSAC minimal samples draw from `st.gen`."""
-        cfg = self.cfg
+    def _start(self, st, b: FrameBundle):
+        """Segment A: the frame's images and its inertial prediction
+        `pred` = (ns_pred, Rcw_pred, tcw_pred, pre_frame)."""
         b, pyr = self._images(b)
         with record_function("step.preintegrate"):
             st, pre_frame, ns_pred, Rcw_pred, tcw_pred = self._preintegrate(st, b)
+        return st, b, pyr, (ns_pred, Rcw_pred, tcw_pred, pre_frame)
 
-        s, vio_ok, has_anchor = self._read(st.state, st.vio_ok, st.rec_frame >= 0)
-        vio_ok, has_anchor = bool(vio_ok), bool(has_anchor)
-
+    def _frame(self, st, b, pyr, pred, s: int, vio_ok: bool, has_anchor: bool):
+        """A frame that starts in another state than WORKING, after A
+        (eager)."""
         tracks = st.tracks
-        if s in (INITIALIZING, WORKING, IMU_RELOC):
+        if s in (INITIALIZING, IMU_RELOC):
             with record_function("step.propagate"):
-                u = draw_uniform(st.gen, 200, cfg.n_tracks, self.device)
-                tracks = self._propagate(st, pyr, Rcw_pred, tcw_pred, u)
-        need_fresh = s == LOST or (s == IMU_RELOC and not has_anchor)
-        if need_fresh or s in (NOT_INITIALIZED, WORKING):
+                u = draw_uniform(st.gen, 200, self.cfg.n_tracks, self.device)
+                tracks = self._propagate(st, pyr, *pred[1:3], u)
+        if s in (NOT_INITIALIZED, LOST) or (s == IMU_RELOC and not has_anchor):
             with record_function("step.refill_refresh"):
                 tracks = self._detect(dataclasses.replace(st, tracks=tracks), b.img)
         st = self._finish_tracks(st, tracks)
 
-        st, _, ctl = self._branch(st, b, s, vio_ok, has_anchor, ns_pred, Rcw_pred, tcw_pred,
-                                  pre_frame)
+        st, _, ctl = self._branch(st, b, s, vio_ok, has_anchor, *pred)
+        return self._finish(st, b, pyr, ctl, vio_ok)
+
+    def _finish(self, st, b, pyr, ctl: _Ctl, vio_ok: bool):
+        """The eager keyframe, BA and ring stages the branch asked for."""
         if ctl.want_kf:
             with record_function("step.keyframe"):
                 st, ctl.adopt = self._create_kf(st, b, vio_ok)
         if ctl.want_ba:
             st = self._ba_and_adopt(st, ctl, vio_ok)
         return self._ring_and_out(st, pyr)
+
+    # -- the WORKING frame's segments (see the module docstring) ----------
+    def _working_body(self, st, b, pyr, pred, u, vio_ok: bool):
+        """Segment B: propagation, detection and the WORKING solve (VI
+        lane 0, or the mono seed solve before VIO init) with the flags of
+        its host read: (ok, need) or (lost, need)."""
+        ns_pred, Rcw_pred, tcw_pred, pre_frame = pred
+        with record_function("step.propagate"):
+            tracks = self._propagate(st, pyr, Rcw_pred, tcw_pred, u)
+        with record_function("step.refill_refresh"):
+            tracks = self._detect(dataclasses.replace(st, tracks=tracks), b.img)
+        st = self._finish_tracks(st, tracks)
+        if vio_ok:
+            with record_function("step.vi_track"):
+                sol, flags = self._vi_lane0(st, b, ns_pred, pre_frame)
+        else:
+            with record_function("step.pose_localmap"):
+                sol = self._mono_seed_solve(st)
+            flags = self._mono_flags(st, sol)
+        return st, sol, flags
+
+    def _accept(self, st, sol, pyr, vio_ok: bool, need: bool):
+        """Segment C: the frame's solve taken; without a keyframe also the
+        ring and the output."""
+        st = self._vi_apply(st, sol) if vio_ok else self._mono_apply(st, sol)
+        return st if need else self._ring_and_out(st, pyr)
+
+    def _vi_keyframe(self, st, b, hygiene: bool):
+        """Segment D: the VI keyframe and the window BA up to the map
+        hygiene's compaction flag."""
+        with record_function("step.keyframe"):
+            st, k = self._create_kf(st, b, True)
+        return self._ba_front(st, k, True, hygiene)
+
+    def _kf_end(self, st, pyr):
+        """Segment E: the keyframe's bookkeeping, the ring and the output."""
+        return self._ring_and_out(self._ba_finish(st), pyr)
+
+    def __call__(self, st: VipTrackerState, b: FrameBundle):
+        """One frame bundle. RANSAC minimal samples draw from `st.gen`. A
+        WORKING frame runs segments A-E, replayed from captured graphs
+        when `graphs` is on and called eagerly when it is off; every
+        other branch runs eagerly after A."""
+        seg, gen, cfg = self.segments, st.gen, self.cfg
+        st, b, pyr, pred = seg.run(("A",), self._start, dataclasses.replace(st, gen=None), b)
+        s, vio_ok, has_anchor = self._read(st.state, st.vio_ok, st.rec_frame >= 0)
+        vio_ok, has_anchor = bool(vio_ok), bool(has_anchor)
+        st = dataclasses.replace(st, gen=gen)
+        if s != WORKING:
+            return self._frame(st, b, pyr, pred, s, vio_ok, has_anchor)
+        u = draw_uniform(gen, 200, cfg.n_tracks, self.device)
+        # B and D read the bundle's image and depth: its IMU windows and
+        # time (views at offsets that vary by frame) stay out of their keys
+        bf = dataclasses.replace(b, imu_omg=None, imu_acc=None, imu_dt=None, imu_mask=None,
+                                 timestamp=None)
+        st, sol, flags = seg.run(("B", vio_ok),
+                                 lambda *a: self._working_body(*a, vio_ok=vio_ok),
+                                 dataclasses.replace(st, gen=None), bf, pyr, pred, u)
+        st = dataclasses.replace(st, gen=gen)
+        held, need = self._read(*flags)
+        held, need = (bool(held), bool(need)) if vio_ok else (not held, bool(need))
+        if not held:
+            if vio_ok:
+                st, _, ctl = self._vi_lane1(st, b, *pred)
+            else:
+                st, ctl = self._state(st, LOST), _Ctl()
+            return self._finish(st, b, pyr, ctl, vio_ok)
+        st = seg.run(("C", vio_ok, need), lambda *a: self._accept(*a, vio_ok=vio_ok, need=need),
+                     dataclasses.replace(st, gen=None), sol, pyr)
+        if not need:
+            st, out = st
+            return dataclasses.replace(st, gen=gen), out
+        if not vio_ok:
+            # the pre-VIO keyframe with its VIO-init trigger runs eagerly
+            return self._finish(dataclasses.replace(st, gen=gen), b, pyr,
+                                self._kf_ctl(True, trigger=True), vio_ok)
+        hyg = cfg.map_hygiene
+        st, compact = seg.run(("D", hyg), lambda *a: self._vi_keyframe(*a, hygiene=hyg), st, bf)
+        if hyg and self._read_bool(compact):
+            st = self._compact(st)
+        st, out = seg.run(("E",), self._kf_end, st, pyr)
+        return dataclasses.replace(st, gen=gen), out
 
 
 class VipFleetStep(Fleet):
@@ -844,7 +945,7 @@ class VipFleetStep(Fleet):
     same order (to the rounding of the batched matrix products)."""
 
     def __init__(self, cam: CameraModel, cfg: VipConfig, kf_cap: int, device="cuda"):
-        super().__init__(VipStep(cam, cfg, kf_cap, device=device))
+        super().__init__(VipStep(cam, cfg, kf_cap, device=device, graphs=False))
 
     # ------------------------------------------------------------------
     def __call__(self, st: VipTrackerState, b: FrameBundle, gens):
@@ -1003,11 +1104,11 @@ class VipFleetStep(Fleet):
 
 
 def build_vip_tracker(cam: CameraModel, cfg: VipConfig, kf_cap: int, pt_cap: int,
-                      device="cuda", seed: int = 0):
+                      device="cuda", seed: int = 0, graphs: bool | None = None):
     """Returns (state0, step) with step = VipStep(...), on the card unless
-    `device` names another."""
+    `device` names another; `graphs` as `VipStep` takes it."""
     st0 = init_vip_state(cfg, kf_cap, pt_cap, cam.height, cam.width, seed=seed, device=device)
-    return st0, VipStep(cam, cfg, kf_cap, device=device)
+    return st0, VipStep(cam, cfg, kf_cap, device=device, graphs=graphs)
 
 
 def make_bundles(seq, device="cuda"):

@@ -3,8 +3,9 @@
 Shared by `chip_smoke.py` and `bench_torch.py`: the card's name and power
 limit, a tracker driven frame by frame with a synchronize after each
 frame (the port has no whole-sequence program: every frame is dispatched
-from the host), repeat runs that must equal the first bit for bit, and a
-torch.profiler window read from its chrome trace.
+from the host, its WORKING segments as CUDA graphs by default), repeat
+runs that must equal the first bit for bit, and a torch.profiler window
+read from its chrome trace.
 
 Every time here is a host clock around work that ends in
 `torch.cuda.synchronize()`, or the device time of the profiler's kernel
@@ -63,14 +64,18 @@ def synchronize(device="cuda"):
         torch.cuda.synchronize()
 
 
-def drive(new_tracker, feeds, device="cuda") -> Run:
+def drive(new_tracker, feeds, device="cuda", on_frame=None) -> Run:
     """A fresh tracker from `new_tracker()` passed once over the sequence's
     per-frame inputs: the step, per-frame states, poses, VIO flags (VIP),
     ms (host clock around a step that ends in a synchronize) and keyframe
     slots, and the host clock of the whole loop (`wall_ms`, from the first
     frame's start to the last frame's synchronize). No reference to the
     initial state outlives its first frame, so peak memory is the step's
-    own."""
+    own. The poses kept are the step's own output tensors: this relies on
+    a step's outputs being fresh tensors that no later frame writes (a
+    graphed step copies them out of its graphs' static outputs).
+    `on_frame(step, state, out)`, when given, is called after each frame's
+    timing."""
     st, step = new_tracker()
     states, Rs, ts, vios, frame_ms, new_kf = [], [], [], [], [], []
     t0 = time.perf_counter()
@@ -84,6 +89,8 @@ def drive(new_tracker, feeds, device="cuda") -> Run:
         new_kf.append(int(out.new_kf))
         Rs.append(out.Rcw)
         ts.append(out.tcw)
+        if on_frame is not None:
+            on_frame(step, st, out)
     wall_ms = (time.perf_counter() - t0) * 1e3
     return Run(step, states, Rs, ts, vios, frame_ms, new_kf, wall_ms)
 
@@ -125,7 +132,11 @@ def trace_events(prof):
             os.remove(path)
 
 
-LAUNCH_NAMES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+# the host's launch calls: a kernel each, or a whole CUDA graph (whose
+# kernels the trace records as device events of that one call)
+GRAPH_LAUNCH_NAMES = ("cudaGraphLaunch", "cuGraphLaunch")
+LAUNCH_NAMES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                *GRAPH_LAUNCH_NAMES)
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
 
@@ -137,7 +148,8 @@ def trace_summary(events):
     device events, {name: [count, self µs]} of the host events (their
     time less that of the events nested in them on the same thread),
     {span: [count, host µs, device µs]} of the `step.*` spans (the device
-    time of the kernels launched inside them) and the kernel launches."""
+    time of the kernels launched inside them) and the host's launch calls
+    (kernel launches and graph launches, LAUNCH_NAMES)."""
     dev, host, spans, launch_at, threads = {}, {}, {}, {}, {}
     dev_events = []
     for e in events:
@@ -189,17 +201,31 @@ def trace_summary(events):
 
 class ProfileGap(AssertionError):
     """The profiler's trace lacks what a profile reads: no device time, or
-    no `step.propagate` span (it is known to drop records)."""
+    no `step.propagate` span (`step.graph.B` on a graphed frame; the trace
+    is known to drop records)."""
 
 
 def profile_phase(step, st, feeds, start, n, out_name, log=log):
     """torch.profiler over frames start..start+n-1 from state `st`: device
     busy time and the top operators by device and by host time (tables to
-    OUT_DIR/<out_name>), host and device time per `step.*` span, the hand
-    kernels' launches and device µs per launch. Raises ProfileGap when the
-    trace holds no device time or no `step.propagate` span."""
+    OUT_DIR/<out_name>), host and device time per `step.*` span, the host's
+    launch calls per frame (`launches_per_frame`: kernel launches plus
+    graph launches, the latter also alone) apart from the kernels the
+    device ran (`device_kernels_per_frame`), the hand kernels' launches
+    in the trace beside their counters' change over the window
+    (`counted`: on a graphed frame each replay's captured launches, so
+    the trace is what holds them to the kernels the device ran) and
+    device µs per launch, and the graph captures made in the window.
+    Raises ProfileGap when the trace holds no device time or no
+    `step.propagate` span (`step.graph.B` when the frame's WORKING body
+    was a graph's replay)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from uvipslam_torch.ops import klt
+
+    seg = getattr(step, "segments", None)          # none on a fleet's step
+    captures = seg.captures if seg is not None else 0
+    counted = (klt.patch_launches, klt.refine_launches)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -207,6 +233,8 @@ def profile_phase(step, st, feeds, start, n, out_name, log=log):
             st, _ = step(st, feeds[f])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3   # the profiler's teardown excluded
+    counted = (klt.patch_launches - counted[0], klt.refine_launches - counted[1])
+    captures = (seg.captures if seg is not None else 0) - captures
     t1 = time.perf_counter()
     os.makedirs(OUT_DIR, exist_ok=True)
     events = trace_events(prof)
@@ -215,6 +243,7 @@ def profile_phase(step, st, feeds, start, n, out_name, log=log):
 
     device_ms = sum(us for _, us in dev.values()) / 1e3
     kernels = sum(c for c, _ in dev.values())
+    graph_launches = sum(host.get(k, [0])[0] for k in GRAPH_LAUNCH_NAMES)
     spans = {k: dict(host_ms=h / 1e3 / n, device_ms=d / 1e3 / n, calls=c / n)
              for k, (c, h, d) in span_us.items()}
     top_dev = sorted(dev.items(), key=lambda kv: -kv[1][1])
@@ -228,7 +257,8 @@ def profile_phase(step, st, feeds, start, n, out_name, log=log):
         raise ProfileGap("the profiler saw no device time")
     log(f"  frames {start}-{start + n - 1} under torch.profiler, which slows the host: "
         f"wall {wall_ms / n:.1f} ms/frame, device busy {device_ms / n:.2f} ms/frame, "
-        f"{kernels / n:.0f} device kernels and {launches / n:.0f} kernel launches/frame; "
+        f"{kernels / n:.0f} device kernels and {launches / n:.0f} host launch calls/frame "
+        f"({graph_launches / n:.0f} of them graph launches); "
         f"{len(events)} trace events read in {post_s:.1f} s")
     log("  top device: " + "; ".join(f"{k[:60]} {us / 1e3 / n:.3f} ms x{c // n}"
                                      for k, (c, us) in top_dev[:8]))
@@ -237,21 +267,24 @@ def profile_phase(step, st, feeds, start, n, out_name, log=log):
     log("  per phase (ms/frame, host under the profiler / device): " + "; ".join(
         f"{k[5:]} {v['host_ms']:.1f} / {v['device_ms']:.2f} (x{v['calls']:.2f})"
         for k, v in sorted(spans.items(), key=lambda kv: -kv[1]["host_ms"])))
-    prop = spans.get("step.propagate")
+    name = "step.propagate" if "step.propagate" in spans else "step.graph.B"
+    prop = spans.get(name)
     if prop is None:
-        raise ProfileGap("no step.propagate span in the profile window")
-    log(f"  {launches / n:.0f} kernel launches per frame; step.propagate host {prop['host_ms']:.2f} "
+        raise ProfileGap("no step.propagate or step.graph.B span in the profile window")
+    log(f"  {launches / n:.0f} host launch calls per frame; {name} host {prop['host_ms']:.2f} "
         f"ms / device {prop['device_ms']:.3f} ms per frame")
     # the hand-written kernels' own device time per launch on the path
     ours = {}
-    for name in ("extract_patches_kernel", "anchor_refine_kernel"):
+    for name, n_counted in zip(("extract_patches_kernel", "anchor_refine_kernel"), counted):
         c = sum(v[0] for k, v in dev.items() if name in k)
         us = sum(v[1] for k, v in dev.items() if name in k)
-        ours[name] = dict(launches=c, device_us_per_launch=us / max(1, c))
+        ours[name] = dict(launches=c, counted=n_counted, device_us_per_launch=us / max(1, c))
     log("  hand kernels on the path: " + "; ".join(
-        f"{k} {v['launches']} launches, {v['device_us_per_launch']:.2f} us device each"
-        for k, v in ours.items()))
+        f"{k} {v['launches']} launches in the trace ({v['counted']} counted), "
+        f"{v['device_us_per_launch']:.2f} us device each" for k, v in ours.items())
+        + f"; {captures} graph captures in the window")
     return dict(frames=n, post_processing_s=post_s,
                 wall_ms_per_frame_profiled=wall_ms / n, device_ms_per_frame=device_ms / n,
                 device_kernels_per_frame=kernels / n, launches_per_frame=launches / n,
-                phases=spans, hand_kernels=ours)
+                graph_launches_per_frame=graph_launches / n, phases=spans, hand_kernels=ours,
+                captures_in_window=captures)

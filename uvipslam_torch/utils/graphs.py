@@ -1,0 +1,330 @@
+"""Captured segments of a device step: the port's counterpart of the
+reference's compiled step.
+
+The reference runs a whole frame as one XLA program that the host starts
+once (`jax.jit` of the step, `lax.switch`/`lax.cond` inside it). The port
+cuts a frame at its host reads into segments, each a function of tensor
+trees that makes no host read and takes its code path from Python values
+alone. `Segments.run(key, fn, *trees)` runs one:
+
+- `key` is a tuple: the segment's name first, then every Python value
+  that picks the code path inside it (a state flag, `need`, `hygiene`).
+  No tensor value may choose a path in a segment.
+- `trees` are dataclasses, tuples, lists and dicts of tensors. Their
+  values at a call are copied into static input buffers laid out as the
+  call's tensors are (shape, strides, and the storage offset modulo 512
+  bytes), so every operation sees the layout the eager step gives it: a
+  matrix product of a transposed view rounds otherwise than one of a
+  contiguous copy, and a reduction's order follows its input's 16-byte
+  alignment. One graph serves one key with one layout of its inputs
+  (shapes, strides, dtypes, and for tensors of more than one element the
+  offset modulo 16 bytes); another layout is captured anew, as XLA
+  compiles a program anew for new shapes. The layouts settle after a
+  run's first frames. No torch.Generator may ride in the trees: a
+  segment draws nothing (the steps draw their RANSAC uniforms before it).
+- On CUDA, the first call of a key and layout copies its inputs in, runs
+  `fn` once on a side stream if the key is new (the warm-up torch
+  requires: it fills the lazy caches, builds and loads the kernels and
+  sets up the side stream's cuBLAS workspace), captures `fn` over the
+  static buffers into a `torch.cuda.CUDAGraph` (one memory pool for all
+  of a step's graphs, which are replayed one at a time on one stream),
+  and replays it. Every later call copies the inputs in and replays.
+- On the CPU, a graph is its function called on the static buffers, its
+  results written into the static outputs that the first call returned:
+  the plain form of a capture, with the same copy-in and copy-out. The
+  tests exercise the bookkeeping with it.
+- Each call hands back fresh output tensors copied out of the static
+  outputs (an output leaf that is one of the static inputs, passed
+  through, is the caller's own tensor), so what a step returned never
+  changes under a later call.
+- A capture or replay that fails raises `SegmentError` naming the key
+  (a host read, a host-to-device copy or a cache miss inside a capture
+  fails it). Nothing falls back to the eager step.
+- The counters in `COUNTERS` (the hand kernels' `ops.klt.patch_launches`,
+  `refine_launches`, `refine_wide_calls`, and any that `counted` adds
+  for a while) move by what the captured code adds, once per call: each
+  graph records their change during its capture and adds it on every
+  replay (the warm-up and the capture are not counted). A replay runs no
+  Python, so these counts are the capture's times the replays; a
+  profiler trace of a replay is what holds them against the kernels the
+  device ran. `captures`, `replays` and `capture_seconds` count the rest.
+- Each replay runs inside a `record_function` span
+  `step.graph.<segment>`; the `step.<stage>` spans inside a graph are
+  recorded only while it is captured.
+- `Segments(device, graphs=False)` is the eager form: `run` calls
+  `fn(*trees)` and nothing else, so a step composes its frame of the same
+  segments either way.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+
+import torch
+from torch.profiler import record_function
+
+from uvipslam_torch.ops import klt
+
+ALIGN_BYTES = 512          # the CUDA caching allocator's block alignment
+# (holder, attribute) of each counter that a replay advances by its capture's change
+COUNTERS = [(klt, "patch_launches"), (klt, "refine_launches"), (klt, "refine_wide_calls")]
+
+
+class SegmentError(RuntimeError):
+    """A segment's capture or replay failed."""
+
+
+def _map(fn, tree):
+    """`tree` with every tensor leaf t replaced by fn(t); dataclasses,
+    tuples, lists and dicts are walked, anything else is kept."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{f.name: _map(fn, getattr(tree, f.name))
+                                            for f in dataclasses.fields(tree)})
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map(fn, t) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return tree
+
+
+def _leaves(tree) -> list:
+    out = []
+    _map(lambda t: out.append(t) or t, tree)
+    return out
+
+
+def _rebuild(tree, leaves):
+    it = iter(leaves)
+    return _map(lambda _: next(it), tree)
+
+
+def _has_generator(tree) -> bool:
+    if isinstance(tree, torch.Generator):
+        return True
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return any(_has_generator(getattr(tree, f.name)) for f in dataclasses.fields(tree))
+    if isinstance(tree, (tuple, list)):
+        return any(_has_generator(t) for t in tree)
+    if isinstance(tree, dict):
+        return any(_has_generator(t) for t in tree.values())
+    return False
+
+
+def _layout(t: torch.Tensor) -> tuple:
+    """What of a tensor's layout a graph is specialized to."""
+    align = t.storage_offset() * t.element_size() % 16 if t.numel() > 1 else 0
+    return t.shape, t.stride(), t.dtype, align
+
+
+def _span(t: torch.Tensor) -> int:
+    """Elements of t's storage from its first element to its last."""
+    if t.numel() == 0:
+        return 0
+    return 1 + sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
+
+
+def _like(t: torch.Tensor, device) -> torch.Tensor:
+    """An uninitialized tensor on `device` with t's dtype, shape and
+    strides, at t's storage offset modulo ALIGN_BYTES."""
+    off = t.storage_offset() % max(1, ALIGN_BYTES // t.element_size())
+    base = torch.empty(off + _span(t), dtype=t.dtype, device=device)
+    return base.as_strided(t.shape, t.stride(), off)
+
+
+def _region(t: torch.Tensor) -> torch.Tensor:
+    """t's storage from its first element to its last, as flat bytes."""
+    return t.as_strided((_span(t),), (1,), t.storage_offset()).view(torch.uint8)
+
+
+def _copy(dsts, srcs):
+    """dst <- src for each pair of one layout: byte regions in one foreach
+    copy, `copy_` for a source on another device (a host bundle)."""
+    fast_d, fast_s = [], []
+    for d, s in zip(dsts, srcs):
+        if d.numel() == 0:
+            continue
+        if d.device == s.device:
+            fast_d.append(_region(d))
+            fast_s.append(_region(s))
+        else:
+            d.copy_(s)
+    if fast_d:
+        torch._foreach_copy_(fast_d, fast_s)
+
+
+@contextlib.contextmanager
+def counted(holder, attr: str):
+    """Within the block, `holder.<attr>` is one of the COUNTERS: graphs
+    captured meanwhile advance it on every replay by what their capture
+    added to it."""
+    COUNTERS.append((holder, attr))
+    try:
+        yield
+    finally:
+        COUNTERS.remove((holder, attr))
+
+
+def _counters(which) -> tuple:
+    return tuple(getattr(h, a) for h, a in which)
+
+
+def _set_counters(which, values):
+    for (h, a), v in zip(which, values):
+        setattr(h, a, v)
+
+
+@dataclasses.dataclass
+class _Graph:
+    fn: object               # the function (the CPU's plain form replays it)
+    static_in: list          # the static input buffers, flattened
+    static_trees: tuple      # the same, as the trees fn takes
+    out: object              # the static output tree
+    source: list             # per output leaf: ("in", j) or ("new", k)
+    static_new: list         # distinct static output tensors that are no input
+    counters: list           # the COUNTERS at the capture
+    delta: tuple             # their change during the capture
+    graph: object = None     # torch.cuda.CUDAGraph (None on the CPU)
+
+
+class Segments:
+    """The graphs of one step, one per key and input layout (see the
+    module docstring): `graphs` maps (key, layout) to a graph, `keys` the
+    keys met. With `graphs=False`, `run` calls the function."""
+
+    def __init__(self, device, graphs: bool = True):
+        self.device = torch.device(device)
+        self.enabled = graphs
+        self.cuda = self.device.type == "cuda"
+        self.graphs: dict = {}
+        self.captures = 0
+        self.replays = 0
+        self.capture_seconds = 0.0
+        self._stream = None
+        self._pool = None
+        self._warm: set = set()         # keys warmed up on the side stream
+
+    @property
+    def keys(self) -> set:
+        return {k for k, _ in self.graphs}
+
+    def run(self, key: tuple, fn, *trees):
+        """fn(*trees) through the graph of `key` and the inputs' layout,
+        captured at its first call; returns fresh outputs."""
+        if not self.enabled:
+            return fn(*trees)
+        flat = _leaves(trees)
+        spec = (key, tuple(_layout(t) for t in flat))
+        g = self.graphs.get(spec)
+        if g is None:
+            g = self._capture(spec, fn, trees, flat)
+        return self._replay(key, g, flat)
+
+    # ------------------------------------------------------------------
+    def _capture(self, spec, fn, trees, flat) -> _Graph:
+        t0 = time.perf_counter()
+        key = spec[0]
+        if _has_generator(trees):
+            raise SegmentError(f"segment {key!r}: a torch.Generator in its inputs (a segment "
+                               f"draws nothing)")
+        static_in = [_like(t, self.device) for t in flat]
+        static_trees = _rebuild(trees, static_in)
+        _copy(static_in, flat)
+        counters = list(COUNTERS)
+        before = _counters(counters)
+        try:
+            if self.cuda:
+                graph, out, delta = self._cuda_capture(key, fn, static_trees, counters)
+            else:
+                graph, out = None, fn(*static_trees)
+                delta = tuple(a - b for a, b in zip(_counters(counters), before))
+        except Exception as e:
+            # a failed capture can leave its memory pool marked as being
+            # recorded to: later captures take a new pool
+            self._pool = None
+            raise SegmentError(f"segment {key!r}: capture failed: {e}") from e
+        finally:
+            _set_counters(counters, before)
+        ids = {id(t): j for j, t in enumerate(static_in)}
+        source, static_new, at = [], [], {}
+        for t in _leaves(out):
+            if id(t) in ids:
+                source.append(("in", ids[id(t)]))
+            else:
+                if id(t) not in at:
+                    at[id(t)] = len(static_new)
+                    static_new.append(t)
+                source.append(("new", at[id(t)]))
+        # a captured graph needs its function no more; keeping it would tie
+        # the step (which the function's closure holds) to its own graphs in
+        # a reference cycle, which only the garbage collector frees
+        g = _Graph(fn if graph is None else None, static_in, static_trees, out, source,
+                   static_new, counters, delta, graph)
+        self.graphs[spec] = g
+        self.captures += 1
+        self.capture_seconds += time.perf_counter() - t0
+        return g
+
+    def _cuda_capture(self, key, fn, static_trees, counters):
+        """Warm-up (once per key: the lazy caches, the kernels' build and
+        the side stream's cuBLAS workspace do not depend on the layout)
+        and capture on the side stream, the stream's own capture calls
+        rather than torch.cuda.graph's, which empties the allocator's
+        cache at every capture."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        side, main = self._stream, torch.cuda.current_stream(self.device)
+        side.wait_stream(main)
+        try:
+            with torch.cuda.stream(side):
+                if key not in self._warm:
+                    fn(*static_trees)
+                    self._warm.add(key)
+                mid = _counters(counters)
+                torch.cuda.synchronize(self.device)
+                graph = torch.cuda.CUDAGraph()
+                graph.capture_begin(pool=self._pool)
+                try:
+                    out = fn(*static_trees)
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass        # the capture is invalid already; the first error tells why
+                    raise
+                graph.capture_end()
+        finally:
+            main.wait_stream(side)
+        delta = tuple(a - b for a, b in zip(_counters(counters), mid))
+        return graph, out, delta
+
+    def _replay(self, key, g: _Graph, flat):
+        try:
+            _copy(g.static_in, flat)
+            with record_function(f"step.graph.{key[0]}"):
+                if g.graph is not None:
+                    g.graph.replay()
+                else:
+                    # what the plain form's call counts is replaced by
+                    # the capture's change, as a replay counts
+                    counters = list(dict.fromkeys(COUNTERS + g.counters))
+                    before = _counters(counters)
+                    try:
+                        res = _leaves(g.fn(*g.static_trees))
+                    finally:
+                        _set_counters(counters, before)
+                    _copy([g.static_new[k] for kind, k in g.source if kind == "new"],
+                          [r for (kind, _), r in zip(g.source, res) if kind == "new"])
+            fresh = [_like(t, self.device) for t in g.static_new]
+            _copy(fresh, g.static_new)
+        except Exception as e:
+            raise SegmentError(f"segment {key!r}: replay failed: {e}") from e
+        _set_counters(g.counters, tuple(a + d for a, d in zip(_counters(g.counters), g.delta)))
+        self.replays += 1
+        return _rebuild(g.out, [flat[j] if kind == "in" else fresh[j]
+                                for kind, j in g.source])
