@@ -62,7 +62,8 @@ result):
      solves and window BA) at bench.py's VIP settings (512x640, 400
      tracks, kf_cap 64, pt_cap 8192; the first 90 frames of its 120-frame
      sequence; `REPEATS` more runs would
-     have to be bitwise equal, 0 since phase 12 runs the VIP fleet twice):
+     have to be bitwise equal, 0 since phases 12 and 21 hold graphed
+     against eager):
      VIO initializes, >= 80% of frames WORKING, metric ATE
      (no scale alignment) over the WORKING frames from VIO init + 3 on
      below 5% of the trajectory span; the VIO-init frame's own ms, host
@@ -87,23 +88,34 @@ result):
      `global_ba_navstate` alone on the final map, on the card and on the
      CPU from the same state: the same keyframe positions within
      NAVSTATE_BA_TOL of the extent, and an objective that does not rise
- 12. batched replay of the VIP step (`parallel.replay.batched_replay_vip`):
-     8 streams over 8 distinct scenes in lockstep at phase 9's settings
-     (512x640, 400 tracks, kf_cap 64, pt_cap 8192, the first 36 frames of
-     60-frame scenes), twice (the second run up to the profile frame):
-     more than half the streams initialize VIO and track with metric ATE
-     (WORKING frames from VIO init + 3 on, at least 8) below 12% of the
-     span, the second run is bitwise equal, kernel launches as the
-     streams' states imply (one launch serves every stream that takes a
-     stage). Under torch.profiler over the first frame on which every stream
-     is WORKING with VIO up: launches of that batched frame below 3x a single
-     stream's (phase 9's profile). Prints per stream the bench's own gates,
-     ms per batched frame and per stream-frame, host reads per batched
-     frame, device busy share and peak memory;
- 13. batched replay of the mono step (`batched_replay`): 4 streams, 40
-     frames, 512x640, phase 5's settings: more than half the streams
-     WORKING on >= 60% of frames with >= 3 keyframes and Sim3-aligned ATE
-     below 5% of the span, kernel launches as the states imply.
+ 12. batched replay of the VIP step (`parallel.replay.batched_replay_vip`,
+     graphed: the default on the card): 8 streams over 8 distinct scenes
+     in lockstep at phase 9's settings (512x640, 400 tracks, kf_cap 64,
+     pt_cap 8192, the first 36 frames of 60-frame scenes): more than half
+     the streams initialize VIO and track with metric ATE (WORKING frames
+     from VIO init + 3 on, at least 8) below 12% of the span, kernel
+     launches as the streams' states imply (one launch serves every
+     stream that takes a stage). Then the eager fleet (`graphs=False`)
+     frame by frame up to the first frame on which every stream is
+     WORKING with VIO up and none makes a keyframe: every frame's output
+     bit for bit the graphed replay's, its launches as the states imply;
+     that frame from the eager state before it, graphed and eager, the
+     outputs and whole fleet states bit for bit equal with the same host
+     reads and launches, each under torch.profiler with its trace held to
+     the counters (`hold_trace`), the graphed frame's device kernels below
+     3x a single stream's (phase 9's profile), at most FLEET_LAYOUT_BOUND
+     graphs for one key. Prints per stream the bench's own gates; ms per
+     batched frame and per stream-frame over the whole graphed replay and
+     the eager frames; captures, their seconds and replays per batched
+     frame; on the profiled frame per form the ms, host launch calls,
+     device kernels and the device's busy share; host reads and peak
+     memory;
+ 13. batched replay of the mono step (`batched_replay`, graphed): 4
+     streams, 40 frames, 512x640, phase 5's settings: more than half the
+     streams WORKING on >= 60% of frames with >= 3 keyframes and
+     Sim3-aligned ATE below 5% of the span, kernel launches as the states
+     imply; then held against the eager fleet as phase 12 does, over at
+     least its first 20 frames.
  14. the application entry point (`uvipslam_torch.app.main`, as
      `python -m uvipslam_torch.app` runs it) from a rosbag of phase 9's
      first 54 frames (images, IMU, pressure; tests/_bagwrite.py) with a
@@ -198,14 +210,15 @@ result):
      phases 9 and 7), the device's busy share, captures, replays per
      frame and peak memory.
 
-Every phase before 21 runs the steps' default: on the card the WORKING
-frames replay captured CUDA graphs. A replay runs no Python, so on a
-graphed frame the launch counters move by each graph's captured launches
-per replay; phases 7, 9 and 21 hold that count against the profiler
-trace's kernel records of their profiled frame (`hold_trace`: the same
-launches of each hand kernel, no capture in the window). Phase 18c alone
-runs an eager step (its forced failure patches a function inside a
-captured segment with a host read).
+Every phase before 21 runs the steps' and fleets' default: on the card
+the WORKING frames and the fleets' batched frames replay captured CUDA
+graphs. A replay runs no Python, so on a graphed frame the launch
+counters move by each graph's captured launches per replay; phases 7, 9,
+12, 13 and 21 hold that count against the profiler trace's kernel
+records of their profiled frame (`hold_trace`: the same launches of each
+hand kernel, no capture in the window). Phase 18c alone runs an eager
+step (its forced failure patches a function inside a captured segment
+with a host read).
 
 Every path's launch counts are read from zero just before it and just
 after it, and no main path may take the wide refinement route
@@ -1213,7 +1226,10 @@ def stream_vip_phase(torch, np, tklt, dev, smi, seq):
 
 FLEET_S, FLEET_FRAMES, FLEET_RENDER_FRAMES = 8, 36, 60   # phase 12: the VIP fleet
 MONO_FLEET_S, MONO_FLEET_FRAMES = 4, 40   # phase 13: the mono fleet
-FLEET_LAUNCH_RATIO = 3.0   # batched launches per frame over a single stream's, the gate
+FLEET_LAUNCH_RATIO = 3.0   # batched device kernels per frame over a single stream's, the gate
+# graphs per key of a graphed fleet's replay: one per input layout, and the
+# layouts settle after the first frames (at most 6 for one key in phase 12)
+FLEET_LAYOUT_BOUND = 8
 
 
 def batched_kernel_phase(torch, tklt, dev):
@@ -1443,37 +1459,159 @@ def drive_fleet(torch, run, states0, feeds):
     return outs, fleet, time.perf_counter() - t0, run.step
 
 
-def same_outputs(torch, a, b):
-    import dataclasses
-    return all(torch.equal(torch.nan_to_num(getattr(a, f.name)), torch.nan_to_num(
-        getattr(b, f.name))) for f in dataclasses.fields(a))
+class FleetCall:
+    """A fleet step with its streams' generators, called as a single step
+    is (`step(st, feed)`) so that `chiptime.profile_phase` drives it;
+    keeps the last frame's (state, output)."""
+
+    def __init__(self, step, gens):
+        self.step, self.gens, self.segments = step, gens, step.segments
+        self.last = None
+
+    def __call__(self, st, feed):
+        self.last = self.step(st, feed, self.gens)
+        return self.last
+
+
+def fleet_against_eager(torch, tklt, dev, name, graphed, eager, states0, frames, outs, start, n,
+                        expect):
+    """Phases 12-13: the graphed replay (its fleet step `graphed`, its
+    outputs `outs` with leaves [S, T, ...]) against the eager fleet step
+    `eager` (graphs=False). The eager step goes frame by frame over frames
+    0..n-1 (n > start; each stream's generator seeded as `run` seeds it),
+    every frame's output bit for bit equal to the replay's, its launches
+    `expect` (what the frames' states imply; None where a stream went LOST
+    or IMU_RELOC). Then frame
+    `start` (every stream WORKING, no keyframe) from the eager state
+    before it, the generators rewound each time: the graphed step once
+    (it may capture a layout the replay did not meet), three times timed
+    and once under torch.profiler, and the eager step under
+    torch.profiler; the two forms' outputs and whole fleet states after
+    the frame bit for bit equal, with the same host reads and hand-kernel
+    launches, each profile's trace held to the counters (`hold_trace`).
+    Returns the record."""
+    from uvipslam_torch.core.tree import tree_map
+    from uvipslam_torch.parallel.replay import stream_generators
+    from uvipslam_torch.utils import chiptime
+
+    S = outs.state.shape[0]
+    gens = stream_generators(S, 0, dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(tklt)
+    st, ms, differ, st_prof, gen_states = states0, [], [], None, None
+    for f in range(n):
+        if f == start:
+            st_prof, gen_states = st, [g.get_state() for g in gens]
+        t1 = time.perf_counter()
+        st, o = eager(st, frames[f], gens)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        if not torch.equal(tree_bits(torch, o), tree_bits(torch, tree_map(lambda a: a[:, f],
+                                                                           outs))):
+            differ.append(f)
+    peak = torch.cuda.max_memory_allocated() - base
+    launches, syncs = read_launches(tklt), eager.host_syncs
+    del st
+
+    def frame(step, profile_as=None):
+        for g, s in zip(gens, gen_states):
+            g.set_state(s)
+        call = FleetCall(step, gens)
+        reads, counts = step.host_syncs, (tklt.patch_launches, tklt.refine_launches)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if profile_as is None:
+            call(st_prof, frames[start])
+            prof = None
+        else:
+            log(f"phase {name} fleet profile, {profile_as}, frame {start}:")
+            prof = chiptime.profile_phase(call, st_prof, frames, start, 1,
+                                          f"profile_fleet_{name}_{profile_as}.txt")
+            hold_trace(prof, f"{name} fleet, the {profile_as} frame {start}")
+        torch.cuda.synchronize()
+        return dict(ms=(time.perf_counter() - t1) * 1e3, profile=prof, last=call.last,
+                    reads=step.host_syncs - reads,
+                    counted=(tklt.patch_launches - counts[0], tklt.refine_launches - counts[1]))
+
+    caps = graphed.segments.captures
+    frame(graphed)                                  # any capture falls here
+    warm_captures = graphed.segments.captures - caps
+    g_ms = [frame(graphed)["ms"] for _ in range(3)]
+    g = frame(graphed, "graphed")
+    e = frame(eager, "eager")
+    same_frame = all(torch.equal(tree_bits(torch, a), tree_bits(torch, b))
+                     for a, b in zip(e["last"], g["last"]))
+    fails = []
+    if differ:
+        fails.append(f"graphed and eager outputs differ on frames {differ[:10]}")
+    if expect is not None and launches != expect:
+        fails.append(f"eager launches over frames 0-{n - 1} {launches}, expected {expect}")
+    if not same_frame:
+        fails.append(f"the frame {start}'s outputs or fleet states differ graphed and eager")
+    if e["reads"] != g["reads"] or e["counted"] != g["counted"]:
+        fails.append(f"frame {start}: host reads {e['reads']} / {g['reads']}, launches "
+                     f"{e['counted']} / {g['counted']} eager / graphed")
+    keyframe_spans = {"step.vi_ba", "step.keyframe", "step.graph.D", "step.graph.E",
+                      "step.graph.K"}
+    if keyframe_spans & (set(e["profile"]["phases"]) | set(g["profile"]["phases"])):
+        fails.append("a profile window holds a keyframe: the forms compare unlike branches")
+    if fails:
+        raise AssertionError(f"{name} fleet graphed vs eager: " + "; ".join(fails))
+    del st_prof
+    rec = dict(frames_compared=n, differing_frames=differ, profile_frame=start,
+               eager_ms_per_batched_frame=sum(ms) / n, eager_frame_ms=ms,
+               eager_host_reads=syncs, eager_launches=launches, eager_peak_above_start=peak,
+               graphed_frame_ms=g_ms, graphed_frame_median_ms=statistics.median(g_ms),
+               eager_frame_ms_profile_frame=ms[start], captures_at_profile_frame=warm_captures,
+               frame_host_reads=g["reads"], frame_launches=g["counted"],
+               profile={"graphed": g["profile"], "eager": e["profile"]})
+    for form, r, fms in (("graphed", g, rec["graphed_frame_median_ms"]),
+                         ("eager", e, ms[start])):
+        p = r["profile"]
+        p["device_busy_share"] = p["device_ms_per_frame"] / fms
+        log(f"  {name} fleet S {S} frame {start}, {form}: {fms:.1f} ms per batched frame "
+            f"({fms / S:.1f} per stream-frame), {p['launches_per_frame']:.0f} host launch "
+            f"calls ({p['graph_launches_per_frame']:.0f} graph launches), "
+            f"{p['device_kernels_per_frame']:.0f} device kernels, device busy "
+            f"{p['device_ms_per_frame']:.2f} ms = {100 * p['device_busy_share']:.1f}%")
+    log(f"  {name} fleet graphed vs eager: outputs bit for bit equal on frames 0-{n - 1}, "
+        f"frame {start}'s outputs and whole fleet states equal, host reads {g['reads']} and "
+        f"launches {g['counted']} on it in both forms; eager launches {launches} (expected "
+        f"{expect}); eager {sum(ms) / n:.1f} ms per batched "
+        f"frame over its {n} frames, peak allocated {peak / 2**20:.1f} MiB above its start; "
+        f"{warm_captures} captures on the graphed step's first call of frame {start}")
+    return rec
 
 
 def fleet_vip_phase(torch, np, tklt, dev, smi, single, seqs):
     """Phase 12: `batched_replay_vip`, 8 streams over 8 distinct scenes at
-    full width, their first FLEET_FRAMES frames. `single` = phase 9's
-    record (None on a partial run); `seqs` = the 8 sequences. Returns (the
-    record, the launches, the fleet's outputs)."""
+    full width, their first FLEET_FRAMES frames, graphed (the default),
+    then held against the eager fleet up to the profile frame
+    (`fleet_against_eager`). `single` = phase 9's record (None on a
+    partial run); `seqs` = the 8 sequences. Returns (the record, the
+    launches, the fleet's outputs)."""
     from uvipslam_torch.core.tree import tree_map
     from uvipslam_torch.frontend.tracker import IMU_RELOC, LOST, WORKING
     from uvipslam_torch.frontend.device_vip import VipFleetStep
     from uvipslam_torch.io.synthetic import ate_rmse
-    from uvipslam_torch.utils import chiptime
-    from uvipslam_torch.parallel.replay import (_over_time, batched_replay_vip, fleet_bundles,
-                                                stream_generators)
-    from uvipslam_torch.frontend.device_vip import VipStepOut
+    from uvipslam_torch.parallel.replay import batched_replay_vip, fleet_bundles
 
     S, T = FLEET_S, FLEET_FRAMES
     cam, cfg = vip_cam_cfg(seqs[0].K)
     make_states, run = batched_replay_vip(cam, cfg, kf_cap=64, pt_cap=8192, device=dev)
     feeds = tree_map(lambda a: a[:, :T].contiguous(), fleet_bundles(seqs, device=dev))
     states0 = make_states(S)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(tklt)
     outs, fleet, secs, step = drive_fleet(torch, run, states0, feeds)
     launches = read_launches(tklt)
-    peak = torch.cuda.max_memory_allocated()
-    syncs = step.host_syncs
+    peak = torch.cuda.max_memory_allocated() - base
+    syncs, seg = step.host_syncs, step.segments
+    per_key = step.segments.graphs_per_key()
     states = outs.state.cpu().numpy()
     vios = outs.vio_ok.cpu().numpy()
     # the profile frame: the first on which every stream is WORKING with
@@ -1485,27 +1623,6 @@ def fleet_vip_phase(torch, np, tklt, dev, smi, single, seqs):
     if not starts:
         raise AssertionError("no keyframe-free frame with every stream WORKING and VIO up")
     start = starts[0]
-    # the second run, frame by frame as `run` does it, so that the state
-    # the profile starts from can be kept on the way; since phase 14 joined
-    # it stops after the profile frame (frames 0..start, VIO init included:
-    # it held all 60 frames bitwise equal in every run before)
-    step2 = VipFleetStep(cam, cfg, 64, device=dev)
-    gens = stream_generators(S, 0, dev)
-    frames = [tree_map(lambda a: a[:, f], feeds) for f in range(T)]
-    n2 = start + 1
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    st, outs2, st_prof = states0, [], None
-    for f in range(n2):
-        if f == start:
-            st_prof, gen_states = st, [g.get_state() for g in gens]
-        st, o = step2(st, frames[f], gens)
-        outs2.append(o)
-    torch.cuda.synchronize()
-    secs2 = time.perf_counter() - t1
-    if not same_outputs(torch, tree_map(lambda a: a[:, :n2], outs), _over_time(outs2, VipStepOut)):
-        raise AssertionError("a second run of the VIP fleet differs from the first")
-    del outs2
     ms_frame = 1e3 * secs / T
 
     n_vio = n_ate = n_bench = 0
@@ -1531,62 +1648,69 @@ def fleet_vip_phase(torch, np, tklt, dev, smi, single, seqs):
     expect = expected_launches_fleet(states.tolist(), orb_levels(512, 640), vip=True) \
         if clean else None
     single_ms = single["median_ms_per_frame"] if single else float("nan")
-    log(f"phase VIP fleet S {S} 512x640 / 400 tracks / {T} frames: {n_vio}/{S} streams "
-        f"initialized VIO, {n_ate}/{S} with metric ATE below 12% of span ({n_bench}/{S} pass the "
-        f"bench's gates), fleet counts (WORKING frames, VIO streams) "
+    log(f"phase VIP fleet S {S} 512x640 / 400 tracks / {T} frames, graphed: {n_vio}/{S} "
+        f"streams initialized VIO, {n_ate}/{S} with metric ATE below 12% of span ({n_bench}/{S} "
+        f"pass the bench's gates), fleet counts (WORKING frames, VIO streams) "
         f"{[int(x) for x in fleet]}; {ms_frame:.1f} ms per batched frame = {ms_frame / S:.1f} ms "
-        f"per stream-frame (whole replay to a synchronize: {secs:.1f} s; a single stream in "
-        f"phase 9: {single_ms:.1f} ms/frame); second run (stepped frame by frame over frames "
-        f"0-{n2 - 1}, {secs2:.1f} s) bitwise equal; host reads {syncs / T:.2f} per batched frame ({syncs} "
-        f"total, {step.fleet_syncs} of them fleet tables); kernel launches {launches}"
+        f"per stream-frame over the whole replay ({secs:.1f} s to a synchronize; a single "
+        f"stream in phase 9: {single_ms:.1f} ms/frame); {seg.captures} captures in "
+        f"{seg.capture_seconds:.1f} s for {len(per_key)} keys (at most {max(per_key.values())} "
+        f"layouts for one), {seg.replays / T:.2f} replays per batched frame; host reads "
+        f"{syncs / T:.2f} per batched frame ({syncs} total, {step.fleet_syncs} of them fleet "
+        f"tables); kernel launches {launches}"
         f"{f' (expected {expect})' if expect is not None else ''}; peak allocated "
-        f"{peak / 2**20:.1f} MiB")
+        f"{peak / 2**20:.1f} MiB above the run's start")
     if n_vio <= S / 2 or n_ate <= S / 2:
         raise AssertionError(f"VIP fleet: {n_vio}/{S} initialized VIO, {n_ate}/{S} below 12%")
+    if max(per_key.values()) > FLEET_LAYOUT_BOUND:
+        raise AssertionError(f"VIP fleet: {max(per_key.values())} layouts captured for one key")
     if min(launches.values()) <= 0 or (expect is not None and launches != expect):
         raise AssertionError(f"fleet kernel launches {launches}, expected {expect}")
     mark("fleet_vip")
 
-    for g, gs in zip(gens, gen_states):
-        g.set_state(gs)
-    log("phase VIP fleet profile:")
-    # one frame: the profiler's post-processing of a fleet frame's events
-    # takes about a minute
-    profile = chiptime.profile_phase(lambda s_, b_: step2(s_, b_, gens), st_prof, frames, start,
-                                     1, "profile_fleet_vip.txt")
-    if "step.vi_ba" in profile["phases"] or (single and {"step.vi_ba", "step.graph.D"} & set(
-            single["profile"]["phases"])):
-        raise AssertionError("a profile window holds a keyframe: the launch counts compare "
-                             "unlike branches")
-    profile["device_busy_share"] = profile["device_ms_per_frame"] / ms_frame
-    # the single stream's kernels per frame: its launches when eager, the
-    # same kernels from a few graph launches when graphed (phase 9's
-    # default); on a partial run, a keyframe-free VI frame as phase 9 of a
-    # whole run of this script read it on an NVIDIA H100 80GB HBM3
-    base = single["profile"]["device_kernels_per_frame"] if single else 24050.0
-    ratio = profile["launches_per_frame"] / base
-    profile["launch_ratio_to_single"] = ratio
-    log(f"  launches on the all-VI batched frame {start} (no stream makes a keyframe on it, as "
-        f"on the single stream's profiled frames) {profile['launches_per_frame']:.0f} = "
-        f"{ratio:.2f}x a single stream's {base:.0f} device kernels (gate {FLEET_LAUNCH_RATIO}x; a loop over "
-        f"{S} streams would be {S}x); device busy {profile['device_ms_per_frame']:.1f} ms of "
-        f"the unprofiled {ms_frame:.1f} ms batched frame = "
-        f"{100 * profile['device_busy_share']:.1f}%")
+    frames = [tree_map(lambda a: a[:, f], feeds) for f in range(T)]
+    cmp = fleet_against_eager(
+        torch, tklt, dev, "VIP", step, VipFleetStep(cam, cfg, 64, device=dev, graphs=False),
+        states0, frames, outs, start, start + 1,
+        expected_launches_fleet(states[:, :start + 1].tolist(), orb_levels(512, 640), vip=True)
+        if clean else None)
+    del frames, states0
+    # the fleet's device kernels per frame against a single stream's (on a
+    # partial run, a keyframe-free VI frame as phase 9 of a whole run of
+    # this script read it on an NVIDIA H100 80GB HBM3)
+    base_k = single["profile"]["device_kernels_per_frame"] if single else 24050.0
+    for form in ("graphed", "eager"):
+        p = cmp["profile"][form]
+        p["kernel_ratio_to_single"] = p["device_kernels_per_frame"] / base_k
+    ratio = cmp["profile"]["graphed"]["kernel_ratio_to_single"]
+    log(f"  device kernels on the all-VI batched frame {start} (no stream makes a keyframe on "
+        f"it, as on the single stream's profiled frames): graphed "
+        f"{cmp['profile']['graphed']['device_kernels_per_frame']:.0f}, eager "
+        f"{cmp['profile']['eager']['device_kernels_per_frame']:.0f} = {ratio:.2f}x a single "
+        f"stream's {base_k:.0f} (gate {FLEET_LAUNCH_RATIO}x; a loop over {S} streams would be "
+        f"{S}x)")
     if not ratio < FLEET_LAUNCH_RATIO:
-        raise AssertionError(f"fleet launches per frame {ratio:.2f}x a single stream's")
+        raise AssertionError(f"fleet device kernels per frame {ratio:.2f}x a single stream's")
     mark("fleet_vip_profile")
     record = {"streams": S, "n_frames": T, "vio_streams": int(n_vio), "ate_ok_streams": int(n_ate),
               "bench_gate_streams": int(n_bench), "ms_per_batched_frame": ms_frame,
-              "ms_per_stream_frame": ms_frame / S, "run_seconds": [secs, secs2],
-              "second_run_frames": n2,
-              "host_reads_per_batched_frame": syncs / T, "peak_allocated_bytes": peak,
-              "profile": profile, "card": smi}
+              "ms_per_stream_frame": ms_frame / S, "run_seconds": secs,
+              "captures": seg.captures, "capture_seconds": seg.capture_seconds,
+              "keys": len(per_key), "replays_per_batched_frame": seg.replays / T,
+              "host_reads_per_batched_frame": syncs / T, "peak_above_start_bytes": peak,
+              "against_eager": cmp, "card": smi}
     return record, launches, outs
+
+
+MONO_FLEET_EAGER_FRAMES = 20    # phase 13 holds graphed against eager over at least these
 
 
 def fleet_mono_phase(torch, np, tklt, dev, smi, single, seqs):
     """Phase 13: `batched_replay`, 4 mono streams at full width over
-    `seqs`."""
+    `seqs`, graphed (the default), then held against the eager fleet over
+    at least its first MONO_FLEET_EAGER_FRAMES frames
+    (`fleet_against_eager`)."""
+    from uvipslam_torch.frontend.device_tracker import MonoFleetStep
     from uvipslam_torch.frontend.tracker import LOST, WORKING, TrackerConfig
     from uvipslam_torch.io.synthetic import ate_rmse
     from uvipslam_torch.models.camera import CameraModel
@@ -1598,17 +1722,23 @@ def fleet_mono_phase(torch, np, tklt, dev, smi, single, seqs):
     cfg = TrackerConfig(n_tracks=400, min_init_tracks=100, local_window=8)
     make_states, run = batched_replay(cam, cfg, kf_cap=64, pt_cap=8192, device=dev)
     imgs = torch.from_numpy(np.stack([s.images for s in seqs]).astype(np.float32)).to(dev)
+    states0 = make_states(S)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(tklt)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    stf, outs, fleet = run(make_states(S), imgs)
+    stf, outs, fleet = run(states0, imgs)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = read_launches(tklt)
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - base
+    step, seg = run.step, run.step.segments
+    per_key = seg.graphs_per_key()
     states = outs.state.cpu().numpy()
     n_kf = stf.map.n_kf.cpu().numpy()
+    del stf
     n_ok = 0
     for s in range(S):
         working = states[s] == WORKING
@@ -1626,21 +1756,44 @@ def fleet_mono_phase(torch, np, tklt, dev, smi, single, seqs):
     expect = expected_launches_fleet(states.tolist(), 8, vip=False) if clean else None
     ms_frame = 1e3 * secs / T
     single_ms = single if single else float("nan")
-    log(f"phase mono fleet S {S} 512x640 / 400 tracks / {T} frames: {n_ok}/{S} streams ok, "
-        f"fleet WORKING frames {int(fleet)}; {ms_frame:.1f} ms per batched frame = "
-        f"{ms_frame / S:.1f} ms per stream-frame (a single stream in phase 5: {single_ms:.1f} "
-        f"ms/frame); host reads {run.step.host_syncs / T:.2f} per batched frame; kernel "
-        f"launches {launches}{f' (expected {expect})' if expect is not None else ''}; peak "
-        f"allocated {peak / 2**20:.1f} MiB")
+    log(f"phase mono fleet S {S} 512x640 / 400 tracks / {T} frames, graphed: {n_ok}/{S} streams "
+        f"ok, fleet WORKING frames {int(fleet)}; {ms_frame:.1f} ms per batched frame = "
+        f"{ms_frame / S:.1f} ms per stream-frame over the whole replay (a single stream in "
+        f"phase 5: {single_ms:.1f} ms/frame); {seg.captures} captures in "
+        f"{seg.capture_seconds:.1f} s for {len(per_key)} keys (at most {max(per_key.values())} "
+        f"layouts for one), {seg.replays / T:.2f} replays per batched frame; host reads "
+        f"{step.host_syncs / T:.2f} per batched frame; kernel launches {launches}"
+        f"{f' (expected {expect})' if expect is not None else ''}; peak allocated "
+        f"{peak / 2**20:.1f} MiB above the run's start")
     if n_ok <= S / 2:
         raise AssertionError(f"mono fleet: only {n_ok}/{S} streams ok")
+    if max(per_key.values()) > FLEET_LAYOUT_BOUND:
+        raise AssertionError(f"mono fleet: {max(per_key.values())} layouts captured for one key")
     if min(launches.values()) <= 0 or (expect is not None and launches != expect):
         raise AssertionError(f"mono fleet kernel launches {launches}, expected {expect}")
     mark("fleet_mono")
+    # the profile frame: every stream WORKING on it and the frame before,
+    # none making a keyframe, at or after frame MONO_FLEET_EAGER_FRAMES - 1
+    # when one is (the eager run goes at least that far either way)
+    new_kf = outs.new_kf.cpu().numpy()
+    ok_f = [f for f in range(1, T) if (states[:, f - 1:f + 1] == WORKING).all()
+            and (new_kf[:, f] < 0).all()]
+    if not ok_f:
+        raise AssertionError("no keyframe-free frame with every mono stream WORKING")
+    start = next((f for f in ok_f if f >= MONO_FLEET_EAGER_FRAMES - 1), ok_f[-1])
+    frames = [imgs[:, f] for f in range(T)]
+    n = max(start + 1, MONO_FLEET_EAGER_FRAMES)
+    cmp = fleet_against_eager(
+        torch, tklt, dev, "mono", step, MonoFleetStep(cam, cfg, device=dev, graphs=False),
+        states0, frames, outs, start, n,
+        expected_launches_fleet(states[:, :n].tolist(), 8, vip=False) if clean else None)
+    mark("fleet_mono_against_eager")
     record = {"streams": S, "n_frames": T, "ok_streams": int(n_ok),
               "ms_per_batched_frame": ms_frame, "ms_per_stream_frame": ms_frame / S,
-              "host_reads_per_batched_frame": run.step.host_syncs / T,
-              "peak_allocated_bytes": peak, "card": smi}
+              "captures": seg.captures, "capture_seconds": seg.capture_seconds,
+              "keys": len(per_key), "replays_per_batched_frame": seg.replays / T,
+              "host_reads_per_batched_frame": step.host_syncs / T,
+              "peak_above_start_bytes": peak, "against_eager": cmp, "card": smi}
     return record, launches
 
 

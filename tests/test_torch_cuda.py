@@ -597,3 +597,152 @@ def test_graphed_step_raises_on_a_syncing_stage(cuda_device, monkeypatch):
         for img in seq.images:
             st, _ = step(st, torch.from_numpy(img.astype("float32")).to(cuda_device))
     assert ("B",) not in step.segments.keys
+
+
+# the graphed fleets (their segments replayed as captured CUDA graphs,
+# the default on the card) against graphs=False, at the sizes of
+# tests/test_torch_replay_ops.py
+FLEET_CFG = dict(n_tracks=96, min_init_tracks=60, local_window=6, gyr_noise_sd=0.01,
+                 acc_noise_sd=0.1, depth_noise_sd=0.05, vio_init_min_kfs=5,
+                 vio_init_min_time=1.0)
+FLEET_KF_CAP, FLEET_PT_CAP, FLEET_MONO_F, FLEET_VI_F, FLEET_FRAMES = 16, 1024, 12, 26, 6
+
+
+@pytest.fixture(scope="module")
+def card_fleet_runs():
+    """The `mixed` streams of tests/test_torch_replay_ops.py on the card
+    (two single-stream VIP runs at 120x160: stream 0 at its first frame,
+    stream 1 at frame 12 before VIO init, stream 2 at frame 20 after it),
+    through the eager fleet (a fresh step per order) and the graphed one
+    (one step for both orders, from fresh states, so [2, 0, 1] replays
+    [0, 1, 2]'s graphs for a VI-lane group of the same size with another
+    member). Per form and order: per-frame outputs, the final state, host
+    reads, hand-kernel launches and the graphs per key after the run."""
+    import dataclasses
+
+    from uvipslam_torch.core.tree import stack_streams
+    from uvipslam_torch.frontend import device_vip as dv
+    from uvipslam_torch.frontend.vip_tracker import VipConfig
+    from uvipslam_torch.io.synthetic import make_sequence
+    from uvipslam_torch.models.camera import CameraModel
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    cfg = VipConfig(**FLEET_CFG)
+    runs = []
+    for seed in (3, 4):
+        seq = make_sequence(n_frames=FLEET_VI_F + 8, H=120, W=160, n_points=800, seed=seed,
+                            speed=1.2, gyr_noise=0.005, acc_noise=0.05,
+                            gyr_bias=(0.004, -0.006, 0.003), depth_noise=0.02, z_amp=0.5)
+        cam = CameraModel.create(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2], width=160,
+                                 height=120)
+        st, step = dv.build_vip_tracker(cam, cfg, FLEET_KF_CAP, FLEET_PT_CAP, device=dev,
+                                        seed=seed)
+        bundles = dv.make_bundles(seq, device=dev)
+        states = [dataclasses.replace(st, gen=None)]
+        for b in bundles[:FLEET_VI_F]:
+            st, _ = step(st, b)
+            states.append(dataclasses.replace(st, gen=None))
+        runs.append((states, bundles))
+    (sa, ba), (sb, bb) = runs
+    n = FLEET_FRAMES
+    streams = [(sa[0], ba, 0), (sb[FLEET_MONO_F], bb, FLEET_MONO_F),
+               (sa[FLEET_VI_F - n], ba, FLEET_VI_F - n)]
+    out = {}
+    for graphs in (False, None):
+        fleet = None
+        for order in ([0, 1, 2], [2, 0, 1]):
+            if fleet is None or graphs is False:
+                fleet = dv.VipFleetStep(cam, cfg, FLEET_KF_CAP, device=dev, graphs=graphs)
+            syncs = fleet.host_syncs
+            st = stack_streams([streams[i][0] for i in order])
+            gens = [torch.Generator(device=dev) for _ in order]
+            for g, i in zip(gens, order):
+                g.manual_seed(100 + i)
+            before = (klt.patch_launches, klt.refine_launches, klt.refine_wide_calls)
+            outs = []
+            for f in range(n):
+                st, o = fleet(st, stack_streams([streams[i][1][streams[i][2] + f]
+                                                 for i in order]), gens)
+                outs.append(o)
+            torch.cuda.synchronize()
+            out[graphs, tuple(order)] = dict(
+                outs=outs, st=st, host_syncs=fleet.host_syncs - syncs, step=fleet,
+                launches=tuple(a - b for a, b in zip(
+                    (klt.patch_launches, klt.refine_launches, klt.refine_wide_calls), before)),
+                per_key=dict(fleet.segments.graphs_per_key()))
+    return out
+
+
+def _check_fleet_forms(e, g):
+    for a, b in zip(e["outs"] + [e["st"]], g["outs"] + [g["st"]]):
+        assert torch.equal(_bits(a), _bits(b))
+    assert e["host_syncs"] == g["host_syncs"]
+    assert e["launches"] == g["launches"] and min(e["launches"][:2]) > 0 \
+        and e["launches"][2] == 0, (e["launches"], g["launches"])
+
+
+@pytest.mark.cuda
+def test_graphed_vip_fleet_equals_eager_on_card(card_fleet_runs):
+    """The VIP fleet over the `mixed` streams, S = 3: the graphed fleet
+    (the default on the card) gives the eager fleet's outputs on every
+    frame and its final state bit for bit, with the same host reads and
+    hand-kernel launches, having captured and replayed its segments."""
+    e, g = card_fleet_runs[False, (0, 1, 2)], card_fleet_runs[None, (0, 1, 2)]
+    assert not e["step"].graphs and g["step"].graphs
+    _check_fleet_forms(e, g)
+    seg = g["step"].segments
+    assert {"A", "B", "C"} <= {k[0] for k in seg.keys}
+    assert seg.captures == len(seg.graphs) and seg.replays > 3 * FLEET_FRAMES
+
+
+@pytest.mark.cuda
+def test_graphed_vip_fleet_replays_another_composition_on_card(card_fleet_runs):
+    """The trap of grouped graphs on the card: the graphed step that ran
+    [0, 1, 2] runs [2, 0, 1] from fresh states; its VI lane takes stream
+    {0} where the first run's took {2}. It captures no new graph for B or
+    C (it replays the first run's) and still equals the eager fleet of
+    [2, 0, 1] bit for bit."""
+    first = card_fleet_runs[None, (0, 1, 2)]
+    second = card_fleet_runs[None, (2, 0, 1)]
+    _check_fleet_forms(card_fleet_runs[False, (2, 0, 1)], second)
+    vi_keys = [k for k in first["per_key"] if k[0] in ("B", "C") and ("vi", "rows") in k]
+    assert vi_keys
+    for k in vi_keys:
+        assert second["per_key"][k] == first["per_key"][k], k
+
+
+@pytest.mark.cuda
+def test_graphed_mono_fleet_equals_eager_on_card(cuda_device):
+    """`batched_replay` over two scenes at 120x160, 14 frames: graphed
+    (the default on the card) against `graphs=False`, outputs and final
+    state bit for bit, the same host reads and hand-kernel launches."""
+    import numpy as np
+
+    from uvipslam_torch.frontend.tracker import TrackerConfig
+    from uvipslam_torch.io.synthetic import make_sequence
+    from uvipslam_torch.models.camera import CameraModel
+    from uvipslam_torch.parallel.replay import batched_replay
+
+    seqs = [make_sequence(n_frames=14, H=120, W=160, n_points=800, seed=s, speed=1.2)
+            for s in (3, 4)]
+    k = seqs[0].K
+    cam = CameraModel.create(k[0, 0], k[1, 1], k[0, 2], k[1, 2], width=160, height=120)
+    cfg = TrackerConfig(n_tracks=96, min_init_tracks=60, local_window=8)
+    imgs = torch.from_numpy(np.stack([s.images for s in seqs]).astype(np.float32))
+    res = {}
+    for graphs in (False, None):
+        make_states, run = batched_replay(cam, cfg, FLEET_KF_CAP, FLEET_PT_CAP,
+                                          device=cuda_device, seed=5, graphs=graphs)
+        before = (klt.patch_launches, klt.refine_launches, klt.refine_wide_calls)
+        stf, outs, fleet = run(make_states(2), imgs)
+        torch.cuda.synchronize()
+        res[graphs] = dict(outs=[outs], st=stf, host_syncs=run.step.host_syncs, step=run.step,
+                           launches=tuple(a - b for a, b in zip(
+                               (klt.patch_launches, klt.refine_launches,
+                                klt.refine_wide_calls), before)))
+    assert not res[False]["step"].graphs and res[None]["step"].graphs
+    _check_fleet_forms(res[False], res[None])
+    seg = res[None]["step"].segments
+    assert {"A", "B", "C"} <= {k[0] for k in seg.keys} and seg.replays > 2 * 14

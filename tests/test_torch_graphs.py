@@ -123,8 +123,26 @@ def test_new_input_layout_captures_anew():
         mm, vv = seg.run(("mm",), fn, m, v)
         assert torch.equal(mm, m @ m) and torch.equal(vv, v * 2.0)
     assert seg.keys == {("mm",)} and seg.captures == 3 and seg.replays == 5
+    assert seg.graphs_per_key() == {("mm",): 3}
     strides = sorted(g.static_in[0].stride() for g in seg.graphs.values())
     assert strides == [(1, 3), (3, 1), (3, 1)]
+
+
+def test_rows_as_data_serve_every_group_of_a_size():
+    """A stream group passed as an index tensor among the inputs (as the
+    fleets pass theirs): groups of one size replay one graph, each call
+    gathering its own rows; an index of another length is another
+    layout, so another graph under the same key."""
+    seg = Segments("cpu")
+    x = torch.arange(12.0).reshape(4, 3)
+
+    def fn(t, ix):
+        return t.index_select(0, ix["g"]) * 2.0
+
+    for rows in ([0, 3], [2, 1], [1], [3], [0, 2]):
+        ix = torch.tensor(rows)
+        assert torch.equal(seg.run(("take",), fn, x, {"g": ix}), x[ix] * 2.0)
+    assert seg.graphs_per_key() == {("take",): 2} and seg.replays == 5
 
 
 def test_counter_deltas_added_once_per_call():

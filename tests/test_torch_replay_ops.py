@@ -15,7 +15,14 @@ way in every row), RANSAC stages get their minimal samples injected.
 Two tests look for leakage between streams on the whole VIP fleet step,
 with streams in different states (not initialized, mono WORKING, VI
 WORKING): permuting the streams permutes the outputs bit for bit, and a
-fleet [A, B, A] gives rows 0 and 2 bitwise equal.
+fleet [A, B, A] gives rows 0 and 2 bitwise equal. Both also run on the
+graphed fleet (`graphs=True`: on the CPU the plain form of its captured
+segments), which must give the eager fleet's outputs, states, host reads
+and hand-kernel launches bit for bit, also where one graphed step
+replays its graphs for a stream group of the same size with other
+members; so do the rare branches and the mono fleet.
+
+One torch thread: ~176 s, of which the graphed cases ~67 s.
 """
 
 import dataclasses
@@ -479,19 +486,24 @@ def test_map_and_tracker_stages_stream_dim(world, stage):
 
 
 # --------------------------------------------------------------------------
-# leakage between streams, on the whole VIP fleet step
+# leakage between streams, on the whole VIP fleet step, eager and graphed
 # --------------------------------------------------------------------------
 
-def _run_fleet(world, order, n_frames=6):
+ORDERS = ([0, 1, 2], [2, 0, 1], [2, 1, 2])
+
+
+def _run_fleet(world, order, n_frames=6, graphs=False, fleet=None):
     """The fleet step over the `mixed` streams taken in `order` (stream
     ids may repeat), each with its own generator and its own sequence
-    from where its carried state stands. Returns the stacked outputs and
-    the final state."""
+    from where its carried state stands. `graphs=True` runs the graphed
+    fleet's plain form (the CPU's); `fleet` reuses a fleet step and its
+    graphs. Returns the stacked outputs, the final state and the fleet."""
     cfg, cam = world["cfg"], world["cam"]
     (sa, ba), (sb, bb) = world["runs"]
     streams = [(sa[0], ba, 0), (sb[MONO_F], bb, MONO_F), (sa[VI_F - n_frames], ba,
                                                           VI_F - n_frames)]
-    fleet = dv.VipFleetStep(cam, cfg, KF_CAP, device="cpu")
+    if fleet is None:
+        fleet = dv.VipFleetStep(cam, cfg, KF_CAP, device="cpu", graphs=graphs)
     st = stack_streams([dataclasses.replace(streams[i][0], gen=None) for i in order])
     gens = []
     for i in order:
@@ -503,13 +515,44 @@ def _run_fleet(world, order, n_frames=6):
         b = stack_streams([streams[i][1][streams[i][2] + f] for i in order])
         st, out = fleet(st, b, gens)
         outs.append(out)
-    return outs, st
+    return outs, st, fleet
 
 
-def test_fleet_permutation_is_bitwise(world):
-    outs, st = _run_fleet(world, [0, 1, 2])
+@pytest.fixture(scope="module")
+def fleet_runs(world):
+    """Each of ORDERS through the eager fleet (a fresh step each) and the
+    graphed one: ONE graphed step drives them all, from fresh states, so
+    its later orders replay graphs captured for groups of the same size
+    with other members (the VI-lane group is stream {2} in [0, 1, 2] and
+    {0} in [2, 0, 1]). Per form and order: outputs, final state, the
+    step's host reads and the hand-kernel launches of the run (counted on
+    the card only: the CPU runs the kernels' plain versions), and (the
+    graphed form) the graphs per key after it."""
+    runs = {}
+    for graphs in (False, True):
+        fleet = None
+        for order in ORDERS:
+            before = (klt.patch_launches, klt.refine_launches)
+            reuse = fleet if graphs else None
+            syncs = reuse.host_syncs if reuse is not None else 0
+            outs, st, fleet = _run_fleet(world, order, graphs=graphs, fleet=reuse)
+            step = fleet
+            runs[graphs, tuple(order)] = dict(
+                outs=outs, st=st, host_syncs=step.host_syncs - syncs,
+                launches=(klt.patch_launches - before[0], klt.refine_launches - before[1]),
+                per_key=dict(step.segments.graphs_per_key()))
+    return runs
+
+
+def _same_bits(a, b):
+    return all(torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _check_permutation(fleet_runs, graphs):
+    outs, st = (fleet_runs[graphs, (0, 1, 2)][k] for k in ("outs", "st"))
     perm = [2, 0, 1]
-    outs_p, st_p = _run_fleet(world, perm)
+    outs_p, st_p = (fleet_runs[graphs, tuple(perm)][k] for k in ("outs", "st"))
     states = torch.stack([o.state for o in outs])
     # the streams sit in different states: one starts NOT_INITIALIZED,
     # one tracks before VIO init, one after it
@@ -520,19 +563,71 @@ def test_fleet_permutation_is_bitwise(world):
             assert torch.equal(torch.nan_to_num(a[perm]), torch.nan_to_num(c))
 
 
-def test_fleet_duplicate_rows_are_bitwise(world):
-    outs, st = _run_fleet(world, [2, 1, 2])
+def _check_duplicate_rows(fleet_runs, graphs):
+    outs, st = (fleet_runs[graphs, (2, 1, 2)][k] for k in ("outs", "st"))
     for o in outs + [st]:
         for a in tree_leaves(o):
             assert torch.equal(torch.nan_to_num(a[0]), torch.nan_to_num(a[2]))
     assert int(st.map.n_kf[0]) != int(st.map.n_kf[1])
 
 
+def test_fleet_permutation_is_bitwise(fleet_runs):
+    _check_permutation(fleet_runs, False)
+
+
+def test_fleet_duplicate_rows_are_bitwise(fleet_runs):
+    _check_duplicate_rows(fleet_runs, False)
+
+
+def test_graphed_fleet_permutation_is_bitwise(fleet_runs):
+    _check_permutation(fleet_runs, True)
+
+
+def test_graphed_fleet_duplicate_rows_are_bitwise(fleet_runs):
+    _check_duplicate_rows(fleet_runs, True)
+
+
+@pytest.mark.parametrize("order", ORDERS, ids=lambda o: "".join(map(str, o)))
+def test_graphed_fleet_equals_eager(fleet_runs, order):
+    """The graphed fleet (its plain form) against `graphs=False` on the
+    `mixed` streams: every frame's output and the final state bit for
+    bit, with the same host reads and hand-kernel launches."""
+    e, g = fleet_runs[False, tuple(order)], fleet_runs[True, tuple(order)]
+    for a, b in zip(e["outs"] + [e["st"]], g["outs"] + [g["st"]]):
+        assert _same_bits(a, b)
+    assert e["host_syncs"] == g["host_syncs"] and e["launches"] == g["launches"]
+
+
+def test_graphed_fleet_replays_a_group_of_another_composition(fleet_runs):
+    """The trap of grouped graphs: after [0, 1, 2], the same graphed step
+    runs [2, 0, 1] from fresh states. Its VI lane takes stream {0} where
+    the first run's took {2}, a group of the same size: the second run
+    captures no new graph for segment B or C (it replays the first run's,
+    whose keys and layouts hold no member) and still equals the eager
+    fleet bit for bit; a graph that computed its rows from the capture's
+    stream ids would gather the first run's rows here."""
+    first, second = (fleet_runs[True, o] for o in ((0, 1, 2), (2, 0, 1)))
+    eager = fleet_runs[False, (2, 0, 1)]
+    for a, b in zip(eager["outs"] + [eager["st"]], second["outs"] + [second["st"]]):
+        assert _same_bits(a, b)
+    vi_keys = [k for k in first["per_key"] if k[0] in ("B", "C") and ("vi", "rows") in k]
+    assert vi_keys
+    for k in vi_keys:
+        assert second["per_key"][k] == first["per_key"][k], k
+    # no key holds a group's members: past the name, only Python flags and
+    # the form of each group
+    forms = {"none", "all", "rows"}
+    for k in second["per_key"]:
+        assert all(isinstance(v, bool) or v in forms for _, v in k[1:]), k
+
+
 def test_fleet_rare_branches_match_single_stream(world):
     """Three black frames send the mono stream to LOST and the VI stream
     through the first-try lane into IMU_RELOC, the branches the fleet runs
     per stream through the single-stream code: the fleet's labels are
-    those of single-stream runs on the same inputs with the same seeds."""
+    those of single-stream runs on the same inputs with the same seeds,
+    and the graphed fleet (its plain form) gives the eager fleet's
+    outputs and states bit for bit, with the same host reads."""
     cfg, cam = world["cfg"], world["cam"]
     (sa, ba), (sb, bb) = world["runs"]
     n, f_vi = 7, VI_F
@@ -557,24 +652,27 @@ def test_fleet_rare_branches_match_single_stream(world):
     assert tr.LOST in [s for s, _ in single[0]]
     assert tr.IMU_RELOC in [s for s, _ in single[1]]
 
-    fleet = dv.VipFleetStep(cam, cfg, KF_CAP, device="cpu")
-    st = stack_streams([dataclasses.replace(s, gen=None) for s, _ in starts])
-    gens = [gen(0), gen(1)]
-    got = [[], []]
-    for f in range(n):
-        st, out = fleet(st, stack_streams([black(bs[f], f) for _, bs in starts]), gens)
-        for i in range(2):
-            got[i].append((int(out.state[i]), bool(out.vio_ok[i])))
-    assert got == single
+    runs = {}
+    for graphs in (False, True):
+        fleet = dv.VipFleetStep(cam, cfg, KF_CAP, device="cpu", graphs=graphs)
+        st = stack_streams([dataclasses.replace(s, gen=None) for s, _ in starts])
+        gens = [gen(0), gen(1)]
+        got, trees = [[], []], []
+        for f in range(n):
+            st, out = fleet(st, stack_streams([black(bs[f], f) for _, bs in starts]), gens)
+            trees += [out, st]
+            for i in range(2):
+                got[i].append((int(out.state[i]), bool(out.vio_ok[i])))
+        assert got == single
+        runs[graphs] = trees, fleet.host_syncs
+    assert all(_same_bits(a, b) for a, b in zip(runs[False][0], runs[True][0]))
+    assert runs[False][1] == runs[True][1]
 
 
-def test_mono_fleet_matches_single_streams():
-    """`batched_replay` over two scenes against two single-stream runs
-    seeded like the fleet's streams: the same labels on every frame
-    (bootstrap, WORKING, keyframes), the same keyframe count, and poses
-    that agree while float32 rounding has had few frames to spread
-    (1e-3 of the unit-depth map over the first ten frames)."""
-    from uvipslam_torch.frontend import device_tracker as dt
+@pytest.fixture(scope="module")
+def mono_fleet_runs():
+    """`batched_replay` over two scenes, graphed (the plain form) and by
+    default (off on the CPU), and the inputs of its single-stream runs."""
     from uvipslam_torch.parallel.replay import batched_replay
 
     T = 14
@@ -583,10 +681,31 @@ def test_mono_fleet_matches_single_streams():
     k = seqs[0].K
     cam = CameraModel.create(k[0, 0], k[1, 1], k[0, 2], k[1, 2], width=W, height=H)
     cfg = tr.TrackerConfig(n_tracks=N_TRACKS, min_init_tracks=60, local_window=8)
-    make_states, run = batched_replay(cam, cfg, KF_CAP, PT_CAP, device="cpu", seed=5)
-    stf, outs, fleet = run(make_states(2), np.stack([s.images for s in seqs]))
+    runs = {}
+    for graphs in (None, True):
+        make_states, run = batched_replay(cam, cfg, KF_CAP, PT_CAP, device="cpu", seed=5,
+                                          graphs=graphs)
+        before = (klt.patch_launches, klt.refine_launches)
+        stf, outs, fleet = run(make_states(2), np.stack([s.images for s in seqs]))
+        runs[graphs] = dict(stf=stf, outs=outs, fleet=fleet, step=run.step,
+                            launches=(klt.patch_launches - before[0],
+                                      klt.refine_launches - before[1]))
+    return dict(runs=runs, seqs=seqs, cam=cam, cfg=cfg, T=T)
+
+
+def test_mono_fleet_matches_single_streams(mono_fleet_runs):
+    """`batched_replay` over two scenes against two single-stream runs
+    seeded like the fleet's streams: the same labels on every frame
+    (bootstrap, WORKING, keyframes), the same keyframe count, and poses
+    that agree while float32 rounding has had few frames to spread
+    (1e-3 of the unit-depth map over the first ten frames)."""
+    from uvipslam_torch.frontend import device_tracker as dt
+
+    m = mono_fleet_runs
+    cam, cfg, T = m["cam"], m["cfg"], m["T"]
+    stf, outs, fleet = (m["runs"][None][k] for k in ("stf", "outs", "fleet"))
     assert int(fleet) == int((outs.state == tr.WORKING).sum()) > T
-    for i, seq in enumerate(seqs):
+    for i, seq in enumerate(m["seqs"]):
         st, step = dt.build_tracker(cam, cfg, KF_CAP, PT_CAP, device="cpu", seed=5 + i)
         for f in range(T):
             st, out = step(st, torch.from_numpy(seq.images[f]))
@@ -595,3 +714,37 @@ def test_mono_fleet_matches_single_streams():
             if f < 10:
                 assert torch.allclose(out.tcw, outs.tcw[i, f], atol=1e-3), (i, f)
         assert int(st.map.n_kf) == int(stf.map.n_kf[i]) >= 3
+
+
+def test_graphed_mono_fleet_equals_eager(mono_fleet_runs):
+    """The graphed mono fleet (its plain form) gives the eager fleet's
+    outputs, final state, host reads and hand-kernel launches bit for bit
+    (so the single-stream runs' labels of the test above too)."""
+    e, g = mono_fleet_runs["runs"][None], mono_fleet_runs["runs"][True]
+    assert _same_bits(e["outs"], g["outs"]) and _same_bits(e["stf"], g["stf"])
+    assert e["step"].host_syncs == g["step"].host_syncs
+    assert e["launches"] == g["launches"]
+    seg = g["step"].segments
+    assert {"A", "B", "C", "E"} <= {k[0] for k in seg.keys}
+    assert seg.replays > 3 * mono_fleet_runs["T"]
+
+
+def test_batched_replays_run_eagerly_on_the_cpu_by_default(world, mono_fleet_runs):
+    """`graphs=None` means off on the CPU (on for a CUDA device) for both
+    replays and both fleet steps."""
+    from uvipslam_torch.frontend.device_tracker import MonoFleetStep
+    from uvipslam_torch.parallel.replay import batched_replay_vip
+
+    step = mono_fleet_runs["runs"][None]["step"]
+    assert step.graphs is False and not step.segments.enabled and not step.segments.graphs
+    assert mono_fleet_runs["runs"][True]["step"].graphs is True
+    cam, cfg = world["cam"], world["cfg"]
+    (sa, ba), _ = world["runs"]
+    make_states, run = batched_replay_vip(cam, cfg, KF_CAP, PT_CAP, device="cpu")
+    feeds = stack_streams([stack_streams(ba[:1])])           # S = 1, T = 1
+    run(make_states(1), feeds)
+    assert run.step.graphs is False and not run.step.segments.graphs
+    assert run.step.segments.replays == 0
+    assert MonoFleetStep(mono_fleet_runs["cam"], mono_fleet_runs["cfg"],
+                         device="cpu").graphs is False
+    assert dv.VipFleetStep(cam, cfg, KF_CAP, device="cpu", graphs=True).graphs is True

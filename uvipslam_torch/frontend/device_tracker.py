@@ -32,7 +32,10 @@ kernels on the same inputs and gives the eager step's outputs and states
 bit for bit, with the same host reads. NOT_INITIALIZED, INITIALIZING,
 LOST and a WORKING frame that turns LOST stay eager after A: they are
 rare, their two-view and relocalization draw from the generator inside,
-and each would be graphs of its own. `MonoFleetStep` stays eager.
+and each would be graphs of its own. `MonoFleetStep` replays its batched
+frames' stages as graphs in the same way (`Fleet`: the counterpart of the
+reference's `jax.jit(vmap(scan(step)))`), its groups' rows entering as
+data, NOT_INITIALIZED, INITIALIZING and LOST eager.
 
 Each phase runs inside a `torch.profiler.record_function` span named
 `step.<phase>` (propagate, refill, two_view_init, pose_localmap,
@@ -488,14 +491,58 @@ class MonoStep:
         return dataclasses.replace(st, gen=gen), out
 
 
+ALL = "all"     # a stream subset that is every stream of its tree: the tree itself, no gather
+
+
+def take(tree, ix):
+    """The rows `ix` (`Fleet._sel`: ALL or a device index tensor) of every
+    leaf of a fleet tree."""
+    return tree if ix is ALL else take_streams(tree, ix)
+
+
+def put(tree, ix, sub):
+    """`tree` with its rows `ix` (ALL or a device index tensor) replaced by
+    the rows of `sub`."""
+    return sub if ix is ALL else put_streams(tree, ix, sub)
+
+
+def _form(ix) -> str:
+    return "none" if ix is None else "all" if ix is ALL else "rows"
+
+
 class Fleet:
     """What the fleet steps share: the host reads of per-stream flag
-    tables and the stream subsets (rows gathered for a stage, scattered
-    back after it)."""
+    tables, the stream subsets (rows gathered for a stage, scattered back
+    after it) and the segments of a batched frame.
 
-    def __init__(self, one):
+    The reference compiles its whole batched replay into one program
+    (`jax.jit(vmap(scan(step)))`). Its counterpart here is `graphs` (on by
+    default on a CUDA device, off on the CPU; `True` on the CPU runs the
+    plain form): the batched frame, cut at its host reads and at its
+    per-stream branches, replays captured CUDA graphs (`self.segments`, a
+    `utils.graphs.Segments`, one memory pool per fleet step). With
+    `graphs=False` the same segments are called eagerly, so both forms
+    compose the frame alike and give the same outputs, states, host reads,
+    hand-kernel launches and draws bit for bit.
+
+    A segment is keyed by its name and the Python values that pick its
+    path (`_seg`), never by which streams form its groups: a group enters
+    as data. The host makes each group's index tensor before the segment
+    (`_sel`, through the cached `_ix`: a first use is a host-to-device
+    copy, which a capture cannot hold) and passes it in the segment's
+    inputs, whose current values `Segments` copies in at every replay; the
+    key holds only whether each group is empty, all of its tree (taken
+    as it is) or some rows, and `Segments` adds the index tensors'
+    lengths with the inputs' layout. So every group of one size replays
+    one graph whatever its members, and no segment's function computes a
+    row index from Python stream ids: a graph that baked its capture's
+    index in would gather another group's rows at its replays."""
+
+    def __init__(self, one, graphs: bool | None = None):
         self.one = one                    # the single-stream step: constants and stages
         self.cfg, self.device = one.cfg, one.device
+        self.graphs = self.device.type == "cuda" if graphs is None else bool(graphs)
+        self.segments = Segments(self.device, graphs=self.graphs)
         self.fleet_syncs = 0
         self._ix_cache: dict = {}
 
@@ -517,20 +564,24 @@ class Fleet:
             self._ix_cache[key] = torch.tensor(key, dtype=torch.long).to(self.device)
         return self._ix_cache[key]
 
-    def _take(self, tree, ids, of):
-        """The rows of streams `ids` out of a tree that holds streams `of`
-        (both ascending; the whole tree when they are the same)."""
+    def _sel(self, ids, of):
+        """Where streams `ids` sit among streams `of` (both ascending), as
+        `take` and `put` take it: None for no stream, ALL for every one,
+        else their positions as a device index tensor."""
+        if not ids:
+            return None
         if len(ids) == len(of):
-            return tree
+            return ALL
         pos = {s: p for p, s in enumerate(of)}
-        return take_streams(tree, self._ix([pos[i] for i in ids]))
+        return self._ix([pos[i] for i in ids])
+
+    def _take(self, tree, ids, of):
+        """The rows of streams `ids` out of a tree that holds streams `of`."""
+        return take(tree, self._sel(ids, of))
 
     def _put(self, tree, ids, sub, of):
         """`tree` (streams `of`) with the rows of streams `ids` replaced."""
-        if len(ids) == len(of):
-            return sub
-        pos = {s: p for p, s in enumerate(of)}
-        return put_streams(tree, self._ix([pos[i] for i in ids]), sub)
+        return put(tree, self._sel(ids, of), sub)
 
     def _row(self, tree, i: int, gen=None):
         """Stream i's single-stream tree (views), with its generator."""
@@ -539,6 +590,20 @@ class Fleet:
 
     def _put_row(self, tree, i: int, r):
         return put_streams(tree, self._ix([i]), tree_map(lambda a: a[None], r))
+
+    def _seg(self, name: str, fn, *trees, ix=None, **static):
+        """`fn(*trees, ix=ix, **static)` as the batched frame's segment
+        `name`: `static` (the Python values that pick its path) and the
+        form of each group in `ix` (a dict of `_sel` results) make its key;
+        the group index tensors ride in its inputs."""
+        ix = ix or {}
+        key = (name, *sorted(static.items()), *sorted((k, _form(v)) for k, v in ix.items()))
+        return self.segments.run(key, lambda *t: fn(*t[:-1], ix=t[-1], **static), *trees, ix)
+
+    def _ring(self, st, pyr, ix=None):
+        """The ring and the output of every stream (segment R, or the end
+        of the frame's last segment)."""
+        return over_streams(self.one._ring_and_out, st, pyr)
 
 
 class MonoFleetStep(Fleet):
@@ -550,30 +615,92 @@ class MonoFleetStep(Fleet):
     state and every stage of `MonoStep` runs once over the streams that
     take it (`tree.over_streams`), each branch decision one read of an
     [n, k] table. INITIALIZING's two-view reconstruction and LOST's
-    relocalization run per stream through `MonoStep`'s own code."""
+    relocalization run per stream through `MonoStep`'s own code.
 
-    def __init__(self, cam: CameraModel, cfg: TrackerConfig, device="cuda"):
-        super().__init__(MonoStep(cam, cfg, device=device, graphs=False))
+    The segments (`Fleet`): A, the images and the frame ids, up to the
+    state read; B, after the RANSAC uniforms are drawn eagerly per stream,
+    the propagation of the INITIALIZING and WORKING streams and the
+    WORKING solve, up to its (lost, need) read, which follows the eager
+    NOT_INITIALIZED and INITIALIZING branches; C, the solves taken (LOST
+    for the others) and the keyframe streams' front up to the compaction
+    read; E, after the eager compaction, the keyframes' bookkeeping and
+    the scatters; the ring and the output end C or E when no LOST stream
+    follows, else run as R after the eager relocalizations. The frame's
+    images are taken as one contiguous copy (a no-op for a contiguous
+    tensor), so the graphs see one layout."""
+
+    def __init__(self, cam: CameraModel, cfg: TrackerConfig, device="cuda",
+                 graphs: bool | None = None):
+        super().__init__(MonoStep(cam, cfg, device=device, graphs=False), graphs)
+
+    # -- the batched frame's segments ----------------------------------
+    def _start(self, st: TrackerState, imgs, ix):
+        """Segment A: every stream's images and frame id."""
+        imgs, pyr = over_streams(self.one._images, imgs)
+        return dataclasses.replace(st, frame_id=st.frame_id + 1), imgs, pyr
+
+    def _body(self, st: TrackerState, pyr, u, ix):
+        """Segment B: propagation of the streams `ix["prop"]`
+        (INITIALIZING, WORKING) with their uniforms `u`, then the solve of
+        the WORKING streams `ix["work"]` and its (lost, need) flags."""
+        one = self.one
+        ml = flags = None
+        if ix["prop"] is not None:
+            with record_function("step.propagate"):
+                sub = over_streams(one._propagate, take(st, ix["prop"]), take(pyr, ix["prop"]), u)
+            st = dataclasses.replace(st, tracks=put(st.tracks, ix["prop"], sub))
+        if ix["work"] is not None:
+            ml, flags = over_streams(one._working_solve, take(st, ix["work"]))
+        return st, ml, flags
+
+    def _accept(self, st: TrackerState, ml, imgs, pyr, ix, ring: bool):
+        """Segment C: of the WORKING streams `ix["work"]`, `ix["lost"]`
+        turn LOST and `ix["live"]` take their solve with refill and
+        refresh (`ix["live_all"]`: the same among all streams). With
+        keyframe streams `ix["kf"]` among the live ones it returns (the
+        WORKING rows, the live rows, the keyframe rows after the keyframe
+        front, the compaction flags) for E; else the state, and with
+        `ring` the state and the output."""
+        one = self.one
+        sub = take(st, ix["work"])
+        if ix["lost"] is not None:
+            sub = put(sub, ix["lost"], over_streams(one._state, take(sub, ix["lost"]), label=LOST))
+        if ix["live"] is not None:
+            new = over_streams(one._working_apply, take(sub, ix["live"]), take(ml, ix["live"]),
+                               take(imgs, ix["live_all"]))
+            if ix["kf"] is not None:
+                with record_function("step.keyframe"):
+                    k_new, compact = over_streams(one._kf_front, take(new, ix["kf"]))
+                return sub, new, k_new, compact
+            sub = put(sub, ix["live"], new)
+        st = put(st, ix["work"], sub)
+        return self._ring(st, pyr) if ring else (st, None)
+
+    def _kf_end(self, st: TrackerState, sub, new, k_new, pyr, ix, ring: bool):
+        """Segment E: the keyframes' bookkeeping, the rows scattered back
+        through the live and WORKING streams, and with `ring` the ring and
+        the output."""
+        k_new = over_streams(self.one._kf_finish, k_new)
+        st = put(st, ix["work"], put(sub, ix["live"], put(new, ix["kf"], k_new)))
+        return self._ring(st, pyr) if ring else (st, None)
 
     def __call__(self, st: TrackerState, imgs: torch.Tensor, gens):
-        one, cfg, dev = self.one, self.cfg, self.device
+        one, cfg, dev, seg, sel = self.one, self.cfg, self.device, self._seg, self._sel
         S = st.state.shape[0]
         every = list(range(S))
 
-        imgs, pyr = over_streams(one._images, imgs)
-        st = dataclasses.replace(st, frame_id=st.frame_id + 1)
+        st, imgs, pyr = seg("A", self._start, st, imgs.contiguous())
         s = [f[0] for f in self._read(st.state)]
 
         def group(*states):
             return [i for i in every if s[i] in states]
 
-        g = group(INITIALIZING, WORKING)
-        if g:
-            with record_function("step.propagate"):
-                u = torch.stack([draw_uniform(gens[i], 200, cfg.n_tracks, dev) for i in g])
-                sub = over_streams(one._propagate, self._take(st, g, every),
-                                   self._take(pyr, g, every), u)
-            st = dataclasses.replace(st, tracks=self._put(st.tracks, g, sub, every))
+        g_prop, g_work = group(INITIALIZING, WORKING), group(WORKING)
+        ml = flags = None
+        if g_prop:
+            u = torch.stack([draw_uniform(gens[i], 200, cfg.n_tracks, dev) for i in g_prop])
+            st, ml, flags = seg("B", self._body, st, pyr, u,
+                                ix=dict(prop=sel(g_prop, every), work=sel(g_work, every)))
 
         g = group(NOT_INITIALIZED)
         if g:
@@ -594,38 +721,33 @@ class MonoFleetStep(Fleet):
                 r, _ = one._initializing(self._row(st, i, gens[i]), imgs[i], pre, tuple(d))
                 st = self._put_row(st, i, r)
 
-        g = group(WORKING)
-        if g:
-            sub = self._take(st, g, every)
-            ml, fl = over_streams(one._working_solve, sub)
-            dec = self._read(*fl)
-            live = [i for i, d in zip(g, dec) if not d[0]]
-            lost = [i for i, d in zip(g, dec) if d[0]]
-            if lost:
-                sub = self._put(sub, lost, over_streams(one._state, self._take(sub, lost, g),
-                                                        label=LOST), g)
-            if live:
-                new = over_streams(one._working_apply, self._take(sub, live, g),
-                                   self._take(ml, live, g), self._take(imgs, live, every))
-                kf = [i for i, d in zip(g, dec) if not d[0] and d[1]]
-                if kf:
-                    with record_function("step.keyframe"):
-                        k_new, compact = over_streams(one._kf_front, self._take(new, kf, live))
-                        if cfg.map_hygiene:
-                            full = [i for i, f in zip(kf, self._read(compact)) if f[0]]
-                            if full:
-                                k_new = self._put(k_new, full, over_streams(
-                                    one._compact, self._take(k_new, full, kf)), kf)
-                        k_new = over_streams(one._kf_finish, k_new)
-                    new = self._put(new, kf, k_new, live)
-                sub = self._put(sub, live, new, g)
-            st = self._put(st, g, sub, every)
+        out = None
+        if g_work:
+            dec = self._read(*flags)
+            live = [i for i, d in zip(g_work, dec) if not d[0]]
+            lost = [i for i, d in zip(g_work, dec) if d[0]]
+            kf = [i for i, d in zip(g_work, dec) if not d[0] and d[1]]
+            ix = dict(work=sel(g_work, every), live=sel(live, g_work), lost=sel(lost, g_work),
+                      live_all=sel(live, every), kf=sel(kf, live))
+            ring = not group(LOST)         # no eager relocalization follows
+            if not kf:
+                st, out = seg("C", self._accept, st, ml, imgs, pyr, ix=ix, ring=ring)
+            else:
+                with record_function("step.keyframe"):
+                    sub, new, k_new, compact = seg("C", self._accept, st, ml, imgs, pyr, ix=ix,
+                                                   ring=False)
+                    if cfg.map_hygiene:
+                        full = [i for i, f in zip(kf, self._read(compact)) if f[0]]
+                        if full:
+                            k_new = self._put(k_new, full, over_streams(
+                                one._compact, self._take(k_new, full, kf)), kf)
+                    st, out = seg("E", self._kf_end, st, sub, new, k_new, pyr, ix=ix, ring=ring)
 
         for i in group(LOST):
             r, _ = one._lost(self._row(st, i, gens[i]), imgs[i])
             st = self._put_row(st, i, r)
 
-        return over_streams(one._ring_and_out, st, pyr)
+        return (st, out) if out is not None else seg("R", self._ring, st, pyr)
 
 
 def relocalize_pose(tracks, m: MapState, gen, cam: CameraModel, scale_sigmas):

@@ -55,7 +55,13 @@ bit, with the same host reads. These stay eager, after A: NOT_INITIALIZED, INITI
 IMU_RELOC (rare; their two-view and relocalization draw from the
 generator inside), lane 1 after a failed VI solve, the pre-VIO keyframe
 with its VIO-init trigger read, and the VIO-init frame (`_try_init_vio`,
-~0.4M launches once per run). `VipFleetStep` stays eager.
+~0.4M launches once per run).
+
+`VipFleetStep(graphs=...)` is the counterpart of the reference's batched
+replay, `jax.jit(vmap(scan(step)))`: a batched frame's stages over the
+stream groups replay captured graphs cut at the fleet's host reads, the
+group index tensors riding in the inputs (`device_tracker.Fleet`); the
+per-stream branches and the VIO init stay eager as in the single step.
 """
 
 from __future__ import annotations
@@ -73,8 +79,8 @@ from uvipslam_torch.core.preintegration import (PreintState, bias_correct, prein
 from uvipslam_torch.core.state import NavState
 from uvipslam_torch.core.tree import over_streams, put_row, row, tree_map
 from uvipslam_torch.frontend.device_tracker import (RING, Fleet, _i32, _nanmedian, _nav_row,
-                                                    hygiene_compact, hygiene_front,
-                                                    relocalize_pose, step_device)
+                                                    hygiene_compact, hygiene_front, put,
+                                                    relocalize_pose, step_device, take)
 from uvipslam_torch.frontend.frame import (Tracks, propagate_tracks, refill_tracks,
                                            refresh_descriptors)
 from uvipslam_torch.frontend.tracker import (IMU_RELOC, INITIALIZING, LOST, NOT_INITIALIZED,
@@ -942,48 +948,162 @@ class VipFleetStep(Fleet):
 
     Stream i of a fleet computes what a single `VipStep` run computes on
     stream i's inputs with generator i: same branches, same draws in the
-    same order (to the rounding of the batched matrix products)."""
+    same order (to the rounding of the batched matrix products).
 
-    def __init__(self, cam: CameraModel, cfg: VipConfig, kf_cap: int, device="cuda"):
-        super().__init__(VipStep(cam, cfg, kf_cap, device=device, graphs=False))
+    The segments (`Fleet`), each a run of batched stages between two host
+    reads or per-stream branches:
+
+    - A: the images and the inertial prediction, up to the [S, 3] read;
+    - B, after the RANSAC uniforms are drawn eagerly per stream:
+      propagation, the shared detection, every stream's tracks finished,
+      and the WORKING streams' solves (the mono seed solve before VIO
+      init, VI lane 0 after it), up to their reads, which follow the eager
+      NOT_INITIALIZED and INITIALIZING branches;
+    - C: the solves taken (LOST for the mono streams that lost track);
+    - K: the keyframes, both inertial modes, after the eager per-stream
+      branches (lane 1, LOST, IMU_RELOC);
+    - D per (vio, hygiene, trigger) group: the window BA and adoption up
+      to the compaction read; E, after the eager compaction: the
+      bookkeeping, the scatter and the VIO-init trigger flags (the VIO
+      init runs eagerly);
+    - the ring and the output end C or the last E when nothing eager
+      follows, else run as R.
+
+    The frame's bundle is taken as contiguous copies (a no-op for
+    contiguous leaves: a bundle sliced out of [S, T, ...] arrays has rows
+    at offsets that vary by frame), so the graphs see one layout, and
+    after A the segments take only the bundle fields they read (the image
+    and depth in B, the depth in K)."""
+
+    def __init__(self, cam: CameraModel, cfg: VipConfig, kf_cap: int, device="cuda",
+                 graphs: bool | None = None):
+        super().__init__(VipStep(cam, cfg, kf_cap, device=device, graphs=False), graphs)
+
+    # -- the batched frame's segments ----------------------------------
+    def _start(self, st, b, ix):
+        """Segment A: every stream's images and inertial prediction."""
+        one = self.one
+        b, pyr = over_streams(one._images, b)
+        with record_function("step.preintegrate"):
+            st, pre_frame, ns_pred, Rcw_pred, tcw_pred = over_streams(one._preintegrate, st, b)
+        return st, b, pyr, (ns_pred, Rcw_pred, tcw_pred, pre_frame)
+
+    def _body(self, st, b, pyr, pred, u, ix):
+        """Segment B: propagation of the streams `ix["prop"]` with their
+        uniforms `u`, the shared detection of `ix["det"]`, every stream's
+        tracks finished, then the solves with the flags of their reads:
+        the mono seed solve of `ix["mono"]` (lost, need) and VI lane 0 of
+        `ix["vi"]` (ok, need). Returns (state, (solve, flags) or None for
+        each)."""
+        one = self.one
+        ns_pred, Rcw_pred, tcw_pred, pre_frame = pred
+        tracks = st.tracks
+        if ix["prop"] is not None:
+            with record_function("step.propagate"):
+                sub = over_streams(one._propagate, *(take(t, ix["prop"]) for t in
+                                                     (st, pyr, Rcw_pred, tcw_pred)), u)
+                tracks = put(tracks, ix["prop"], sub)
+        if ix["det"] is not None:
+            with record_function("step.refill_refresh"):
+                tracks = put(tracks, ix["det"], over_streams(
+                    one._detect, take(dataclasses.replace(st, tracks=tracks), ix["det"]),
+                    take(b.img, ix["det"])))
+        st = over_streams(one._finish_tracks, st, tracks)
+        mono = vi = None
+        if ix["mono"] is not None:
+            sub = take(st, ix["mono"])
+            with record_function("step.pose_localmap"):
+                ml = over_streams(one._mono_seed_solve, sub)
+            mono = ml, over_streams(one._mono_flags, sub, ml)
+        if ix["vi"] is not None:
+            with record_function("step.vi_track"):
+                vi = over_streams(one._vi_lane0, take(st, ix["vi"]), take(b, ix["vi"]),
+                                  take(ns_pred, ix["vi"]), take(pre_frame, ix["vi"]))
+        return st, mono, vi
+
+    def _accept(self, st, ml, out, pyr, ix, ring: bool):
+        """Segment C: of the mono WORKING streams `ix["mono"]`,
+        `ix["live"]` take their solve `ml` and `ix["lost"]` turn LOST; of
+        the VI ones `ix["vi"]`, `ix["good"]` take lane 0's solve `out`.
+        Returns (state, None), or with `ring` (state, output)."""
+        one = self.one
+        if ix["mono"] is not None:
+            sub = take(st, ix["mono"])
+            if ix["live"] is not None:
+                sub = put(sub, ix["live"], over_streams(one._mono_apply, take(sub, ix["live"]),
+                                                        take(ml, ix["live"])))
+            if ix["lost"] is not None:
+                sub = put(sub, ix["lost"], over_streams(one._state, take(sub, ix["lost"]),
+                                                        label=LOST))
+            st = put(st, ix["mono"], sub)
+        if ix["good"] is not None:
+            sub = take(st, ix["vi"])
+            sub = put(sub, ix["good"], over_streams(one._vi_apply, take(sub, ix["good"]),
+                                                    take(out, ix["good"])))
+            st = put(st, ix["vi"], sub)
+        return self._ring(st, pyr) if ring else (st, None)
+
+    def _keyframes(self, st, b, adopt, ix):
+        """Segment K: triangulation and the keyframe of the streams
+        `ix["kf0"]` (before VIO init) and `ix["kf1"]` (after it), each
+        keyframe's slot written into `adopt` at the streams' rows."""
+        for v in (False, True):
+            g = ix[f"kf{int(v)}"]
+            if g is not None:
+                sub, k = over_streams(self.one._create_kf, take(st, g), take(b, g), vio_ok=v)
+                st = put(st, g, sub)
+                adopt = put(adopt, g, k.long())
+        return st, adopt
+
+    def _ba_front(self, st, adopt, ix, vio_ok: bool, hygiene: bool):
+        """Segment D: the window BA of the streams `ix["g"]`, the adoption
+        of their keyframe `adopt` and the hygiene up to its compaction
+        flags."""
+        return over_streams(self.one._ba_front, take(st, ix["g"]), take(adopt, ix["g"]),
+                            vio_ok=vio_ok, hygiene=hygiene)
+
+    def _ba_end(self, st, sub, pyr, ix, trigger: bool, ring: bool):
+        """Segment E: the BA's bookkeeping of the rows `sub`, scattered
+        back at `ix["g"]`; returns (state, the VIO-init trigger flags when
+        `trigger`, the output when `ring`)."""
+        one = self.one
+        sub = over_streams(one._ba_finish, sub)
+        st = put(st, ix["g"], sub)
+        fire = over_streams(one._trigger_flag, sub) if trigger else None
+        st, out = self._ring(st, pyr) if ring else (st, None)
+        return st, fire, out
 
     # ------------------------------------------------------------------
     def __call__(self, st: VipTrackerState, b: FrameBundle, gens):
-        one, cfg, dev = self.one, self.cfg, self.device
+        one, cfg, dev, seg, sel = self.one, self.cfg, self.device, self._seg, self._sel
         S = st.state.shape[0]
         every = list(range(S))
 
         def group(pred):
             return [i for i in every if pred(i)]
 
-        def on(ids, fn, *trees, **kw):
-            """fn over the rows of streams `ids` of full-fleet trees."""
-            return over_streams(fn, *(self._take(t, ids, every) for t in trees), **kw)
-
-        b, pyr = over_streams(one._images, b)
-        with record_function("step.preintegrate"):
-            st, pre_frame, ns_pred, Rcw_pred, tcw_pred = over_streams(one._preintegrate, st, b)
+        st, b, pyr, pred = seg("A", self._start, st, tree_map(lambda a: a.contiguous(), b))
+        ns_pred, Rcw_pred, tcw_pred, pre_frame = pred
         flags = self._read(st.state, st.vio_ok, st.rec_frame >= 0)
         s = [f[0] for f in flags]
         vio = [bool(f[1]) for f in flags]
         anchor = [bool(f[2]) for f in flags]
+        # what B and K read of the bundle (its IMU windows and time are A's)
+        bf = dataclasses.replace(b, imu_omg=None, imu_acc=None, imu_dt=None, imu_mask=None,
+                                 timestamp=None)
 
-        tracks = st.tracks
-        g = group(lambda i: s[i] in (INITIALIZING, WORKING, IMU_RELOC))
-        if g:
+        g_prop = group(lambda i: s[i] in (INITIALIZING, WORKING, IMU_RELOC))
+        g_det = group(lambda i: s[i] in (NOT_INITIALIZED, WORKING, LOST)
+                      or (s[i] == IMU_RELOC and not anchor[i]))
+        g_mono = group(lambda i: s[i] == WORKING and not vio[i])
+        g_vi = group(lambda i: s[i] == WORKING and vio[i])
+        u = None
+        if g_prop:
             with record_function("step.propagate"):
-                u = torch.stack([draw_uniform(gens[i], 200, cfg.n_tracks, dev) for i in g])
-                sub = over_streams(one._propagate, *(self._take(t, g, every) for t in
-                                                     (st, pyr, Rcw_pred, tcw_pred)), u)
-                tracks = self._put(tracks, g, sub, every)
-        g = group(lambda i: s[i] in (NOT_INITIALIZED, WORKING, LOST)
-                  or (s[i] == IMU_RELOC and not anchor[i]))
-        if g:
-            with record_function("step.refill_refresh"):
-                tracks = self._put(tracks, g, on(g, one._detect,
-                                                 dataclasses.replace(st, tracks=tracks), b.img),
-                                   every)
-        st = over_streams(one._finish_tracks, st, tracks)
+                u = torch.stack([draw_uniform(gens[i], 200, cfg.n_tracks, dev) for i in g_prop])
+        st, mono, vi = seg("B", self._body, st, bf, pyr, pred, u,
+                           ix=dict(prop=sel(g_prop, every), det=sel(g_det, every),
+                                   mono=sel(g_mono, every), vi=sel(g_vi, every)))
 
         ctl = {i: _Ctl() for i in every}
         adopt = torch.zeros((S,), dtype=torch.long, device=dev)
@@ -1004,7 +1124,8 @@ class VipFleetStep(Fleet):
         # NOT_INITIALIZED
         g = group(lambda i: s[i] == NOT_INITIALIZED)
         if g:
-            sub = on(g, one._zero_kf_accumulators, st)
+            sub = self._take(st, g, every)
+            sub = over_streams(one._zero_kf_accumulators, sub)
             go = self._read(over_streams(one._not_init_flag, sub))
             g_go = [i for i, f in zip(g, go) if f[0]]
             if g_go:
@@ -1022,77 +1143,65 @@ class VipFleetStep(Fleet):
                 r, b_i = rows(i)[:2]
                 settle(i, one._initializing(r, b_i, rec, cand_tv, decided=tuple(d)))
 
-        # WORKING before VIO init: the mono pose + local-map solve
-        g = group(lambda i: s[i] == WORKING and not vio[i])
-        if g:
-            sub = self._take(st, g, every)
-            with record_function("step.pose_localmap"):
-                ml = over_streams(one._mono_seed_solve, sub)
-            dec = self._read(*over_streams(one._mono_flags, sub, ml))
-            live = [i for i, d in zip(g, dec) if not d[0]]
-            lost = [i for i, d in zip(g, dec) if d[0]]
-            if live:
-                sub = self._put(sub, live, over_streams(
-                    one._mono_apply, self._take(sub, live, g), self._take(ml, live, g)), g)
-            if lost:
-                sub = self._put(sub, lost, over_streams(one._state, self._take(sub, lost, g),
-                                                        label=LOST), g)
-            st = self._put(st, g, sub, every)
-            for i, d in zip(g, dec):
+        # WORKING: the reads of B's solves, then C
+        live = lost = good = failed = []
+        if g_mono:
+            dec = self._read(*mono[1])
+            live = [i for i, d in zip(g_mono, dec) if not d[0]]
+            lost = [i for i, d in zip(g_mono, dec) if d[0]]
+            for i, d in zip(g_mono, dec):
                 if not d[0]:
                     ctl[i] = one._kf_ctl(bool(d[1]), trigger=bool(d[1]))
-
-        # WORKING after VIO init: lane 0 for all, lane 1 per failed stream
-        g = group(lambda i: s[i] == WORKING and vio[i])
-        if g:
-            sub = self._take(st, g, every)
-            with record_function("step.vi_track"):
-                out, fl = over_streams(one._vi_lane0, sub, self._take(b, g, every),
-                                       self._take(ns_pred, g, every),
-                                       self._take(pre_frame, g, every))
-            dec = self._read(*fl)
-            good = [i for i, d in zip(g, dec) if d[0]]
-            if good:
-                sub = self._put(sub, good, over_streams(
-                    one._vi_apply, self._take(sub, good, g), self._take(out, good, g)), g)
-                st = self._put(st, g, sub, every)
-            for i, d in zip(g, dec):
+        if g_vi:
+            dec = self._read(*vi[1])
+            good = [i for i, d in zip(g_vi, dec) if d[0]]
+            failed = [i for i, d in zip(g_vi, dec) if not d[0]]
+            for i, d in zip(g_vi, dec):
                 if d[0]:
                     ctl[i] = one._kf_ctl(bool(d[1]), trigger=False)
-                else:
-                    settle(i, one._vi_lane1(*rows(i)))
+        out = None
+        if g_mono or good:
+            # nothing eager follows: the ring joins C
+            ring = not (failed or group(lambda i: s[i] in (LOST, IMU_RELOC))
+                        or any(c.want_ba for c in ctl.values()))
+            st, out = seg("C", self._accept, st, mono[0] if mono else None,
+                          vi[0] if vi else None, pyr,
+                          ix=dict(mono=sel(g_mono, every), live=sel(live, g_mono),
+                                  lost=sel(lost, g_mono), vi=sel(g_vi, every),
+                                  good=sel(good, g_vi)), ring=ring)
 
-        # LOST and IMU_RELOC: per stream
+        # lane 1 per failed VI stream, LOST and IMU_RELOC per stream
+        for i in failed:
+            settle(i, one._vi_lane1(*rows(i)))
         for i in group(lambda i: s[i] in (LOST, IMU_RELOC)):
-            r, b_i, *pred = rows(i)
-            settle(i, one._branch(r, b_i, s[i], vio[i], anchor[i], *pred))
+            r, b_i, *p = rows(i)
+            settle(i, one._branch(r, b_i, s[i], vio[i], anchor[i], *p))
 
-        # stage C: keyframes, grouped by the inertial mode
-        for v in (False, True):
-            g = group(lambda i: ctl[i].want_kf and vio[i] == v)
-            if g:
-                with record_function("step.keyframe"):
-                    sub, k = on(g, one._create_kf, st, b, vio_ok=v)
-                st = self._put(st, g, sub, every)
-                adopt = adopt.index_copy(0, self._ix(g), k.long())
-        # stage D: BA, adoption, hygiene, the VIO-init trigger, grouped by
+        # K: keyframes, grouped by the inertial mode
+        kf = [group(lambda i: ctl[i].want_kf and vio[i] == v) for v in (False, True)]
+        if kf[0] or kf[1]:
+            with record_function("step.keyframe"):
+                st, adopt = seg("K", self._keyframes, st, dataclasses.replace(bf, img=None), adopt,
+                                ix=dict(kf0=sel(kf[0], every), kf1=sel(kf[1], every)))
+        # D and E: BA, adoption, hygiene, the VIO-init trigger, grouped by
         # what the stream asked for
         keys = sorted({(vio[i], ctl[i].want_hyg, ctl[i].want_trigger)
                        for i in every if ctl[i].want_ba})
-        for v, hyg, trig in keys:
+        for n, (v, hyg, trig) in enumerate(keys):
             g = group(lambda i: ctl[i].want_ba
                       and (vio[i], ctl[i].want_hyg, ctl[i].want_trigger) == (v, hyg, trig))
-            sub, compact = on(g, one._ba_front, st, adopt, vio_ok=v, hygiene=hyg)
+            trig = trig and not v
+            ix = dict(g=sel(g, every))
+            sub, compact = seg("D", self._ba_front, st, adopt, ix=ix, vio_ok=v, hygiene=hyg)
             if hyg:
                 full = [i for i, f in zip(g, self._read(compact)) if f[0]]
                 if full:
                     sub = self._put(sub, full, over_streams(one._compact,
                                                             self._take(sub, full, g)), g)
-            sub = over_streams(one._ba_finish, sub)
-            st = self._put(st, g, sub, every)
-            if trig and not v:
-                fire = [i for i, f in zip(g, self._read(over_streams(one._trigger_flag, sub)))
-                        if f[0]]
+            st, fire, out = seg("E", self._ba_end, st, sub, pyr, ix=ix, trigger=trig,
+                                ring=n == len(keys) - 1 and not trig)
+            if trig:
+                fire = [i for i, f in zip(g, self._read(fire)) if f[0]]
                 if fire:
                     with record_function("step.vio_init"):
                         st_ok, ok = over_streams(one._try_init_vio, self._take(st, fire, every))
@@ -1100,7 +1209,7 @@ class VipFleetStep(Fleet):
                     if done:
                         st = self._put(st, done, self._take(st_ok, done, fire), every)
 
-        return over_streams(one._ring_and_out, st, pyr)
+        return (st, out) if out is not None else seg("R", self._ring, st, pyr)
 
 
 def build_vip_tracker(cam: CameraModel, cfg: VipConfig, kf_cap: int, pt_cap: int,

@@ -7,9 +7,19 @@ here the fleet steps (`frontend.device_tracker.MonoFleetStep`,
 `frontend.device_vip.VipFleetStep`) carry a leading stream dimension on
 every state leaf, read one flag table per frame, group the streams by
 branch and run each stage once over the streams that take it. The
-streams share every kernel launch, so a batched frame issues about as
-many launches as a single stream's frame while the device work grows
-S-fold.
+streams share every kernel launch, so a batched frame runs about as many
+kernels as a single stream's frame while the device work grows S-fold.
+
+The reference compiles the whole replay into one program
+(`jax.jit(vmap(scan(step)))`). Here `graphs` (on by default on a CUDA
+device, off on the CPU) replays each batched frame as captured CUDA
+graphs, cut at the fleet's host reads and per-stream branches
+(`frontend.device_tracker.Fleet`): the host issues a few graph launches
+where the eager fleet issues every operation. A graph is keyed by the
+size of each stream group and never by its members, whose index tensors
+enter as inputs, so a replay of S streams captures a few graphs per
+branch and group size and replays them. `graphs=False` runs the same
+segments eagerly, bit for bit alike.
 
     make_states, run = batched_replay_vip(cam, cfg, kf_cap, pt_cap)
     states0 = make_states(n_streams)
@@ -32,10 +42,11 @@ program over a `jax.sharding.Mesh`; the port runs one process per card
 Rank r owns the global streams [r S/W, (r+1) S/W); stream i keeps the
 generator seeded `seed + i` whatever its rank, so a sharded replay runs
 each stream as the one-process fleet does. `run` steps the local fleet
-with no collective per frame, then makes two: one all-reduce (sum) of
-`fleet`, the reference's `psum`, and one all-gather of `outs` in stream
-order, so every rank returns the same global `fleet` and `outs` with
-leaves [S, T, ...]. `stf` stays the rank's own rows.
+(graphed by default, each rank its own graphs of its rows) with no
+collective per frame, then makes two outside any graph: one all-reduce
+(sum) of `fleet`, the reference's `psum`, and one all-gather of `outs`
+in stream order, so every rank returns the same global `fleet` and
+`outs` with leaves [S, T, ...]. `stf` stays the rank's own rows.
 
 The collectives use gloo on host copies, not NCCL: they run once per
 replay, so their cost does not matter; NCCL refuses two ranks on one
@@ -189,7 +200,7 @@ def _over_time(outs, out_type):
 
 
 def batched_replay(cam, cfg, kf_cap: int, pt_cap: int, device="cuda", seed: int = 0,
-                   mesh: StreamMesh | None = None):
+                   mesh: StreamMesh | None = None, graphs: bool | None = None):
     """The mono device tracker over a fleet, on the card unless `device`
     names another. Returns (make_states, run):
 
@@ -198,7 +209,8 @@ def batched_replay(cam, cfg, kf_cap: int, pt_cap: int, device="cuda", seed: int 
 
     `outs` is a `StepOut` with leaves [S, T, ...]; `fleet` the total count
     of WORKING frames (a device scalar). `run.step` is the fleet step of
-    the last call (its `host_syncs`).
+    the last call (its `host_syncs`, its `segments`). `graphs` as the fleet
+    step takes it: on by default on a CUDA device, off on the CPU.
 
     With a `mesh` the fleet runs on `mesh.device` (`device` is not used):
     `make_states(n_streams)` builds this rank's n_streams / world rows,
@@ -211,7 +223,7 @@ def batched_replay(cam, cfg, kf_cap: int, pt_cap: int, device="cuda", seed: int 
                          _n_local(mesh, n_streams))
 
     def run(states, imgs):
-        step = run.step = MonoFleetStep(cam, cfg, device=device)
+        step = run.step = MonoFleetStep(cam, cfg, device=device, graphs=graphs)
         imgs = torch.as_tensor(imgs).to(device)
         n = states.state.shape[0]
         _check_local(states, imgs.shape[0])
@@ -231,7 +243,7 @@ def batched_replay(cam, cfg, kf_cap: int, pt_cap: int, device="cuda", seed: int 
 
 
 def batched_replay_vip(cam, cfg, kf_cap: int, pt_cap: int, device="cuda", seed: int = 0,
-                       mesh: StreamMesh | None = None):
+                       mesh: StreamMesh | None = None, graphs: bool | None = None):
     """The VIP device tracker over a fleet: each stream runs the complete
     step (mono bootstrap, VIO init with the pressure scale, VI(P)
     tracking, VI window BA, recovery). Returns (make_states, run):
@@ -242,7 +254,8 @@ def batched_replay_vip(cam, cfg, kf_cap: int, pt_cap: int, device="cuda", seed: 
     `outs` is a `VipStepOut` with leaves [S, T, ...]; `fleet` = (total
     WORKING frames, streams with VIO initialized), device scalars. With a
     `mesh`, as `batched_replay`: this rank's rows in, the global `outs`
-    and `fleet` out, `stf` of this rank's rows."""
+    and `fleet` out, `stf` of this rank's rows. `graphs` as
+    `batched_replay` takes it."""
     device = _replay_device(device, mesh)
 
     def make_states(n_streams: int):
@@ -250,7 +263,7 @@ def batched_replay_vip(cam, cfg, kf_cap: int, pt_cap: int, device="cuda", seed: 
                                         device=device), _n_local(mesh, n_streams))
 
     def run(states, bundles: FrameBundle):
-        step = run.step = VipFleetStep(cam, cfg, kf_cap, device=device)
+        step = run.step = VipFleetStep(cam, cfg, kf_cap, device=device, graphs=graphs)
         bundles = tree_map(lambda a: a.to(device), bundles)
         n = states.state.shape[0]
         _check_local(states, bundles.img.shape[0])

@@ -30,9 +30,9 @@ alone. `Segments.run(key, fn, *trees)` runs one:
   of a step's graphs, which are replayed one at a time on one stream),
   and replays it. Every later call copies the inputs in and replays.
 - On the CPU, a graph is its function called on the static buffers, its
-  results written into the static outputs that the first call returned:
-  the plain form of a capture, with the same copy-in and copy-out. The
-  tests exercise the bookkeeping with it.
+  results written into the static outputs that the first call returned
+  (that call's capture is its run): the plain form of a capture, with the
+  same copy-in and copy-out. The tests exercise the bookkeeping with it.
 - Each call hands back fresh output tensors copied out of the static
   outputs (an output leaf that is one of the static inputs, passed
   through, is the caller's own tensor), so what a step returned never
@@ -54,6 +54,18 @@ alone. `Segments.run(key, fn, *trees)` runs one:
 - `Segments(device, graphs=False)` is the eager form: `run` calls
   `fn(*trees)` and nothing else, so a step composes its frame of the same
   segments either way.
+
+The single-stream steps (`VipStep`, `MonoStep`) and the fleet steps
+(`VipFleetStep`, `MonoFleetStep`, through `device_tracker.Fleet`) each
+own one `Segments`, so one memory pool per step. A fleet's segment takes
+its stream groups as index tensors among its inputs: the key holds only
+whether each group is empty, whole or some rows, the layout the index
+tensors' lengths, so every group of one size replays one graph whatever
+its members (a function that computed its rows from Python stream ids
+would bake the capture's rows into the graph). `graphs_per_key` counts
+the layouts met per key. The cost of the design: every graph keeps a
+static copy of every input leaf, the whole state where a segment reads a
+few fields (a fleet of 8 VIP streams: ~120 MiB per graph).
 """
 
 from __future__ import annotations
@@ -211,6 +223,14 @@ class Segments:
     def keys(self) -> set:
         return {k for k, _ in self.graphs}
 
+    def graphs_per_key(self) -> dict:
+        """key -> the number of graphs captured for it (one per input
+        layout: a count that keeps growing means the layouts drift)."""
+        out: dict = {}
+        for k, _ in self.graphs:
+            out[k] = out.get(k, 0) + 1
+        return out
+
     def run(self, key: tuple, fn, *trees):
         """fn(*trees) through the graph of `key` and the inputs' layout,
         captured at its first call; returns fresh outputs."""
@@ -219,9 +239,10 @@ class Segments:
         flat = _leaves(trees)
         spec = (key, tuple(_layout(t) for t in flat))
         g = self.graphs.get(spec)
-        if g is None:
+        captured = g is None
+        if captured:
             g = self._capture(spec, fn, trees, flat)
-        return self._replay(key, g, flat)
+        return self._replay(key, g, flat, run_plain=not captured)
 
     # ------------------------------------------------------------------
     def _capture(self, spec, fn, trees, flat) -> _Graph:
@@ -303,13 +324,15 @@ class Segments:
         delta = tuple(a - b for a, b in zip(_counters(counters), mid))
         return graph, out, delta
 
-    def _replay(self, key, g: _Graph, flat):
+    def _replay(self, key, g: _Graph, flat, run_plain: bool = True):
+        """`run_plain=False` right after a CPU capture, whose call left
+        this call's results in the static outputs already."""
         try:
             _copy(g.static_in, flat)
             with record_function(f"step.graph.{key[0]}"):
                 if g.graph is not None:
                     g.graph.replay()
-                else:
+                elif run_plain:
                     # what the plain form's call counts is replaced by
                     # the capture's change, as a replay counts
                     counters = list(dict.fromkeys(COUNTERS + g.counters))
