@@ -55,8 +55,9 @@ window BA.
 - `peak_allocated_mib`: `torch.cuda.max_memory_allocated` over the first
   timed run, the half run's step released before it (null on the CPU);
 - `graphed` (whether the steps replayed captured graphs), `captures`,
-  `replays_per_frame` and `capture_seconds` of the first timed run (0
-  when eager);
+  `replays_per_frame`, `capture_seconds` and `scan_steps` (the loop
+  iterations replayed from graphs: the VIP step's VIO init's) of the
+  first timed run (0 when eager);
 - `plausibility`: whether the half run repeats the first N/2 frames bit
   for bit (a gate), and, as a statistic, the marginal ms/frame of the
   median timed run over the half run against the median ms/frame of its
@@ -313,7 +314,7 @@ def measure(mode, new_tracker, feeds, reps, device, init_frame_of, profile=True)
                  hand_kernel_launches_per_frame={k: v / n for k, v in launches.items()},
                  refine_wide_calls=wide, peak_allocated_mib=peak,
                  graphed=seg.enabled, captures=seg.captures, replays_per_frame=seg.replays / n,
-                 capture_seconds=seg.capture_seconds,
+                 capture_seconds=seg.capture_seconds, scan_steps=seg.scan_steps,
                  plausibility=plaus, profile=prof)
     if mode == "vip":
         extra["vio_init_frame_ms"] = (statistics.median(r.frame_ms[init_f] for r in runs)
@@ -404,7 +405,8 @@ def main(argv=None, H=None, W=None) -> int:
                     help="skip the profile window")
     ap.add_argument("--eager", action="store_true",
                     help="run the steps op by op, without CUDA graphs (the default on the "
-                         "card replays their WORKING frames as graphs)")
+                         "card replays their WORKING frames and the VIO init's loops as "
+                         "graphs)")
     args = ap.parse_args(argv)
     if args.reps < 1 or (args.frames is not None and args.frames < 4):
         ap.error("--reps must be >= 1 and --frames >= 4")

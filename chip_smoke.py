@@ -87,7 +87,10 @@ result):
      trajectory's extent; a closure is printed, not gated. Then
      `global_ba_navstate` alone on the final map, on the card and on the
      CPU from the same state: the same keyframe positions within
-     NAVSTATE_BA_TOL of the extent, and an objective that does not rise
+     NAVSTATE_BA_TOL of the extent, and an objective that does not rise;
+     on the card also with its loops replayed from graphs (the step's
+     `segments.scan`, as the closing pass runs them; twice), bit for bit
+     equal to the plain loops, both ms printed
  12. batched replay of the VIP step (`parallel.replay.batched_replay_vip`,
      graphed: the default on the card): 8 streams over 8 distinct scenes
      in lockstep at phase 9's settings (512x640, 400 tracks, kf_cap 64,
@@ -208,11 +211,21 @@ result):
      keyframe-free frames' median), host launch calls (kernel and graph
      launches) and device kernels per frame (the graphed form's from
      phases 9 and 7), the device's busy share, captures, replays per
-     frame and peak memory.
+     frame and peak memory. VIP also: the ms by branch of both forms
+     (`bootstrap`, `pre_vio`, `pre_vio_keyframe`, `vio_init`, `vi`); the
+     VIO-init frame's captures, scan steps (the replayed iterations of
+     its loops, `Segments.scan`: on that frame alone) and peak memory;
+     the VIO-init frame and the last pre-VIO keyframe frame before it
+     under torch.profiler, split by span (host launch calls, host and
+     device ms), graphed from a fresh graphed run and eager from the
+     eager run's states (the eager VIO-init frame only under `--only
+     graphs`: its ~2.7M-event trace takes ~30 s to read); the graphs per
+     key of the new keys (D, E and R before VIO init, the scans).
 
 Every phase before 21 runs the steps' and fleets' default: on the card
 the WORKING frames and the fleets' batched frames replay captured CUDA
-graphs. A replay runs no Python, so on a graphed frame the launch
+graphs, and so do the loops of the single step's VIO init and of the
+streams' closing passes (`Segments.scan`, one graph per iteration). A replay runs no Python, so on a graphed frame the launch
 counters move by each graph's captured launches per replay; phases 7, 9,
 12, 13 and 21 hold that count against the profiler trace's kernel
 records of their profiled frame (`hold_trace`: the same launches of each
@@ -1012,15 +1025,20 @@ def log_passes(ds, n_frames):
             + (f" ({', '.join(f'{p['parts_ms']['sim3']:.1f}' for p in verified)} ms)"
                if verified else ""))
     total = ds.step.host_syncs + ds.host_syncs + lc.host_reads
+    seg = ds.step.segments
+    scans = {k[1:]: v for k, v in seg.graphs_per_key().items() if k[0] == "scan"}
     log(f"  host reads: step {ds.step.host_syncs / n_frames:.2f}/frame, the stream's own "
         f"{ds.host_syncs / n_frames:.2f}/frame, the closer {lc.host_reads} over "
-        f"{len(ds.kf_passes)} passes; {total / n_frames:.2f}/frame in all")
+        f"{len(ds.kf_passes)} passes; {total / n_frames:.2f}/frame in all; the step's "
+        f"{seg.captures} captures ({seg.capture_seconds:.2f} s), {seg.scan_steps} scan steps, "
+        f"graphs per scan key {scans}")
     return dict(detection_passes=len(det), closing_passes=[dict(
         frame=p["frame"], kf=p["kf"], status=p["status"], ms=p["ms"], parts_ms=p["parts_ms"],
         host_reads=p["host_reads"]) for p in closing],
         detection_ms_median=statistics.median([p["ms"] for p in det]) if det else None,
         detection_reads_median=statistics.median([p["host_reads"] for p in det]) if det else None,
-        host_reads_per_frame=total / n_frames)
+        host_reads_per_frame=total / n_frames, scan_steps=seg.scan_steps,
+        scan_graphs_per_key={repr(k): v for k, v in scans.items()})
 
 
 def stream_mono_phase(torch, np, tklt, dev, smi, seq):
@@ -1177,21 +1195,34 @@ def stream_vip_phase(torch, np, tklt, dev, smi, seq):
         raise AssertionError(f"kernel launches {launches}, expected {expect}")
     mark("stream_vip")
 
-    # global_ba_navstate alone on the final map: card and CPU, same state
+    # global_ba_navstate alone on the final map: on the card with its loops
+    # plain and replayed from graphs (the step's `segments.scan`, as the
+    # closing pass runs it; twice, the first call capturing what the
+    # closing passes did not), and on the CPU, same state
     m = ds.st.map
     step = ds.step
+    seg = step.segments
 
-    def ba(mm, d):
+    def ba(mm, d, scan=None):
         costs = []
+        torch.cuda.synchronize()
         t1 = time.perf_counter()
         out = global_ba_navstate(
             mm, step.gravity.to(d), step.Rcb.to(d), step.tcb.to(d), cam.fx, cam.fy, cam.cx,
             cam.cy, cfg.gyr_noise_sd, cfg.acc_noise_sd, cfg.gyr_bias_rw2, cfg.acc_bias_rw2,
-            step.depth_info, ds.sigmas.to(d), cost_out=costs)
+            step.depth_info, ds.sigmas.to(d), cost_out=costs, scan=scan)
         costs = [(float(a), float(b)) for a, b in costs]
         return out, costs, (time.perf_counter() - t1) * 1e3
 
     m_card, cost_card, ms_card = ba(m, dev)
+    scanned = []
+    for _ in range(2):
+        c0, s0 = seg.captures, seg.scan_steps
+        m_scan, cost_scan, ms_scan = ba(m, dev, seg.scan)
+        scanned.append(dict(ms=ms_scan, captures=seg.captures - c0,
+                            scan_steps=seg.scan_steps - s0,
+                            bitwise_equal=bool(torch.equal(tree_bits(torch, m_scan),
+                                                           tree_bits(torch, m_card)))))
     m_cpu, cost_cpu, ms_cpu = ba(tree_map(lambda a: a.cpu(), m), torch.device("cpu"))
     valid = m.kf_valid.cpu().numpy()
     p0 = m.kf_ns.p.double().cpu().numpy()[valid]
@@ -1206,6 +1237,12 @@ def stream_vip_phase(torch, np, tklt, dev, smi, seq):
         f"{NAVSTATE_BA_TOL:.1%} of the extent), moved by the BA up to {moved:.3e} m; observation "
         f"tables equal in {100 * kept_same:.2f}% of entries; objective per round start -> end: "
         f"card {cost_card}, CPU {cost_cpu}")
+    log("  card, loops replayed from graphs: " + "; ".join(
+        f"{x['ms']:.0f} ms ({x['captures']} captures, {x['scan_steps']} scan steps), "
+        f"{'bit for bit equal' if x['bitwise_equal'] else 'DIFFERENT'} to the plain loops' "
+        f"{ms_card:.0f} ms" for x in scanned))
+    if not all(x["bitwise_equal"] and x["scan_steps"] > 0 for x in scanned):
+        raise AssertionError(f"global_ba_navstate with its loops replayed from graphs: {scanned}")
     if not (np.isfinite(p_card).all() and np.isfinite(p_cpu).all()):
         raise AssertionError("non-finite keyframe positions after global_ba_navstate")
     if not diff < NAVSTATE_BA_TOL * extent:
@@ -1218,7 +1255,8 @@ def stream_vip_phase(torch, np, tklt, dev, smi, seq):
               "ate_metric_m": ate, "ate_threshold_m": 0.05 * extent,
               "ate_before_and_from_first_closure_m": ate_split, "loops_closed": lc.n_closed, "median_ms_per_frame": statistics.median(frame_ms[2:]),
               "peak_allocated_bytes": peak, "passes": passes,
-              "navstate_ba": {"card_ms": ms_card, "cpu_ms": ms_cpu, "max_abs_diff_m": diff,
+              "navstate_ba": {"card_ms": ms_card, "card_scanned": scanned, "cpu_ms": ms_cpu,
+                              "max_abs_diff_m": diff,
                               "bound_m": NAVSTATE_BA_TOL * extent, "cost_card": cost_card,
                               "cost_cpu": cost_cpu}, "card": smi}
     return record, launches
@@ -3025,7 +3063,8 @@ class FrameRecord:
     per frame the output's and the state's bytes on the host, the label,
     VIO flag, keyframe slot and recovery-anchor flag (before the frame),
     and after it the step's host reads, the hand-kernel counters, the
-    graph captures and replays and the peak memory above the run's start.
+    graph captures, replays and scan steps and the peak memory above the
+    run's start.
     The run's `ms` and its profile are added after it."""
 
     def __init__(self, torch, tklt, n):
@@ -3049,7 +3088,7 @@ class FrameRecord:
             launches={"extract_patches": tklt.patch_launches,
                       "anchor_refine": tklt.refine_launches},
             captures=seg.captures, replays=seg.replays, capture_seconds=seg.capture_seconds,
-            peak=torch.cuda.max_memory_allocated() - self.base))
+            scan_steps=seg.scan_steps, peak=torch.cuda.max_memory_allocated() - self.base))
 
 
 def hold_trace(profile, what):
@@ -3080,6 +3119,87 @@ def tree_bits(torch, tree):
 
     return torch.cat([t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
                       for t in tree_leaves(tree)])
+
+
+def frame_branches(labels, vios, new_kf):
+    """Phase 21's branch of each frame of a VIP run, from its outputs:
+    `vio_init` (the frame whose VIO init succeeded), `vi` (after it), and
+    before it `pre_vio_keyframe` (a WORKING frame that made a keyframe)
+    and `pre_vio` (one that made none), or `bootstrap`."""
+    from uvipslam_torch.frontend.tracker import WORKING
+
+    names = []
+    for f, (v, k) in enumerate(zip(vios, new_kf)):
+        prev_vio = f > 0 and vios[f - 1]
+        if v and not prev_vio:
+            names.append("vio_init")
+        elif prev_vio:
+            names.append("vi")
+        elif f > 0 and labels[f - 1] == WORKING:
+            names.append("pre_vio_keyframe" if k >= 0 else "pre_vio")
+        else:
+            names.append("bootstrap")
+    return names
+
+
+def frame_split(torch, step, st, x, out_name):
+    """One frame of `step` from `st` under torch.profiler. Returns (the
+    state after it, its split): the host's launch calls (kernel and graph
+    launches), host ms and device ms of the frame and of each `step.*`
+    span inside it (nested spans count inside each span around them), the
+    graph captures and scan steps the frame made, and the trace's reading
+    time; the span table goes to OUT_DIR/out_name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from uvipslam_torch.utils import chiptime
+
+    seg = step.segments
+    c0, s0 = seg.captures, seg.scan_steps
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st, _ = step(st, x)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    t1 = time.perf_counter()
+    events = chiptime.trace_events(prof)
+    dev, _, spans, launches = chiptime.trace_summary(events)
+    split = dict(wall_ms_profiled=wall_ms, host_launch_calls=launches,
+                 device_ms=sum(us for _, us in dev.values()) / 1e3,
+                 captures=seg.captures - c0, scan_steps=seg.scan_steps - s0,
+                 trace_events=len(events), read_s=time.perf_counter() - t1,
+                 spans={k: dict(calls=c, launches=la, host_ms=h / 1e3, device_ms=d / 1e3)
+                        for k, (c, h, d, la) in spans.items()})
+    os.makedirs(chiptime.OUT_DIR, exist_ok=True)
+    with open(os.path.join(chiptime.OUT_DIR, out_name), "w") as fh:
+        fh.write(json.dumps({k: v for k, v in split.items() if k != "spans"}) + "\n"
+                 "span: calls, host launch calls, host ms, device ms\n")
+        fh.writelines(f"{k}: {v['calls']} {v['launches']} {v['host_ms']:.3f} "
+                      f"{v['device_ms']:.3f}\n" for k, v in sorted(
+                          split["spans"].items(), key=lambda kv: -kv[1]["host_ms"]))
+    return st, split
+
+
+# the VIO-init frame's split in phase 21 (the rest of the frame is what
+# none of these spans holds)
+VIO_SPLIT_SPANS = ("step.vio_init", "step.vio_init.global_ba", "step.vio_init.preint_strided",
+                   "step.vio_init.preint_all", "step.vio_init.gyro_bias")
+
+
+def fmt_split(split):
+    sp = split["spans"]
+    parts = [f"{k[5:]} {sp[k]['launches']} launches, {sp[k]['host_ms']:.1f} ms host / "
+             f"{sp[k]['device_ms']:.2f} ms device" for k in VIO_SPLIT_SPANS if k in sp]
+    scan = [v for k, v in sp.items() if k.startswith("step.graph.scan.")]
+    if scan:
+        parts.append(f"graph.scan.* {sum(v['calls'] for v in scan)} replays, "
+                     f"{sum(v['launches'] for v in scan)} launches, "
+                     f"{sum(v['host_ms'] for v in scan):.1f} ms host / "
+                     f"{sum(v['device_ms'] for v in scan):.2f} ms device")
+    return (f"{split['host_launch_calls']} host launch calls, {split['wall_ms_profiled']:.1f} ms "
+            f"wall under the profiler, {split['device_ms']:.2f} ms device; captures "
+            f"{split['captures']}, scan steps {split['scan_steps']}; " + "; ".join(parts)
+            + f" ({split['trace_events']} trace events read in {split['read_s']:.1f} s)")
 
 
 def graphed_records(torch, np, tklt, dev, vseq, mseq):
@@ -3122,7 +3242,7 @@ def graphed_records(torch, np, tklt, dev, vseq, mseq):
     return records
 
 
-def graphs_phase(torch, np, tklt, dev, smi, vseq, mseq, graphed):
+def graphs_phase(torch, np, tklt, dev, smi, vseq, mseq, graphed, eager_vio_split=True):
     """Phase 21: the graphed step against the eager one. `graphed` holds
     the FrameRecords of phase 9's graphed run over bench VIP's first
     GRAPH_FRAMES["vip"] frames (VIO init at frame 22, then VI keyframes)
@@ -3136,7 +3256,13 @@ def graphs_phase(torch, np, tklt, dev, smi, vseq, mseq, graphed):
     under torch.profiler from its state, its trace held to the counters.
     Prints for both forms the ms per frame, the host's launch calls and
     the device kernels per frame, the device's busy share, captures,
-    replays per frame and peak memory over the frames. Returns the
+    replays per frame and peak memory over the frames. VIP: the ms by
+    branch of both forms, the VIO-init frame's captures, scan steps and
+    peak memory, and the VIO-init frame and the last pre-VIO keyframe
+    frame before it under the profiler, split by span, graphed (from a
+    fresh graphed run) and eager (from the eager run's states; the eager
+    VIO-init frame, a ~2.7M-event trace read in ~30 s, only with
+    `eager_vio_split`, which a whole run leaves off). Returns the
     record."""
     from uvipslam_torch.frontend.device_tracker import build_tracker
     from uvipslam_torch.frontend.device_vip import build_vip_tracker, make_bundles
@@ -3146,8 +3272,8 @@ def graphs_phase(torch, np, tklt, dev, smi, vseq, mseq, graphed):
     cam, cfg = vip_cam_cfg(vseq.K)
     _, mcam, mcfg, imgs = mono_inputs(torch, np, dev, mseq)
     cases = {
-        "vip": (lambda: build_vip_tracker(cam, cfg, kf_cap=64, pt_cap=8192, device=dev,
-                                          graphs=False),
+        "vip": (lambda graphs=False: build_vip_tracker(cam, cfg, kf_cap=64, pt_cap=8192,
+                                                       device=dev, graphs=graphs),
                 make_bundles(vseq, device=dev)[:GRAPH_FRAMES["vip"]],
                 orb_levels(*vseq.images.shape[1:])),
         "mono": (lambda: build_tracker(mcam, mcfg, kf_cap=64, pt_cap=8192, device=dev,
@@ -3160,6 +3286,15 @@ def graphs_phase(torch, np, tklt, dev, smi, vseq, mseq, graphed):
         if len(g.bits) != n:
             raise AssertionError(f"graphs {name}: {len(g.bits)} graphed frames recorded, not {n}")
         f_prof = g.profile_frame
+        branches = split_at = None
+        if name == "vip":
+            # the VIO-init frame and the last pre-VIO keyframe frame before
+            # it go under the profiler in both forms (from their states)
+            branches = frame_branches(g.labels, g.vios, g.new_kf)
+            f_vio = branches.index("vio_init") if "vio_init" in branches else None
+            f_kf = max((f for f in range(f_vio or 0) if branches[f] == "pre_vio_keyframe"),
+                       default=None)
+            split_at = {f: None for f in (f_kf, f_vio) if f is not None}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -3177,6 +3312,8 @@ def graphs_phase(torch, np, tklt, dev, smi, vseq, mseq, graphed):
                 differ.append(f)
             if f_prof is not None and f == f_prof - 1:
                 before_prof = clone_vip_state(torch, st, "cpu")
+            if split_at and f + 1 in split_at:
+                split_at[f + 1] = clone_vip_state(torch, st, "cpu")
         peak = torch.cuda.max_memory_allocated() - base
         launches, syncs = read_launches(tklt), step.host_syncs
         if name == "vip":
@@ -3189,6 +3326,35 @@ def graphs_phase(torch, np, tklt, dev, smi, vseq, mseq, graphed):
             e_prof = chiptime.profile_phase(step, clone_vip_state(torch, before_prof, dev), feeds,
                                             f_prof, 1, f"profile_graphs_{name}_eager.txt")
             hold_trace(e_prof, f"graphs {name}, the eager frame {f_prof}")
+        splits, per_key = {}, None
+        if split_at:
+            for f, before in split_at.items():
+                if f == f_vio and not eager_vio_split:
+                    log(f"phase graphs {name}: the eager VIO-init frame {f} is not profiled "
+                        f"in a whole run (`--only graphs` profiles it; PERF.md §5 has its split)")
+                    continue
+                log(f"phase graphs {name} split, eager, frame {f} ({branches[f]}):")
+                splits[f"eager_{f}"] = frame_split(torch, step, clone_vip_state(torch, before, dev),
+                                                   feeds[f], f"split_{name}_eager_{f}.txt")[1]
+            # the graphed form from a fresh run, as it runs in a run: the
+            # scans capture their graphs on the VIO-init frame
+            st_g, step_g = new_tracker(graphs=True)
+            for f in range(max(split_at) + 1):
+                if f in split_at:
+                    log(f"phase graphs {name} split, graphed, frame {f} ({branches[f]}):")
+                    st_g, splits[f"graphed_{f}"] = frame_split(torch, step_g, st_g, feeds[f],
+                                                               f"split_{name}_graphed_{f}.txt")
+                else:
+                    st_g, _ = step_g(st_g, feeds[f])
+            per_key = {repr(k): v for k, v in step_g.segments.graphs_per_key().items()
+                       if k[0] in ("scan", "D", "E", "R")}
+            for f in sorted(split_at):
+                for form in ("eager", "graphed"):
+                    if f"{form}_{f}" in splits:
+                        log(f"  frame {f} ({branches[f]}), {form}: "
+                            f"{fmt_split(splits[f'{form}_{f}'])}")
+            log(f"  graphs per key (scans, D, E, R) of the graphed run: {per_key}")
+            del st_g, step_g
         last = g.tally[-1]
         forms = {"eager": dict(ms=ms, host_syncs=syncs, launches=launches, captures=0,
                                replays=0, capture_s=0.0, peak=peak, profile=e_prof),
@@ -3232,6 +3398,32 @@ def graphs_phase(torch, np, tklt, dev, smi, vseq, mseq, graphed):
         log(f"  states {rec['labels']}; outputs and states bit for bit equal on "
             f"{n - len(differ)}/{n} frames")
         fails = []
+        if name == "vip":
+            rec["ms_by_branch"] = {form: ms_by_branch(branches, r["ms"])
+                                   for form, r in forms.items()}
+            log(f"  ms by branch (median ms, frames), eager: "
+                f"{fmt_branches(rec['ms_by_branch']['eager'])}; graphed: "
+                f"{fmt_branches(rec['ms_by_branch']['graphed'])}")
+            t = [dict(captures=0, scan_steps=0, capture_seconds=0.0, peak=0)] + g.tally
+            steps = [b["scan_steps"] - a["scan_steps"] for a, b in zip(t, t[1:])]
+            if f_vio is not None:
+                a, b = t[f_vio], t[f_vio + 1]
+                rec["vio_init"] = dict(
+                    frame=f_vio, ms_eager=ms[f_vio], ms_graphed=g.ms[f_vio],
+                    captures=b["captures"] - a["captures"], scan_steps=steps[f_vio],
+                    capture_seconds=b["capture_seconds"] - a["capture_seconds"],
+                    peak_before_bytes=a["peak"], peak_after_bytes=b["peak"])
+                v = rec["vio_init"]
+                log(f"  VIO-init frame {f_vio}: eager {v['ms_eager']:.1f} ms, graphed "
+                    f"{v['ms_graphed']:.1f} ms with {v['captures']} captures "
+                    f"({v['capture_seconds']:.2f} s) and {v['scan_steps']} scan steps; peak "
+                    f"allocated above the run's start {a['peak'] / 2**20:.1f} MiB before it, "
+                    f"{b['peak'] / 2**20:.1f} MiB after it")
+            rec["splits"], rec["graphs_per_key"] = splits, per_key
+            if f_vio is None or f_kf is None:
+                fails.append(f"no VIO-init frame ({f_vio}) or pre-VIO keyframe frame ({f_kf})")
+            elif steps[f_vio] <= 0 or any(x for f, x in enumerate(steps) if f != f_vio):
+                fails.append(f"scan steps by frame {steps}: not on the VIO-init frame alone")
         if differ:
             fails.append(f"graphed and eager differ on frames {differ[:10]}")
         if labels != g.labels:
@@ -3556,7 +3748,8 @@ def run_phases(torch, np, dev, smi, renders) -> int:
 
     # -- phase 21: the graphed step against the eager one ---------------------------
     graphs_record = graphs_phase(torch, np, tklt, dev, smi, vip_seq, seq,
-                                 {"vip": vip_graphed, "mono": mono_graphed})
+                                 {"vip": vip_graphed, "mono": mono_graphed},
+                                 eager_vio_split=False)
     del vip_graphed, mono_graphed
 
     log("phase end times (s since start): " + ", ".join(f"{k} {v}" for k, v in MARKS.items()))

@@ -542,9 +542,65 @@ def test_graphed_step_equals_eager_on_card(cuda_device, mode):
     assert labels[-1] == WORKING
     if mode == "vip":
         assert any(bool(o.vio_ok) for o in g_outs)
-        assert ("D", True) in g_step.segments.keys     # a VI keyframe was graphed
+        assert ("D", True, True) in g_step.segments.keys     # a VI keyframe was graphed
     seg = g_step.segments
     assert seg.captures == len(seg.graphs) >= len(seg.keys) > 0 and seg.replays > len(g_outs)
+
+
+@pytest.mark.cuda
+def test_graphed_vip_step_through_vio_init_equals_eager_on_card(cuda_device):
+    """The 120x160 VIP parity sequence on the card, graphed (the default)
+    against `graphs=False`, through the pre-VIO keyframes (segments D, E
+    and R before VIO init) and the VIO-init frame, whose loops replay
+    captured graphs (`Segments.scan`): every frame's output and state bit
+    for bit equal, the same host reads, scan steps on the VIO-init frame
+    alone; then `global_ba_navstate` on the final map with its loops
+    replayed from graphs against the plain loops, bit for bit."""
+    from uvipslam_torch.frontend.vip_tracker import VipConfig
+    from uvipslam_torch.solver.global_ba import global_ba_navstate
+
+    runs = _graph_runs("vip", cuda_device)
+    (e_outs, e_states, e_step, _), (g_outs, g_states, g_step, _) = runs["eager"], runs["graphed"]
+    for f in range(len(e_outs)):
+        assert torch.equal(_bits(e_outs[f]), _bits(g_outs[f])), f
+        assert torch.equal(_bits(e_states[f]), _bits(g_states[f])), f
+    assert e_step.host_syncs == g_step.host_syncs
+    seg = g_step.segments
+    assert e_step.segments.scan_steps == 0 and seg.scan_steps > 0
+    keys = seg.keys
+    assert {("D", False, True), ("E", False), ("R",), ("scan", "gyro_bias")} <= keys, keys
+    assert any(k[:2] == ("scan", "ba_se3") for k in keys)
+    assert sum(k[:2] == ("scan", "preint") for k in keys) == 2      # strided, all windows
+
+    m, cfg = g_states[-1].map, VipConfig(gyr_noise_sd=0.01, acc_noise_sd=0.1,
+                                         depth_noise_sd=0.05)
+    cam = g_step.cam
+
+    def ba(scan):
+        return _bits(global_ba_navstate(
+            m, g_step.gravity, g_step.Rcb, g_step.tcb, cam.fx, cam.fy, cam.cx, cam.cy,
+            cfg.gyr_noise_sd, cfg.acc_noise_sd, cfg.gyr_bias_rw2, cfg.acc_bias_rw2,
+            g_step.depth_info, g_step.scale_sigmas, scan=scan))
+
+    steps = seg.scan_steps
+    plain = ba(None)
+    assert torch.equal(ba(seg.scan), plain) and torch.equal(ba(seg.scan), plain)
+    assert seg.scan_steps - steps == 2 * (256 + 2 * 8)     # preintegration + 2 rounds of 8
+
+
+@pytest.mark.cuda
+def test_scan_body_with_a_host_read_raises_on_card(cuda_device):
+    """A scan body that reads a value to the host cannot be captured: the
+    scan raises SegmentError naming its key and runs no plain loop."""
+    from uvipslam_torch.utils.graphs import SegmentError, Segments
+
+    seg = Segments(cuda_device)
+    x = torch.arange(3.0, device=cuda_device)
+    with pytest.raises(SegmentError, match="'bad'"):
+        seg.scan(("bad",), lambda c, _: c * float(c.sum()), x, length=3)
+    assert seg.scan_steps == 0 and not any(k[:2] == ("scan", "bad") for k in seg.keys)
+    y = seg.scan(("good",), lambda c, _, k: c * k, x, length=3, consts=(x,))
+    assert torch.equal(y, x * x * x * x) and seg.scan_steps == 3
 
 
 @pytest.mark.cuda

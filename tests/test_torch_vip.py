@@ -176,7 +176,7 @@ def test_graphed_run_equals_eager_bit_for_bit(torch_run, torch_graph_run):
                 assert torch.equal(a.contiguous().view(-1).view(torch.uint8),
                                    b.contiguous().view(-1).view(torch.uint8)), (f, tree, name)
     assert g["syncs"] == torch_run["syncs"]
-    assert g["vios"].any() and ("D", True) in g["step"].segments.keys   # a VI keyframe
+    assert g["vios"].any() and ("D", True, True) in g["step"].segments.keys   # a VI keyframe
 
 
 def test_graphed_run_against_reference(seq, jax_run, torch_graph_run):
@@ -341,6 +341,47 @@ def _scale_and_alignment(before, after):
 
 
 def test_try_init_vio_on_pre_trigger_state(jax_run, torch_run, one_torch_thread):
+    _try_init_vio_against_reference(jax_run, torch_run["step"], one_torch_thread)
+
+
+def test_try_init_vio_through_scans_on_pre_trigger_state(jax_run, torch_graph_run,
+                                                         one_torch_thread):
+    """The VIO init with its loops run through a graphed `Segments.scan`
+    (its plain CPU form: a capture per loop, replayed per iteration) held
+    to the reference as the plain loops are."""
+    step = torch_graph_run["step"]
+    steps = step.segments.scan_steps
+    _try_init_vio_against_reference(jax_run, step, one_torch_thread)
+    assert step.segments.scan_steps > steps
+
+
+def test_graphed_step_through_pre_vio_keyframe_and_vio_init(seq, jax_run, torch_run):
+    """From the reference's state before its VIO-init frame, that frame
+    through the graphed step (the pre-VIO keyframe as segments D, E and R
+    in their plain CPU form, the VIO init's loops through
+    `Segments.scan`) against `graphs=False`: the frame makes a keyframe,
+    its trigger fires and VIO initializes; output, state and host reads
+    equal bit for bit."""
+    src = jax_run["pre_trigger"]
+    b = tdv.make_bundles(seq, device="cpu")[int(src.frame_id) + 1]
+    runs = {}
+    for graphs in (False, True):
+        step = tdv.VipStep(torch_run["cam"], tvt.VipConfig(**CFG), KF_CAP, device="cpu",
+                           graphs=graphs)
+        runs[graphs] = step, *step(convert.vip_state(src), b)
+    (e_step, e_st, e_out), (g_step, g_st, g_out) = runs[False], runs[True]
+    assert int(e_out.new_kf) >= 0 and bool(e_out.vio_ok) and not bool(src.vio_ok)
+    for tree in ("out", "st"):
+        e, g = (e_out, g_out) if tree == "out" else (e_st, g_st)
+        for (name, x), (_, y) in zip(_leaves(e), _leaves(g)):
+            assert torch.equal(x.contiguous().view(-1).view(torch.uint8),
+                               y.contiguous().view(-1).view(torch.uint8)), (tree, name)
+    assert e_step.host_syncs == g_step.host_syncs
+    assert {("D", False, True), ("E", False), ("R",)} <= g_step.segments.keys
+    assert e_step.segments.scan_steps == 0 < g_step.segments.scan_steps
+
+
+def _try_init_vio_against_reference(jax_run, step, one_torch_thread):
     src = jax_run["pre_trigger"]
     with jax.enable_x64(False):
         j = jax_run["try_init_vio"](jax.tree_util.tree_map(jnp.asarray, src))
@@ -351,7 +392,7 @@ def test_try_init_vio_on_pre_trigger_state(jax_run, torch_run, one_torch_thread)
     # rounding of its reductions (split over the pool's threads) moves
     # where its LM stops (with one thread the scale lands 6.1e-3 apart)
     with torch_threads(one_torch_thread):
-        t, ok = torch_run["step"]._try_init_vio(st)
+        t, ok = step._try_init_vio(st)
     assert bool(j.vio_ok) and bool(ok)
     s_j, Ra_j = _scale_and_alignment(src, j)
     s_t, Ra_t = _scale_and_alignment(src, t)

@@ -5,10 +5,12 @@ reference IMUPreintegrator): over a fixed-length, mask-padded window of
 bias-corrected IMU samples, accumulate the delta measurements (dP, dV,
 dR), the five bias Jacobians and the 9x9 [P, V, Phi] noise covariance.
 
-The per-sample recurrence is a Python loop over the window (the
-reference's `lax.scan`); every step is batched over the leading dims of
-its inputs, so several windows (the VIP step's two running integrals, a
-keyframe table's windows) integrate in one loop instead of one loop
+The per-sample recurrence is the reference's `lax.scan`: a `scan`
+argument (`utils.graphs.Segments.scan`, which replays one captured graph
+per sample on the card) or by default the plain Python loop over the
+window (`graphs.plain_scan`); every step is batched over the leading dims
+of its inputs, so several windows (the VIP step's two running integrals,
+a keyframe table's windows) integrate in one loop instead of one loop
 each. Padded samples carry dt = 0.
 """
 
@@ -21,6 +23,7 @@ import torch
 
 from uvipslam_torch.core import lie
 from uvipslam_torch.core.lie import mm, mv
+from uvipslam_torch.utils.graphs import plain_scan
 
 
 @dataclasses.dataclass
@@ -115,30 +118,39 @@ def _noise_covs(gyr_noise_sd, acc_noise_sd, dtype, device):
             eye * float(np_dt(acc_noise_sd) * np_dt(acc_noise_sd)))
 
 
+def _preint_body(st: PreintState, x, bg, ba, gyr_cov, acc_cov) -> PreintState:
+    """One sample x = (omega, acc, dt) of the windows, its biases taken off
+    (the first operation on the sample is elementwise)."""
+    omega, acc, dt = x
+    return preint_step(st, omega - bg, acc - ba, dt, gyr_cov, acc_cov)
+
+
 def preintegrate_continue(state: PreintState, omegas, accs, dts, mask, bg, ba,
-                          gyr_noise_sd, acc_noise_sd) -> PreintState:
+                          gyr_noise_sd, acc_noise_sd, scan=None) -> PreintState:
     """Extend `state` [B...] with the windows omegas/accs [B..., T, 3],
     dts/mask [B..., T] (or unbatched windows shared by every state),
-    subtracting biases bg/ba [B..., 3]."""
+    subtracting biases bg/ba [B..., 3]. `scan` runs the loop over the T
+    samples (the plain loop when None)."""
     dtype, dev = state.dP.dtype, state.dP.device
     gyr_cov, acc_cov = _noise_covs(gyr_noise_sd, acc_noise_sd, dtype, dev)
     bg = torch.as_tensor(bg, dtype=dtype, device=dev)
     ba = torch.as_tensor(ba, dtype=dtype, device=dev)
     omegas, accs = omegas.to(dtype), accs.to(dtype)
     dts = dts.to(dtype) * mask.to(dtype)     # padded samples: dt = 0
-    st = state
-    for k in range(dts.shape[-1]):
-        st = preint_step(st, omegas[..., k, :] - bg, accs[..., k, :] - ba, dts[..., k],
-                         gyr_cov, acc_cov)
-    return st
+    return (scan or plain_scan)(
+        ("preint", tuple(dts.shape)), _preint_body, state,
+        xs=(omegas.movedim(-2, 0), accs.movedim(-2, 0), dts.movedim(-1, 0)),
+        consts=(bg, ba, gyr_cov, acc_cov))
 
 
-def preintegrate(omegas, accs, dts, mask, bg, ba, gyr_noise_sd, acc_noise_sd) -> PreintState:
-    """Preintegrate padded windows [B..., T, 3] from zero."""
+def preintegrate(omegas, accs, dts, mask, bg, ba, gyr_noise_sd, acc_noise_sd,
+                 scan=None) -> PreintState:
+    """Preintegrate padded windows [B..., T, 3] from zero (`scan` as
+    `preintegrate_continue` takes it)."""
     batch = torch.broadcast_shapes(dts.shape[:-1], torch.as_tensor(bg).shape[:-1])
     zero = PreintState.zero(batch, dtype=omegas.dtype, device=omegas.device)
     return preintegrate_continue(zero, omegas, accs, dts, mask, bg, ba, gyr_noise_sd,
-                                 acc_noise_sd)
+                                 acc_noise_sd, scan=scan)
 
 
 def bias_correct(st: PreintState, dbg, dba) -> PreintState:

@@ -44,24 +44,34 @@ that pick its path:
   or (lost, need) read;
 - C (vio_ok, need): the solve taken; without a keyframe also the ring and
   the output;
-- D (hygiene), a VI keyframe: the keyframe and the window BA up to the
-  compaction read (the compaction runs eagerly when it is due); E: the
-  keyframe's bookkeeping, the ring and the output.
+- D (vio_ok, hygiene), a keyframe: the keyframe and the window BA (mono
+  before VIO init, VI after) up to the compaction read (the compaction
+  runs eagerly when it is due); then after VIO init E (True): the
+  keyframe's bookkeeping, the ring and the output; before it E (False):
+  the bookkeeping up to the VIO-init trigger read, the VIO init when the
+  trigger fires, and R: the ring and the output.
 
-With `graphs=False` the same segments are called eagerly, so both forms
-compose the frame alike; the graphed frame launches the same kernels on
-the same inputs and gives the eager step's outputs and states bit for
-bit, with the same host reads. These stay eager, after A: NOT_INITIALIZED, INITIALIZING, LOST and
-IMU_RELOC (rare; their two-view and relocalization draw from the
-generator inside), lane 1 after a failed VI solve, the pre-VIO keyframe
-with its VIO-init trigger read, and the VIO-init frame (`_try_init_vio`,
-~0.4M launches once per run).
+The VIO init (`_try_init_vio`, once per run) stays an eager function of
+straight-line parts, whose loops, the reference's `lax.scan`s (the
+full-map BA's LM iterations, the gyro bias's, both preintegrations'),
+replay one captured graph per iteration through `segments.scan`.
+
+With `graphs=False` the same segments are called eagerly and the loops
+run their plain form, so both forms compose the frame alike; the graphed
+frame launches the same kernels on the same inputs and gives the eager
+step's outputs and states bit for bit, with the same host reads. These
+stay eager, after A: NOT_INITIALIZED, INITIALIZING, LOST and IMU_RELOC
+(rare; their two-view and relocalization draw from the generator
+inside), lane 1 after a failed VI solve, the compaction, and the VIO
+init's straight-line parts.
 
 `VipFleetStep(graphs=...)` is the counterpart of the reference's batched
 replay, `jax.jit(vmap(scan(step)))`: a batched frame's stages over the
 stream groups replay captured graphs cut at the fleet's host reads, the
 group index tensors riding in the inputs (`device_tracker.Fleet`); the
-per-stream branches and the VIO init stay eager as in the single step.
+per-stream branches stay eager as in the single step, and so does the
+VIO init, its loops plain (it runs under `torch.func.vmap`, where a scan
+body cannot be captured: the fleet's `one` step has graphs off).
 """
 
 from __future__ import annotations
@@ -228,9 +238,10 @@ class VipStep:
     """The per-frame step of the device VIP tracker:
     `st, out = step(st, bundle)`. Counts its host reads in `host_syncs`.
     `graphs` (default: on for a CUDA device, off on the CPU) replays the
-    WORKING frames' segments as captured graphs (`self.segments`, a
-    `utils.graphs.Segments`); off, the same segments run eagerly;
-    `graphs=True` on the CPU runs their plain form."""
+    WORKING frames' segments and the VIO init's loops as captured graphs
+    (`self.segments`, a `utils.graphs.Segments`, and its `scan`); off,
+    the same segments and the plain loops run eagerly; `graphs=True` on
+    the CPU runs their plain form."""
 
     def __init__(self, cam: CameraModel, cfg: VipConfig, kf_cap: int, device="cuda",
                  graphs: bool | None = None):
@@ -334,17 +345,24 @@ class VipStep:
         """Full-map visual BA, gyro bias, gravity from the accelerometer
         average refined with the scale fixed from pressure, world Sim3
         re-anchor, the camera -> body table conversion, the depth anchor
-        and velocities. Returns (state after a successful init, ok flag)."""
-        cam, cfg, dev = self.cam, self.cfg, self.device
+        and velocities. Returns (state after a successful init, ok flag).
+        An eager function whose loops (the BA's LM iterations, the gyro
+        bias's, both preintegrations') run through `self.segments.scan`:
+        captured graphs replayed per iteration when the step is graphed,
+        the plain loops otherwise and inside a fleet's `one` step."""
+        cam, cfg, dev, scan = self.cam, self.cfg, self.device, self.segments.scan
         Rcb, gravity = self.Rcb, self.gravity
         # full-map BA first: the windowed BA lets mono scale drift across
         # the init window; slots fill in insertion order, so 24 suffice
-        m = global_ba_visual(st.map, cam.fx, cam.fy, cam.cx, cam.cy, self.scale_sigmas,
-                             kf_window=min(24, self.kf_cap), n_iters=5, p_active=2048)
+        with record_function("step.vio_init.global_ba"):
+            m = global_ba_visual(st.map, cam.fx, cam.fy, cam.cx, cam.cy, self.scale_sigmas,
+                                 kf_window=min(24, self.kf_cap), n_iters=5, p_active=2048,
+                                 scan=scan)
         # gyro bias over keyframe pairs (body rotations Rwb = Rwc Rcb)
         pair_mask = m.kf_valid & (m.kf_prev >= 0)
-        bg = vio_init.estimate_gyro_bias(mm(m.kf_ns.R, Rcb), m.kf_preint.dR,
-                                         m.kf_preint.J_R_bg, pair_mask)
+        with record_function("step.vio_init.gyro_bias"):
+            bg = vio_init.estimate_gyro_bias(mm(m.kf_ns.R, Rcb), m.kf_preint.dR,
+                                             m.kf_preint.J_R_bg, pair_mask, scan=scan)
         has_depth = m.kf_valid & m.kf_depth_valid
         n_dep = torch.sum(has_depth)
         g_cfg_dir = gravity / torch.clamp(torch.linalg.vector_norm(gravity), min=1e-9)
@@ -366,8 +384,9 @@ class VipStep:
         # keyframes
         sel, vvalid, s_omg, s_acc, s_dt, s_mask = vio_init.build_strided_inertial(
             m.kf_valid, m.kf_imu_omg, m.kf_imu_acc, m.kf_imu_dt, m.kf_imu_mask, 4)
-        prev_ = preintegrate(s_omg, s_acc, s_dt, s_mask, bg, self.zero3, cfg.gyr_noise_sd,
-                             cfg.acc_noise_sd)
+        with record_function("step.vio_init.preint_strided"):
+            prev_ = preintegrate(s_omg, s_acc, s_dt, s_mask, bg, self.zero3, cfg.gyr_noise_sd,
+                                 cfg.acc_noise_sd, scan=scan)
         vk = torch.arange(sel.shape[0], device=dev)
         triple = (vvalid & torch.roll(vvalid, 1) & torch.roll(vvalid, 2) & (vk >= 2)
                   & (prev_.dt > 1e-6) & (torch.roll(prev_.dt, 1) > 1e-6))
@@ -386,8 +405,9 @@ class VipStep:
         s = torch.where(ok, s, torch.ones_like(s))
         # every keyframe window re-integrated at both biases (velocity
         # recovery and the VI BA's preintegration edges)
-        pre2 = preintegrate(m.kf_imu_omg, m.kf_imu_acc, m.kf_imu_dt, m.kf_imu_mask, bg, ba_est,
-                            cfg.gyr_noise_sd, cfg.acc_noise_sd)
+        with record_function("step.vio_init.preint_all"):
+            pre2 = preintegrate(m.kf_imu_omg, m.kf_imu_acc, m.kf_imu_dt, m.kf_imu_mask, bg,
+                                ba_est, cfg.gyr_noise_sd, cfg.acc_noise_sd, scan=scan)
 
         # world Sim3 x' = s R_align x, then camera-as-body -> BODY states
         kf_ns = dataclasses.replace(m.kf_ns, p=s * mv(R_align, m.kf_ns.p),
@@ -780,19 +800,21 @@ class VipStep:
         t_span = row(m.kf_time, torch.clamp(m.n_kf - 1, min=0)) - m.kf_time[0]
         return (m.n_kf >= cfg.vio_init_min_kfs) & (t_span >= cfg.vio_init_min_time)
 
+    def _kf_trigger(self, st):
+        """Segment E before VIO init: the keyframe's bookkeeping and the
+        VIO-init trigger flag."""
+        st = self._ba_finish(st)
+        return st, self._trigger_flag(st)
+
     def _ba_and_adopt(self, st, ctl: _Ctl, vio_ok: bool):
-        """Stage D of one stream: BA and adoption, hygiene with its
-        compaction, and the VIO-init trigger."""
+        """Stage D of one stream after an eager branch: BA and adoption,
+        hygiene with its compaction. (The VIO-init trigger follows only a
+        WORKING frame's pre-VIO keyframe, which `__call__` runs as
+        segments.)"""
         st, compact = self._ba_front(st, ctl.adopt, vio_ok, ctl.want_hyg)
         if ctl.want_hyg and self._read_bool(compact):
             st = self._compact(st)
-        st = self._ba_finish(st)
-        if ctl.want_trigger and not vio_ok and self._read_bool(self._trigger_flag(st)):
-            with record_function("step.vio_init"):
-                st_ok, ok = self._try_init_vio(st)
-            if self._read_bool(ok):
-                st = st_ok
-        return st
+        return self._ba_finish(st)
 
     # ------------------------------------------------------------------
     def _branch(self, st, b, s: int, vio_ok: bool, has_anchor: bool, ns_pred, Rcw_pred,
@@ -872,12 +894,12 @@ class VipStep:
         st = self._vi_apply(st, sol) if vio_ok else self._mono_apply(st, sol)
         return st if need else self._ring_and_out(st, pyr)
 
-    def _vi_keyframe(self, st, b, hygiene: bool):
-        """Segment D: the VI keyframe and the window BA up to the map
-        hygiene's compaction flag."""
+    def _keyframe(self, st, b, vio_ok: bool, hygiene: bool):
+        """Segment D: the keyframe and the window BA (mono before VIO init,
+        VI after it) up to the map hygiene's compaction flag."""
         with record_function("step.keyframe"):
-            st, k = self._create_kf(st, b, True)
-        return self._ba_front(st, k, True, hygiene)
+            st, k = self._create_kf(st, b, vio_ok)
+        return self._ba_front(st, k, vio_ok, hygiene)
 
     def _kf_end(self, st, pyr):
         """Segment E: the keyframe's bookkeeping, the ring and the output."""
@@ -917,15 +939,23 @@ class VipStep:
         if not need:
             st, out = st
             return dataclasses.replace(st, gen=gen), out
-        if not vio_ok:
-            # the pre-VIO keyframe with its VIO-init trigger runs eagerly
-            return self._finish(dataclasses.replace(st, gen=gen), b, pyr,
-                                self._kf_ctl(True, trigger=True), vio_ok)
         hyg = cfg.map_hygiene
-        st, compact = seg.run(("D", hyg), lambda *a: self._vi_keyframe(*a, hygiene=hyg), st, bf)
+        st, compact = seg.run(("D", vio_ok, hyg),
+                              lambda *a: self._keyframe(*a, vio_ok=vio_ok, hygiene=hyg), st, bf)
         if hyg and self._read_bool(compact):
             st = self._compact(st)
-        st, out = seg.run(("E",), self._kf_end, st, pyr)
+        if vio_ok:
+            st, out = seg.run(("E", True), self._kf_end, st, pyr)
+            return dataclasses.replace(st, gen=gen), out
+        # the pre-VIO keyframe: the trigger read, the VIO init (eager, its
+        # loops replayed by `segments.scan`) when it fires, then the ring
+        st, fire = seg.run(("E", False), self._kf_trigger, st)
+        if self._read_bool(fire):
+            with record_function("step.vio_init"):
+                st_ok, ok = self._try_init_vio(st)
+            if self._read_bool(ok):
+                st = st_ok
+        st, out = seg.run(("R",), self._ring_and_out, st, pyr)
         return dataclasses.replace(st, gen=gen), out
 
 

@@ -10,7 +10,10 @@ fresh frame-to-frame prior.
 
 Spans for a profiler: `stream.process` around a frame, and the closer's
 `loop.detect`, `loop.sim3`, `loop.essential_graph`, `loop.fuse`,
-`loop.global_ba`.
+`loop.global_ba`. The closing pass's loops (the essential graph's and the
+full-map BA's LM iterations, the NavState BA's preintegration) run
+through the step's own `Segments.scan`: replayed graphs when the step is
+graphed (the default on the card), the plain loops otherwise.
 """
 
 from __future__ import annotations
@@ -69,7 +72,8 @@ class DeviceStream:
             self.loop_closer = LoopCloser(
                 cam.fx, cam.fy, cam.cx, cam.cy,
                 min_sim3_inliers=getattr(cfg, "loop_min_sim3_inliers", 20),
-                min_total_matches=None if mt < 0 else mt, device=dev)
+                min_total_matches=None if mt < 0 else mt, device=dev,
+                segments=self.step.segments)
         self.loop_events: list[tuple[int, int]] = []
         self.kf_passes: list[dict] = []
         self.frame_id = -1
@@ -92,13 +96,14 @@ class DeviceStream:
     def _post_ba(self, vio_ok: bool):
         from uvipslam_torch.solver.global_ba import global_ba_navstate, global_ba_visual
 
-        cam, cfg = self.cam, self.cfg
+        cam, cfg, scan = self.cam, self.cfg, self.step.segments.scan
         if vio_ok:
             return lambda m: global_ba_navstate(
                 m, self.step.gravity, self.Rcb, self.tcb, cam.fx, cam.fy, cam.cx, cam.cy,
                 cfg.gyr_noise_sd, cfg.acc_noise_sd, cfg.gyr_bias_rw2, cfg.acc_bias_rw2,
-                self.step.depth_info, self.sigmas)
-        return lambda m: global_ba_visual(m, cam.fx, cam.fy, cam.cx, cam.cy, self.sigmas)
+                self.step.depth_info, self.sigmas, scan=scan)
+        return lambda m: global_ba_visual(m, cam.fx, cam.fy, cam.cx, cam.cy, self.sigmas,
+                                          scan=scan)
 
     def _close_loop_at(self, kf_slot: int):
         """Host loop-closing pass at a keyframe boundary; on a closure the

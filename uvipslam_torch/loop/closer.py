@@ -49,6 +49,7 @@ from uvipslam_torch.ops.sim3solver import optimize_sim3, sim3_ransac
 from uvipslam_torch.solver.essential_graph import (correct_points_after_pose_graph,
                                                    optimize_essential_graph)
 from uvipslam_torch.solver.global_ba import global_ba_visual
+from uvipslam_torch.utils.graphs import Segments
 
 
 host_reads = 0    # device-to-host reads made by this module's functions
@@ -246,7 +247,8 @@ COVIS_EDGE_CAP = 128  # fixed capacity for covisibility edges
 
 
 def close_loop(m: MapState, query_kf: int, loop_kf: int, s_rel, R_rel, t_rel,
-               n_iters: int = 20, Rcb=None, tcb=None, Rbc=None, tbc=None) -> MapState:
+               n_iters: int = 20, Rcb=None, tcb=None, Rbc=None, tbc=None,
+               scan=None) -> MapState:
     """Apply a verified loop: essential-graph optimization + landmark
     correction. The pose-graph state is each keyframe's world->camera Sim3
     (scale 1). Edges: the kf_prev spanning chain, strong covisibility
@@ -255,7 +257,8 @@ def close_loop(m: MapState, query_kf: int, loop_kf: int, s_rel, R_rel, t_rel,
     its stored measurement, and the new measured edge (i = loop, j =
     query, S_query = S_rel S_loop). The loop keyframe is the gauge.
     NavState velocities are re-expressed through each keyframe's
-    correction. No host read."""
+    correction. No host read. `scan` runs the pose graph's LM iterations
+    (`optimize_essential_graph`'s)."""
     K = m.kf_cap
     dev = m.pt_xyz.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -301,7 +304,8 @@ def close_loop(m: MapState, query_kf: int, loop_kf: int, s_rel, R_rel, t_rel,
     e_mask = torch.cat([e_mask, topw > 0, l_mask, torch.ones(1, dtype=torch.bool, device=dev)])
 
     s2, R2, t2 = optimize_essential_graph(kf_s, kf_R, kf_t, m.kf_valid, slots == loop_kf,
-                                          e_i, e_j, m_s, m_R, m_t, e_mask, n_iters=n_iters)
+                                          e_i, e_j, m_s, m_R, m_t, e_mask, n_iters=n_iters,
+                                          scan=scan)
     pts2 = correct_points_after_pose_graph(m.pt_xyz, m.pt_ref_kf, kf_s, kf_R, kf_t,
                                            s2, R2, t2, m.pt_valid)
 
@@ -332,11 +336,16 @@ class LoopCloser:
     `last_reads` holds the device-to-host reads of the last pass and
     `host_reads` their sum over all passes; `last_timing` holds the last
     pass's milliseconds by part (each part ends in a host read or, on a
-    CUDA device, a synchronize)."""
+    CUDA device, a synchronize). `segments` (a `utils.graphs.Segments`:
+    a stream's step's own, or by default one of the closer's own, graphed
+    on a CUDA device) runs the loops of the essential graph and the
+    default `post_ba` through its `scan`: captured graphs replayed per
+    iteration on the card, the plain loops with graphs off."""
 
     def __init__(self, fx, fy, cx, cy, consistency_th: int = 3, covis_th: int = 15,
                  min_gap: int = 10, min_sim3_inliers: int = 20,
-                 min_total_matches: int | None = None, seed: int = 11, device="cuda"):
+                 min_total_matches: int | None = None, seed: int = 11, device="cuda",
+                 segments: Segments | None = None):
         self.fx, self.fy, self.cx, self.cy = fx, fy, cx, cy
         self.consistency_th = consistency_th
         self.covis_th = covis_th
@@ -346,6 +355,8 @@ class LoopCloser:
         # features), floored at 15 for tiny configurations
         self.min_total_matches = min_total_matches
         self.device = step_device(device)
+        self.segments = Segments(self.device, graphs=self.device.type == "cuda") \
+            if segments is None else segments
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
         f32 = dict(dtype=torch.float32, device=self.device)
@@ -371,7 +382,8 @@ class LoopCloser:
         # polish after the correction; visual by default, the stream swaps
         # in the NavState form once VIO is initialized
         sigmas = torch.tensor([1.2 ** (2 * i) for i in range(8)], **f32)
-        self.post_ba = lambda m: global_ba_visual(m, self.fx, self.fy, self.cx, self.cy, sigmas)
+        self.post_ba = lambda m: global_ba_visual(m, self.fx, self.fy, self.cx, self.cy, sigmas,
+                                                  scan=self.segments.scan)
 
     def _covis_group(self, m: MapState, kf: int) -> frozenset:
         _count_read()
@@ -485,7 +497,7 @@ class LoopCloser:
                 continue
             with record_function("loop.essential_graph"):
                 m = close_loop(m, query_kf, c, s, R, tr, Rcb=self.Rcb, tcb=self.tcb,
-                               Rbc=self.Rbc, tbc=self.tbc)
+                               Rbc=self.Rbc, tbc=self.tbc, scan=self.segments.scan)
             t = self._tick(m, "essential_graph", t)
             with record_function("loop.fuse"):
                 m = fuse_duplicates(m)

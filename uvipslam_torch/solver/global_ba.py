@@ -6,7 +6,9 @@ machinery of `solver/local_ba.py` applied to the whole keyframe table
 gauge. VIO init runs the visual form before its solves; loop closing
 polishes the corrected map with either form. The NavState form first
 re-integrates every keyframe's stored raw IMU window at the bias of its
-previous keyframe.
+previous keyframe. Both take the `scan` that runs their loops (the
+reference's `lax.scan`s: `utils.graphs.Segments.scan`, by default the
+plain loop) and pass it down.
 """
 
 from __future__ import annotations
@@ -46,11 +48,12 @@ def _writeback(m: MapState, kf_ns2, pts2, obs_in, obs_ok) -> MapState:
 
 def global_ba_visual(m: MapState, fx, fy, cx, cy, scale_sigmas: torch.Tensor,
                      kf_window: int | None = None, n_iters: int = 8, rounds: int = 2,
-                     p_active: int = 4096) -> MapState:
+                     p_active: int = 4096, scan=None) -> MapState:
     """Visual-only BA over the first `kf_window` keyframe slots (all when
     None) and their landmarks, the lowest valid slot fixed. Keyframes fill
     slots in insertion order, so an init-time caller bounds the dense pose
-    block at kf_window*6. Velocities and biases are kept."""
+    block at kf_window*6. Velocities and biases are kept. `scan` runs the
+    LM iterations (`local_ba_se3`'s)."""
     W = m.kf_cap if kf_window is None else min(kf_window, m.kf_cap)
     obs_kf, obs_pt, obs_uv, inv_sig, ok = _all_observations(m, scale_sigmas, W)
     kf_valid_w = m.kf_valid[:W]
@@ -60,7 +63,8 @@ def global_ba_visual(m: MapState, fx, fy, cx, cy, scale_sigmas: torch.Tensor,
     fixed = torch.arange(W, device=first.device) == first
     Rn, tn, pts, inl = local_ba_se3(kf_R, kf_t, fixed, kf_valid_w, m.pt_xyz, m.pt_valid,
                                     obs_kf, obs_pt, obs_uv, inv_sig, ok, fx, fy, cx, cy,
-                                    n_iters=n_iters, rounds=rounds, p_active=p_active)
+                                    n_iters=n_iters, rounds=rounds, p_active=p_active,
+                                    scan=scan)
     ns2_w = _cam_pose_to_ns(Rn, tn)
     ns2 = dataclasses.replace(m.kf_ns, p=torch.cat([ns2_w.p, m.kf_ns.p[W:]]),
                               R=torch.cat([ns2_w.R, m.kf_ns.R[W:]]))
@@ -69,19 +73,22 @@ def global_ba_visual(m: MapState, fx, fy, cx, cy, scale_sigmas: torch.Tensor,
 
 def global_ba_navstate(m: MapState, gravity, Rcb, tcb, fx, fy, cx, cy, gyr_noise_sd,
                        acc_noise_sd, gyr_bias_rw2, acc_bias_rw2, depth_inv_var,
-                       scale_sigmas: torch.Tensor, cost_out: list | None = None) -> MapState:
+                       scale_sigmas: torch.Tensor, cost_out: list | None = None,
+                       scan=None) -> MapState:
     """Full-map visual-inertial-pressure BA over the keyframe NavStates:
     reprojection edges, preintegration and bias random-walk edges along
     the kf_prev chain, and the pressure depth factors. The preintegrated
     terms are rebuilt from each keyframe's raw IMU window (one batched
-    pass over all K windows). `cost_out` as in `local_ba_navstate`."""
+    pass over all K windows). `cost_out` as in `local_ba_navstate`; `scan`
+    runs the preintegration's and the LM iterations' loops."""
     K = m.kf_cap
     dev = m.pt_xyz.device
     obs_kf, obs_pt, obs_uv, inv_sig, ok = _all_observations(m, scale_sigmas)
 
     prev = m.kf_prev.clamp(0, K - 1).long()
     pre = preintegrate(m.kf_imu_omg, m.kf_imu_acc, m.kf_imu_dt, m.kf_imu_mask,
-                       m.kf_ns.bg[prev], m.kf_ns.ba[prev], gyr_noise_sd, acc_noise_sd)
+                       m.kf_ns.bg[prev], m.kf_ns.ba[prev], gyr_noise_sd, acc_noise_sd,
+                       scan=scan)
     pre_j = torch.arange(K, device=dev)
     pre_mask = (m.kf_prev >= 0) & m.kf_valid & (pre.dt > 1e-6) & m.kf_valid[prev]
 
@@ -94,5 +101,5 @@ def global_ba_navstate(m: MapState, gravity, Rcb, tcb, fx, fy, cx, cy, gyr_noise
         m.kf_ns, fixed, m.kf_valid, m.pt_xyz, m.pt_valid, obs_kf, obs_pt, obs_uv, inv_sig, ok,
         prev, pre_j, pre, pre_mask, gravity, Rcb, tcb, fx, fy, cx, cy, gyr_bias_rw2,
         acc_bias_rw2, m.kf_depth, depth_info, n_iters=8, rounds=2, p_active=4096,
-        cost_out=cost_out)
+        cost_out=cost_out, scan=scan)
     return _writeback(m, ns2, pts2, inl, ok)

@@ -7,7 +7,10 @@ and pressure edges). Both keep a dense pose Hessian, eliminate the
 landmark blocks by Schur complement over the landmark axis compacted to
 the observed set, assemble the normal equations by one-hot matmuls
 (dense and deterministic, the reference's scatter-free layout), and run
-fixed LM iterations whose accept/reject is a `torch.where`.
+fixed LM iterations whose accept/reject is a `torch.where`: the
+reference's `lax.scan`, here a `scan` argument (`utils.graphs.Segments.
+scan`, one captured graph per iteration on the card; by default the plain
+loop). The rounds stay a Python loop (their `robust` is a key value).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from uvipslam_torch.core.lie import mm, mv
 from uvipslam_torch.core.tree import tree_map
 from uvipslam_torch.solver import factors
 from uvipslam_torch.solver.gn import huber_cost, inv_spd_scaled, robust_weight, solve_spd
+from uvipslam_torch.utils.graphs import plain_scan
 
 CHI2_MONO = 5.991
 HUBER2_MONO = 5.991
@@ -128,32 +132,50 @@ def _block_diag_embed(Hk, K: int, S: int, off: int = 0):
     return H4.reshape(K * S, K * S)
 
 
-def local_ba_se3(kf_R, kf_t, kf_fixed, kf_valid, pts_w, pt_valid, obs_kf,
-                 obs_pt, obs_uv, obs_inv_sigma2, obs_mask, fx, fy, cx, cy,
-                 n_iters: int = 5, rounds: int = 2, p_active: int = 2048):
-    """Visual-only window BA over SE3 camera poses Tcw.
-    Returns (kf_R', kf_t', pts_w', obs_inlier)."""
-    dtype, dev = pts_w.dtype, pts_w.device
-    K = kf_R.shape[0]
-    P_full = pts_w.shape[0]
-    C = K * 6
-    free_kf = kf_valid & ~kf_fixed
-    obs_in = obs_mask
+def _lm(scan, key: tuple, make, c: dict, state, obs_inlier, robust: float, iters: int,
+        pt_free, dtype):
+    """`iters` Levenberg-Marquardt iterations of a window BA from `state`,
+    whose (build, retract) = make(c) read the problem's tensors from `c`:
+    the accept/reject of each step is a `torch.where`, so the iterations
+    are the reference's `lax.scan` and run through `scan` (the plain loop
+    when None), `robust` joining the key. Returns (state, the objective
+    at the start, at the end)."""
+    build, _ = make(c)
+    eqs, chi2 = build(state, obs_inlier, robust, pt_free)
+    lam = torch.full((), 1e-4, dtype=dtype, device=chi2.device)
 
-    P = min(P_full, p_active if p_active else obs_pt.numel())
-    pts_full = pts_w
-    ids_c, act_ok, obs_pt, keep_ok, pts_w, pt_valid = _compact_points(
-        obs_pt, obs_mask, pts_w, pt_valid, P)
-    obs_in = obs_in & keep_ok
-    obs_mask = obs_mask & keep_ok
-    obs_kf = obs_kf.long()
-    oh_grid = None
-    if obs_pt.dim() == 2:
-        oh_grid = (obs_pt[..., None] == torch.arange(P, device=dev)).to(dtype)
-    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    def body(carry, _, c, obs_inlier, pt_free):
+        build, retract = make(c)
+        st, eqs, lam, chi2 = carry
+        dc, dp = _schur_step(*eqs, lam, pt_free)
+        st_new = retract(st, dc, dp)
+        eqs_new, chi2_new = build(st_new, obs_inlier, robust, pt_free)
+        accept = chi2_new < chi2
+
+        def sel(a, b):
+            return torch.where(accept, b, a)
+
+        return (tree_map(sel, st, st_new), tree_map(sel, eqs, eqs_new),
+                torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-9, 1e6),
+                torch.where(accept, chi2_new, chi2))
+
+    st, _, _, chi2_end = (scan or plain_scan)(key + (robust,), body, (state, eqs, lam, chi2),
+                                              length=iters, consts=(c, obs_inlier, pt_free))
+    return st, chi2, chi2_end
+
+
+def _se3_problem(c: dict, fx, fy, cx, cy):
+    """The SE3 window BA's normal equations (`build`) and retraction over
+    the tensors of `c`."""
+    obs_kf, obs_pt, obs_uv = c["obs_kf"], c["obs_pt"], c["obs_uv"]
+    obs_inv_sigma2, free_kf, eye3 = c["obs_inv_sigma2"], c["free_kf"], c["eye3"]
+    dtype = eye3.dtype
+    K = free_kf.shape[0]
+    C = K * 6
 
     def build(state, obs_inlier, robust, pt_free):
         R, t, pts = state
+        P = pts.shape[0]
         r, J_pose, J_pt = factors.reproj_se3(
             R[obs_kf], t[obs_kf], pts[obs_pt], obs_uv, fx, fy, cx, cy)
         chi2 = torch.sum(r * r, -1) * obs_inv_sigma2
@@ -163,7 +185,7 @@ def local_ba_se3(kf_R, kf_t, kf_fixed, kf_valid, pts_w, pt_valid, obs_kf,
         J_pt = J_pt * pt_free[obs_pt].to(dtype)[..., None, None]
 
         Hk, gk, Hpp, gp, Wp = _assemble_reproj(
-            J_pose, J_pt, r, wo, obs_kf, obs_pt, K, P, oh=oh_grid)
+            J_pose, J_pt, r, wo, obs_kf, obs_pt, K, P, oh=c["oh_grid"])
         Hcc = _block_diag_embed(Hk, K, 6)
         gc = gk.reshape(C)
         W = Wp.reshape(P, C, 3)
@@ -178,24 +200,35 @@ def local_ba_se3(kf_R, kf_t, kf_fixed, kf_valid, pts_w, pt_valid, obs_kf,
         dR, dt = lie.se3_exp(dc.reshape(K, 6))
         return (lie.normalize_rotation(mm(dR, R)), mv(dR, t) + dt, pts + dp)
 
-    def lm_rounds(state, obs_inlier, robust, iters, pt_free):
-        eqs, chi2 = build(state, obs_inlier, robust, pt_free)
-        lam = torch.full((), 1e-4, dtype=dtype, device=dev)
-        st = state
-        for _ in range(iters):
-            dc, dp = _schur_step(*eqs, lam, pt_free)
-            st_new = retract(st, dc, dp)
-            eqs_new, chi2_new = build(st_new, obs_inlier, robust, pt_free)
-            accept = chi2_new < chi2
+    return build, retract
 
-            def sel(a, b):
-                return torch.where(accept, b, a)
 
-            st = tree_map(sel, st, st_new)
-            eqs = tree_map(sel, eqs, eqs_new)
-            lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-9, 1e6)
-            chi2 = torch.where(accept, chi2_new, chi2)
-        return st
+def local_ba_se3(kf_R, kf_t, kf_fixed, kf_valid, pts_w, pt_valid, obs_kf,
+                 obs_pt, obs_uv, obs_inv_sigma2, obs_mask, fx, fy, cx, cy,
+                 n_iters: int = 5, rounds: int = 2, p_active: int = 2048, scan=None):
+    """Visual-only window BA over SE3 camera poses Tcw. `scan` runs each
+    round's LM iterations (the plain loop when None).
+    Returns (kf_R', kf_t', pts_w', obs_inlier)."""
+    dtype, dev = pts_w.dtype, pts_w.device
+    P_full = pts_w.shape[0]
+    free_kf = kf_valid & ~kf_fixed
+    obs_in = obs_mask
+
+    P = min(P_full, p_active if p_active else obs_pt.numel())
+    pts_full = pts_w
+    ids_c, act_ok, obs_pt, keep_ok, pts_w, pt_valid = _compact_points(
+        obs_pt, obs_mask, pts_w, pt_valid, P)
+    obs_in = obs_in & keep_ok
+    obs_mask = obs_mask & keep_ok
+    obs_kf = obs_kf.long()
+    oh_grid = None
+    if obs_pt.dim() == 2:
+        oh_grid = (obs_pt[..., None] == torch.arange(P, device=dev)).to(dtype)
+    c = dict(obs_kf=obs_kf, obs_pt=obs_pt, obs_uv=obs_uv, obs_inv_sigma2=obs_inv_sigma2,
+             free_kf=free_kf, oh_grid=oh_grid, eye3=torch.eye(3, dtype=dtype, device=dev))
+
+    def make(c):
+        return _se3_problem(c, fx, fy, cx, cy)
 
     state = (kf_R, kf_t, pts_w)
     for rd in range(rounds):
@@ -203,7 +236,8 @@ def local_ba_se3(kf_R, kf_t, kf_fixed, kf_valid, pts_w, pt_valid, obs_kf,
         n_obs = torch.zeros((P,), dtype=torch.int32, device=dev).index_add(
             0, obs_pt.reshape(-1), obs_in.reshape(-1).to(torch.int32))
         pt_free = pt_valid & (n_obs >= 2)
-        state = lm_rounds(state, obs_in, robust, n_iters, pt_free)
+        state, _, _ = _lm(scan, ("ba_se3", fx, fy, cx, cy), make, c, state, obs_in, robust,
+                          n_iters, pt_free, dtype)
         R, t, pts = state
         r, _, _ = factors.reproj_se3(R[obs_kf], t[obs_kf], pts[obs_pt], obs_uv,
                                      fx, fy, cx, cy)
@@ -231,45 +265,20 @@ def _reproj_blocks_navstate(kf_ns, pts_w, obs_kf, obs_pt, obs_uv, Rcb, tcb, fx, 
                                    Rcb, tcb, fx, fy, cx, cy)
 
 
-def local_ba_navstate(kf_ns, kf_fixed, kf_valid, pts_w, pt_valid, obs_kf, obs_pt, obs_uv,
-                      obs_inv_sigma2, obs_mask, pre_i, pre_j, pre, pre_mask, gravity, Rcb, tcb,
-                      fx, fy, cx, cy, gyr_bias_rw2, acc_bias_rw2, depth_meas, depth_info,
-                      n_iters: int = 5, rounds: int = 2, p_active: int = 2048,
-                      cost_out: list | None = None):
-    """VI(P) window BA over [K, 15] keyframe states (PVR + bias) and the
-    observed landmarks: reprojection edges, preintegration and bias
-    random-walk edges along the (pre_i, pre_j) pairs, the depth-projected
-    pressure ternary along the same pairs, and a unary depth prior on
-    keyframes no active ternary covers. Returns (kf_ns', pts_w',
-    obs_inlier). A list given as `cost_out` receives, per round, the
-    objective at the round's start and end (device scalars)."""
-    dtype, dev = pts_w.dtype, pts_w.device
-    K = kf_ns.p.shape[0]
+def _navstate_problem(c: dict, fx, fy, cx, cy):
+    """The VI(P) window BA's normal equations (`build`) and retraction
+    over the tensors of `c`."""
+    obs_kf, obs_pt, obs_uv, obs_inv_sigma2 = c["obs_kf"], c["obs_pt"], c["obs_uv"], \
+        c["obs_inv_sigma2"]
+    pre, pre_i, pre_j, pre_mask = c["pre"], c["pre_i"], c["pre_j"], c["pre_mask"]
+    free_kf, fk, eyeK, oh_i, oh_j = c["free_kf"], c["fk"], c["eyeK"], c["oh_i"], c["oh_j"]
+    info_pvr, rw_diag, pre_mf = c["info_pvr"], c["rw_diag"], c["pre_mf"]
+    gravity, Rcb, tcb = c["gravity"], c["Rcb"], c["tcb"]
+    depth_meas, depth_info = c["depth_meas"], c["depth_info"]
+    dtype, dev = eyeK.dtype, eyeK.device
+    K = eyeK.shape[0]
     C = K * 15
-    free_kf = kf_valid & ~kf_fixed
-
-    P = min(pts_w.shape[0], p_active if p_active else obs_pt.numel())
-    pts_full = pts_w
-    ids_c, act_ok, obs_pt, keep_ok, pts_w, pt_valid = _compact_points(
-        obs_pt, obs_mask, pts_w, pt_valid, P)
-    obs_mask = obs_mask & keep_ok
-    obs_kf = obs_kf.long()
-    pre_i, pre_j = pre_i.long(), pre_j.long()
-    oh_grid = None
-    if obs_pt.dim() == 2:
-        oh_grid = (obs_pt[..., None] == torch.arange(P, device=dev)).to(dtype)
-
-    info_pvr = inv_spd_scaled(pre.cov + torch.eye(9, dtype=dtype, device=dev)[None] * 1e-8)
     dT = pre.dt
-    rw_diag = torch.cat([
-        (1.0 / torch.clamp(gyr_bias_rw2 * dT[:, None], min=1e-12)).repeat(1, 3),
-        (1.0 / torch.clamp(acc_bias_rw2 * dT[:, None], min=1e-12)).repeat(1, 3)], dim=1)
-    eyeK = torch.eye(K, dtype=dtype, device=dev)
-    ar_k = torch.arange(K, device=dev)
-    oh_i = (pre_i[:, None] == ar_k).to(dtype)
-    oh_j = (pre_j[:, None] == ar_k).to(dtype)
-    fk = free_kf.to(dtype)
-    pre_mf = pre_mask.to(dtype)
 
     def add_cross(Hcc4, oha, blk, ohb, offa, offb):
         da, db = blk.shape[-2], blk.shape[-1]
@@ -315,6 +324,7 @@ def local_ba_navstate(kf_ns, kf_fixed, kf_valid, pts_w, pt_valid, obs_kf, obs_pt
 
     def build(state, obs_inlier, robust, pt_free):
         kf, pts = state
+        P = pts.shape[0]
         r, J_pvr, J_pt = _reproj_blocks_navstate(kf, pts, obs_kf, obs_pt, obs_uv, Rcb, tcb,
                                                  fx, fy, cx, cy)
         chi2 = torch.sum(r * r, -1) * obs_inv_sigma2
@@ -322,7 +332,7 @@ def local_ba_navstate(kf_ns, kf_fixed, kf_valid, pts_w, pt_valid, obs_kf, obs_pt
         J_pvr = J_pvr * fk[obs_kf][..., None, None]
         J_pt = J_pt * pt_free[obs_pt].to(dtype)[..., None, None]
         Hk, gk, Hpp, gp, Wp = _assemble_reproj(J_pvr, J_pt, r, wo, obs_kf, obs_pt, K, P,
-                                               oh=oh_grid)
+                                               oh=c["oh_grid"])
         Hcc4 = (torch.nn.functional.pad(Hk, (0, 6, 0, 6))[:, :, None, :]
                 * eyeK[:, None, :, None])                                   # [K, 15, K, 15]
         gc4 = torch.nn.functional.pad(gk, (0, 6))                            # [K, 15]
@@ -379,27 +389,52 @@ def local_ba_navstate(kf_ns, kf_fixed, kf_valid, pts_w, pt_valid, obs_kf, obs_pt
         d = dc.reshape(K, 15)
         return kf.inc_small_pvr(d[:, :9]).inc_small_bias(d[:, 9:15]), pts + dp
 
-    def lm_rounds(state, obs_inlier, robust, iters, pt_free):
-        eqs, chi2 = build(state, obs_inlier, robust, pt_free)
-        chi2_start = chi2
-        lam = torch.full((), 1e-4, dtype=dtype, device=dev)
-        st = state
-        for _ in range(iters):
-            dc, dp = _schur_step(*eqs, lam, pt_free)
-            st_new = retract(st, dc, dp)
-            eqs_new, chi2_new = build(st_new, obs_inlier, robust, pt_free)
-            accept = chi2_new < chi2
+    return build, retract
 
-            def sel(a, b):
-                return torch.where(accept, b, a)
 
-            st = tree_map(sel, st, st_new)
-            eqs = tree_map(sel, eqs, eqs_new)
-            lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-9, 1e6)
-            chi2 = torch.where(accept, chi2_new, chi2)
-        if cost_out is not None:
-            cost_out.append((chi2_start, chi2))
-        return st
+def local_ba_navstate(kf_ns, kf_fixed, kf_valid, pts_w, pt_valid, obs_kf, obs_pt, obs_uv,
+                      obs_inv_sigma2, obs_mask, pre_i, pre_j, pre, pre_mask, gravity, Rcb, tcb,
+                      fx, fy, cx, cy, gyr_bias_rw2, acc_bias_rw2, depth_meas, depth_info,
+                      n_iters: int = 5, rounds: int = 2, p_active: int = 2048,
+                      cost_out: list | None = None, scan=None):
+    """VI(P) window BA over [K, 15] keyframe states (PVR + bias) and the
+    observed landmarks: reprojection edges, preintegration and bias
+    random-walk edges along the (pre_i, pre_j) pairs, the depth-projected
+    pressure ternary along the same pairs, and a unary depth prior on
+    keyframes no active ternary covers. Returns (kf_ns', pts_w',
+    obs_inlier). A list given as `cost_out` receives, per round, the
+    objective at the round's start and end (device scalars). `scan` runs
+    each round's LM iterations (the plain loop when None)."""
+    dtype, dev = pts_w.dtype, pts_w.device
+    K = kf_ns.p.shape[0]
+    free_kf = kf_valid & ~kf_fixed
+
+    P = min(pts_w.shape[0], p_active if p_active else obs_pt.numel())
+    pts_full = pts_w
+    ids_c, act_ok, obs_pt, keep_ok, pts_w, pt_valid = _compact_points(
+        obs_pt, obs_mask, pts_w, pt_valid, P)
+    obs_mask = obs_mask & keep_ok
+    obs_kf = obs_kf.long()
+    pre_i, pre_j = pre_i.long(), pre_j.long()
+    oh_grid = None
+    if obs_pt.dim() == 2:
+        oh_grid = (obs_pt[..., None] == torch.arange(P, device=dev)).to(dtype)
+
+    info_pvr = inv_spd_scaled(pre.cov + torch.eye(9, dtype=dtype, device=dev)[None] * 1e-8)
+    dT = pre.dt
+    rw_diag = torch.cat([
+        (1.0 / torch.clamp(gyr_bias_rw2 * dT[:, None], min=1e-12)).repeat(1, 3),
+        (1.0 / torch.clamp(acc_bias_rw2 * dT[:, None], min=1e-12)).repeat(1, 3)], dim=1)
+    ar_k = torch.arange(K, device=dev)
+    c = dict(obs_kf=obs_kf, obs_pt=obs_pt, obs_uv=obs_uv, obs_inv_sigma2=obs_inv_sigma2,
+             oh_grid=oh_grid, pre=pre, pre_i=pre_i, pre_j=pre_j, pre_mask=pre_mask,
+             free_kf=free_kf, fk=free_kf.to(dtype), eyeK=torch.eye(K, dtype=dtype, device=dev),
+             oh_i=(pre_i[:, None] == ar_k).to(dtype), oh_j=(pre_j[:, None] == ar_k).to(dtype),
+             info_pvr=info_pvr, rw_diag=rw_diag, pre_mf=pre_mask.to(dtype), gravity=gravity,
+             Rcb=Rcb, tcb=tcb, depth_meas=depth_meas, depth_info=depth_info)
+
+    def make(c):
+        return _navstate_problem(c, fx, fy, cx, cy)
 
     state, obs_in = (kf_ns, pts_w), obs_mask
     for rd in range(rounds):
@@ -407,7 +442,11 @@ def local_ba_navstate(kf_ns, kf_fixed, kf_valid, pts_w, pt_valid, obs_kf, obs_pt
         # a landmark moves only with >= 2 live observations
         n_obs = torch.zeros((P,), dtype=torch.int32, device=dev).index_add(
             0, obs_pt.reshape(-1), obs_in.reshape(-1).to(torch.int32))
-        state = lm_rounds(state, obs_in, robust, n_iters, pt_valid & (n_obs >= 2))
+        state, chi2_start, chi2_end = _lm(scan, ("ba_navstate", fx, fy, cx, cy), make, c, state,
+                                          obs_in, robust, n_iters, pt_valid & (n_obs >= 2),
+                                          dtype)
+        if cost_out is not None:
+            cost_out.append((chi2_start, chi2_end))
         kf, pts = state
         r, _, _ = _reproj_blocks_navstate(kf, pts, obs_kf, obs_pt, obs_uv, Rcb, tcb,
                                           fx, fy, cx, cy)

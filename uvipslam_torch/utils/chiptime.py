@@ -147,11 +147,12 @@ def trace_summary(events):
     `key_averages()` takes up to half a minute): {name: [count, µs]} of the
     device events, {name: [count, self µs]} of the host events (their
     time less that of the events nested in them on the same thread),
-    {span: [count, host µs, device µs]} of the `step.*` spans (the device
-    time of the kernels launched inside them) and the host's launch calls
+    {span: [count, host µs, device µs, launch calls]} of the `step.*`
+    spans (the device time of the kernels launched inside them and the
+    host's launch calls made inside them) and the host's launch calls
     (kernel launches and graph launches, LAUNCH_NAMES)."""
     dev, host, spans, launch_at, threads = {}, {}, {}, {}, {}
-    dev_events = []
+    dev_events, launch_events = [], []
     for e in events:
         if e.get("ph") != "X":
             continue
@@ -180,22 +181,31 @@ def trace_summary(events):
             h = host.setdefault(e["name"], [0, 0.0])
             h[0] += 1
             h[1] += us
-            launches += e["name"] in LAUNCH_NAMES
+            if e["name"] in LAUNCH_NAMES:
+                launches += 1
+                launch_events.append((key, e["ts"]))
         sp = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in evs
                     if e.get("cat") == "user_annotation" and e["name"].startswith("step."))
         for t0, t1, name in sp:
-            c = spans.setdefault(name, [0, 0.0, 0.0])
+            c = spans.setdefault(name, [0, 0.0, 0.0, 0])
             c[0] += 1
             c[1] += t1 - t0
         span_at[key] = (sp, [x[0] for x in sp])
-    for e in dev_events:
-        at = launch_at.get(e.get("args", {}).get("correlation"))
+
+    def enclosing(at):
+        """The spans around a host event at (thread, ts)."""
         if at is None or at[0] not in span_at:
-            continue
+            return []
         sp, starts = span_at[at[0]]
-        for t0, t1, name in sp[:bisect.bisect_right(starts, at[1])]:
-            if t0 <= at[1] <= t1:
-                spans[name][2] += e["dur"]
+        return [name for t0, t1, name in sp[:bisect.bisect_right(starts, at[1])]
+                if t0 <= at[1] <= t1]
+
+    for e in dev_events:
+        for name in enclosing(launch_at.get(e.get("args", {}).get("correlation"))):
+            spans[name][2] += e["dur"]
+    for at in launch_events:
+        for name in enclosing(at):
+            spans[name][3] += 1
     return dev, host, spans, launches
 
 
@@ -244,8 +254,8 @@ def profile_phase(step, st, feeds, start, n, out_name, log=log):
     device_ms = sum(us for _, us in dev.values()) / 1e3
     kernels = sum(c for c, _ in dev.values())
     graph_launches = sum(host.get(k, [0])[0] for k in GRAPH_LAUNCH_NAMES)
-    spans = {k: dict(host_ms=h / 1e3 / n, device_ms=d / 1e3 / n, calls=c / n)
-             for k, (c, h, d) in span_us.items()}
+    spans = {k: dict(host_ms=h / 1e3 / n, device_ms=d / 1e3 / n, calls=c / n,
+                     launches=la / n) for k, (c, h, d, la) in span_us.items()}
     top_dev = sorted(dev.items(), key=lambda kv: -kv[1][1])
     top_cpu = sorted(host.items(), key=lambda kv: -kv[1][1])
     with open(os.path.join(OUT_DIR, out_name), "w") as fh:

@@ -55,6 +55,41 @@ alone. `Segments.run(key, fn, *trees)` runs one:
   `fn(*trees)` and nothing else, so a step composes its frame of the same
   segments either way.
 
+`Segments.scan(key, body, carry, xs, length, consts)` is the counterpart
+of the reference's `lax.scan` for the loops that run outside any segment
+(the VIO init's, the closing pass's BAs and essential graph): on CUDA the
+first step of a key and carry layout captures `body(carry, x_k, *consts)`
+as one graph (after the key's warm-up), and every step replays it. The
+carry stays in the graph's static buffers: after a replay one device copy
+moves its outputs into the inputs of the next step's graph (the same
+graph, or the one of the outputs' layout when it differs from the
+initial carry's: the plain loop's first step sees the caller's layout,
+its later steps the body's), together with step k's slice of `xs`;
+nothing is copied out until the loop ends. `scan_steps` counts the
+replays, each in a span `step.graph.scan.<name>`. Its rules:
+
+- Nesting: inside a segment (its warm-up, capture or CPU plain form) or
+  any stream capture, with `graphs=False`, and so in a fleet's `one`
+  step, `scan` runs the plain loop (`plain_scan`, the loops' default),
+  which the outer capture records as it records any code. Graphs are
+  never nested. On the CPU with graphs on, the steps run the plain form
+  of a capture, as `run` does.
+- Trap 1, the closure: a body may close over Python values only, and
+  those belong in its key; every tensor it reads comes through `carry`,
+  `xs` or `consts`. The constants are copied into static buffers (shared
+  by the key's graphs) at every call, so a graph never reads a tensor of
+  an earlier call (which would be freed memory on the card, and a stale
+  value in the CPU's plain form, which replays the first call's body). A
+  body writes none of its inputs in place.
+- Trap 2, the step slice's layout: `xs` is scanned along its first
+  dimension. A slice of a step-minor window (`omegas[..., k, :]` of
+  [K, T, 3] sits at 12k bytes, its 16-byte alignment cycling through four
+  values) would otherwise need one graph per alignment. `scan` instead
+  makes one contiguous step-major copy of `xs` per call and copies step
+  k's slice into one static slice. A body's first operation on its slice
+  must be elementwise (the preintegration subtracts the bias), which
+  rounds alike whatever the layout, so the bits stay the plain loop's.
+
 The single-stream steps (`VipStep`, `MonoStep`) and the fleet steps
 (`VipFleetStep`, `MonoFleetStep`, through `device_tracker.Fleet`) each
 own one `Segments`, so one memory pool per step. A fleet's segment takes
@@ -200,12 +235,14 @@ class _Graph:
     counters: list           # the COUNTERS at the capture
     delta: tuple             # their change during the capture
     graph: object = None     # torch.cuda.CUDAGraph (None on the CPU)
+    then: tuple = None       # a scan step's graph: the spec of the next step's
 
 
 class Segments:
     """The graphs of one step, one per key and input layout (see the
     module docstring): `graphs` maps (key, layout) to a graph, `keys` the
-    keys met. With `graphs=False`, `run` calls the function."""
+    keys met. With `graphs=False`, `run` calls the function and `scan`
+    runs its plain loop."""
 
     def __init__(self, device, graphs: bool = True):
         self.device = torch.device(device)
@@ -214,10 +251,13 @@ class Segments:
         self.graphs: dict = {}
         self.captures = 0
         self.replays = 0
+        self.scan_steps = 0
         self.capture_seconds = 0.0
         self._stream = None
         self._pool = None
         self._warm: set = set()         # keys warmed up on the side stream
+        self._scan_in: dict = {}        # a scan's static step slice and constants
+        self._inside = 0                # > 0 while a segment's or a step's code runs
 
     @property
     def keys(self) -> set:
@@ -241,21 +281,118 @@ class Segments:
         g = self.graphs.get(spec)
         captured = g is None
         if captured:
-            g = self._capture(spec, fn, trees, flat)
-        return self._replay(key, g, flat, run_plain=not captured)
+            static_in = [_like(t, self.device) for t in flat]
+            _copy(static_in, flat)
+            g = self._capture(spec, fn, static_in, _rebuild(trees, static_in))
+        try:
+            _copy(g.static_in, flat)
+            self._launch(f"step.graph.{key[0]}", g, run_plain=not captured)
+            fresh = [_like(t, self.device) for t in g.static_new]
+            _copy(fresh, g.static_new)
+        except Exception as e:
+            raise SegmentError(f"segment {key!r}: replay failed: {e}") from e
+        self.replays += 1
+        return _rebuild(g.out, [flat[j] if kind == "in" else fresh[j] for kind, j in g.source])
+
+    def scan(self, key: tuple, body, carry, xs=None, length: int | None = None, consts=(),
+             ys: bool = False):
+        """`lax.scan(body, carry, xs, length)` with tensor constants: step k
+        is carry = body(carry, x_k, *consts), x_k the k-th entry of each
+        leaf of `xs` along its first dimension (None without `xs`).
+        Returns the final carry; with `ys` the body returns (carry, y)
+        and the scan (carry, the y's stacked along a new first dimension).
+        Outside any segment, with graphs on, each step replays the graph
+        of `key` and the carry's layout (see the module docstring; on the
+        CPU its plain form); inside a segment or a capture and with
+        `graphs=False` the steps are the plain loop's."""
+        if not self.enabled or self._inside or (self.cuda
+                                                and torch.cuda.is_current_stream_capturing()):
+            return plain_scan(key, body, carry, xs, length, consts, ys)
+        n = _n_steps(xs, length)
+        if n == 0:
+            return plain_scan(key, body, carry, xs, length, consts, ys)
+        skey = ("scan",) + tuple(key)
+        span = f"step.graph.scan.{key[0]}"
+        # trap 2: xs step-major and contiguous, copied once, so that every
+        # step's slice has one layout, that of the static slice
+        xs_c = _map(lambda t: t.contiguous(), xs)
+        fixed = (_map(lambda t: t[0], xs_c), consts)
+        flat_fixed = _leaves(fixed)
+        n_x = len(_leaves(fixed[0]))
+        fspec = (skey, tuple(_layout(t) for t in flat_fixed))
+        shared = self._scan_in.get(fspec)
+        if shared is None:
+            shared = self._scan_in[fspec] = [_like(t, self.device) for t in flat_fixed]
+        src = _leaves(carry)
+        spec = (skey, (tuple(_layout(t) for t in src), fspec[1]))
+        out_ys = []
+        try:
+            # trap 1: the constants are copied in at every call
+            _copy(shared, flat_fixed)
+            for k in range(n):
+                dst, srcs = [], []
+                if k > 0:       # step 0's slice came in with the constants
+                    dst += shared[:n_x]
+                    srcs += _leaves(_map(lambda t, k=k: t[k], xs_c))
+                g = self.graphs.get(spec)
+                captured = g is None
+                if captured:
+                    _copy(dst, srcs)
+                    dst, srcs = [], []
+                    static_c = [_like(t, self.device) for t in src]
+                    _copy(static_c, src)
+                    g = self._capture(spec, lambda c, x, k_: body(c, x, *k_),
+                                      static_c + shared,
+                                      (_rebuild(carry, static_c),) + _rebuild(fixed, shared))
+                    g.then = self._scan_then(spec, g, len(src), ys)
+                else:
+                    for d, t in zip(g.static_in, src):
+                        if d is not t:
+                            dst.append(d)
+                            srcs.append(t)
+                _copy(dst, srcs)
+                self._launch(span, g, run_plain=not captured)
+                self.scan_steps += 1
+                out = [g.static_in[j] if kind == "in" else g.static_new[j]
+                       for kind, j in g.source]
+                src, spec = out[:len(src)], g.then
+                if ys:
+                    fresh = [_like(t, self.device) for t in out[len(src):]]
+                    _copy(fresh, out[len(src):])
+                    out_ys.append(_rebuild(g.out[1], fresh))
+            fresh = [_like(t, self.device) for t in src]
+            _copy(fresh, src)
+        except SegmentError:
+            raise
+        except Exception as e:
+            raise SegmentError(f"scan {key!r}: replay failed: {e}") from e
+        last = _rebuild(g.out[0] if ys else g.out, fresh)
+        return (last, _stack(out_ys)) if ys else last
 
     # ------------------------------------------------------------------
-    def _capture(self, spec, fn, trees, flat) -> _Graph:
+    def _scan_then(self, spec, g: _Graph, n_carry: int, ys: bool) -> tuple:
+        """The spec of the graph that takes this one's carry on: the layout
+        of its carry outputs (the plain loop's next step sees them so)."""
+        if ys and not (isinstance(g.out, tuple) and len(g.out) == 2):
+            raise SegmentError(f"scan {spec[0][1:]!r}: the body returns no (carry, y) pair")
+        out = [g.static_in[j] if kind == "in" else g.static_new[j] for kind, j in g.source]
+        n_out = len(_leaves(g.out[0] if ys else g.out))
+        if n_out != n_carry:
+            raise SegmentError(f"scan {spec[0][1:]!r}: the body returns {n_out} carry leaves "
+                               f"for {n_carry}")
+        return (spec[0], (tuple(_layout(t) for t in out[:n_carry]), spec[1][1]))
+
+    def _capture(self, spec, fn, static_in, static_trees) -> _Graph:
+        """fn captured over the static input buffers `static_in` (the
+        leaves of `static_trees`, which fn takes)."""
         t0 = time.perf_counter()
         key = spec[0]
-        if _has_generator(trees):
+        if _has_generator(static_trees):
             raise SegmentError(f"segment {key!r}: a torch.Generator in its inputs (a segment "
                                f"draws nothing)")
-        static_in = [_like(t, self.device) for t in flat]
-        static_trees = _rebuild(trees, static_in)
-        _copy(static_in, flat)
         counters = list(COUNTERS)
         before = _counters(counters)
+        self._inside += 1
         try:
             if self.cuda:
                 graph, out, delta = self._cuda_capture(key, fn, static_trees, counters)
@@ -268,6 +405,7 @@ class Segments:
             self._pool = None
             raise SegmentError(f"segment {key!r}: capture failed: {e}") from e
         finally:
+            self._inside -= 1
             _set_counters(counters, before)
         ids = {id(t): j for j, t in enumerate(static_in)}
         source, static_new, at = [], [], {}
@@ -324,30 +462,51 @@ class Segments:
         delta = tuple(a - b for a, b in zip(_counters(counters), mid))
         return graph, out, delta
 
-    def _replay(self, key, g: _Graph, flat, run_plain: bool = True):
-        """`run_plain=False` right after a CPU capture, whose call left
-        this call's results in the static outputs already."""
-        try:
-            _copy(g.static_in, flat)
-            with record_function(f"step.graph.{key[0]}"):
-                if g.graph is not None:
-                    g.graph.replay()
-                elif run_plain:
-                    # what the plain form's call counts is replaced by
-                    # the capture's change, as a replay counts
-                    counters = list(dict.fromkeys(COUNTERS + g.counters))
-                    before = _counters(counters)
-                    try:
-                        res = _leaves(g.fn(*g.static_trees))
-                    finally:
-                        _set_counters(counters, before)
-                    _copy([g.static_new[k] for kind, k in g.source if kind == "new"],
-                          [r for (kind, _), r in zip(g.source, res) if kind == "new"])
-            fresh = [_like(t, self.device) for t in g.static_new]
-            _copy(fresh, g.static_new)
-        except Exception as e:
-            raise SegmentError(f"segment {key!r}: replay failed: {e}") from e
+    def _launch(self, span: str, g: _Graph, run_plain: bool = True):
+        """One replay of g over its static inputs, in a span `span`, and
+        the counters advanced by its capture's change. `run_plain=False`
+        right after a CPU capture, whose call left this call's results in
+        the static outputs already."""
+        with record_function(span):
+            if g.graph is not None:
+                g.graph.replay()
+            elif run_plain:
+                # what the plain form's call counts is replaced by the
+                # capture's change, as a replay counts
+                counters = list(dict.fromkeys(COUNTERS + g.counters))
+                before = _counters(counters)
+                self._inside += 1
+                try:
+                    res = _leaves(g.fn(*g.static_trees))
+                finally:
+                    self._inside -= 1
+                    _set_counters(counters, before)
+                _copy([g.static_new[k] for kind, k in g.source if kind == "new"],
+                      [r for (kind, _), r in zip(g.source, res) if kind == "new"])
         _set_counters(g.counters, tuple(a + d for a, d in zip(_counters(g.counters), g.delta)))
-        self.replays += 1
-        return _rebuild(g.out, [flat[j] if kind == "in" else fresh[j]
-                                for kind, j in g.source])
+
+
+def _n_steps(xs, length) -> int:
+    if xs is None:
+        return int(length)
+    return _leaves(xs)[0].shape[0]
+
+
+def _stack(ys: list):
+    """Per-step trees stacked leaf by leaf along a new first dimension."""
+    flat = [_leaves(y) for y in ys]
+    return _rebuild(ys[0], [torch.stack(col) for col in zip(*flat)])
+
+
+def plain_scan(key, body, carry, xs=None, length: int | None = None, consts=(),
+               ys: bool = False):
+    """`Segments.scan`'s plain loop, with its arguments (the port's loops
+    run it by default; `key` is unused): step k is body(carry, x_k,
+    *consts), x_k each leaf of `xs` indexed at k along its first
+    dimension."""
+    out_ys = []
+    for k in range(_n_steps(xs, length)):
+        out = body(carry, None if xs is None else _map(lambda t: t[k], xs), *consts)
+        carry, y = out if ys else (out, None)
+        out_ys.append(y)
+    return (carry, _stack(out_ys) if out_ys else None) if ys else carry

@@ -8,7 +8,9 @@ keyframe triplets and its |g|-constrained refinements, velocity recovery
 and the strided virtual keyframes of the init solves. Every solve is a
 masked fixed-shape least squares; the small systems go through
 `torch.linalg.solve_ex`, whose error flag stays on the device (no host
-synchronization).
+synchronization). The gyro bias's iterations, the reference's `lax.scan`,
+run through a `scan` argument (`utils.graphs.Segments.scan`; by default
+the plain loop).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from uvipslam_torch.core import lie
 from uvipslam_torch.core.lie import mm, mv
 from uvipslam_torch.solver.factors import gyro_bias_edge
+from uvipslam_torch.utils.graphs import plain_scan
 
 GRAVITY = 9.810
 
@@ -35,22 +38,28 @@ def _vec(like, *vals):
     return torch.stack([torch.full((), v, dtype=like.dtype, device=like.device) for v in vals])
 
 
-def estimate_gyro_bias(kf_R_wb, pre_dR, pre_J_R_bg, pair_mask, n_iters: int = 5):
+def _gyro_bias_body(bg, _, R_i, kf_R_wb, pre_dR, pre_J_R_bg, w):
+    """One Gauss-Newton iteration of the gyro bias."""
+    r, J = gyro_bias_edge(R_i, kf_R_wb, pre_dR, pre_J_R_bg, bg)
+    Jw = J * w[:, None, None]
+    H = torch.einsum("kmi,kmj->ij", Jw, J)
+    g = torch.einsum("kmi,km->i", Jw, r)
+    return bg + _solve(H + 1e-8 * _eye(3, bg), -g)
+
+
+def estimate_gyro_bias(kf_R_wb, pre_dR, pre_J_R_bg, pair_mask, n_iters: int = 5, scan=None):
     """Gauss-Newton for the 3-dof gyro bias over consecutive keyframe
-    pairs; slot k holds the preintegration from keyframe k-1 to k."""
+    pairs; slot k holds the preintegration from keyframe k-1 to k. `scan`
+    runs the iterations (`utils.graphs.Segments.scan`; the plain loop when
+    None)."""
     R_i = torch.roll(kf_R_wb, 1, dims=0)
     # zero-dt preintegrations (the two bootstrap keyframes) carry nothing
     tr = torch.diagonal(pre_dR, dim1=-2, dim2=-1).sum(-1)
     w = (pair_mask & (torch.abs(tr - 3.0) + torch.sum(torch.abs(pre_J_R_bg), (-2, -1)) > 1e-9)
          ).to(kf_R_wb.dtype)
     bg = torch.zeros(3, dtype=kf_R_wb.dtype, device=kf_R_wb.device)
-    for _ in range(n_iters):
-        r, J = gyro_bias_edge(R_i, kf_R_wb, pre_dR, pre_J_R_bg, bg)
-        Jw = J * w[:, None, None]
-        H = torch.einsum("kmi,kmj->ij", Jw, J)
-        g = torch.einsum("kmi,km->i", Jw, r)
-        bg = bg + _solve(H + 1e-8 * _eye(3, bg), -g)
-    return bg
+    return (scan or plain_scan)(("gyro_bias",), _gyro_bias_body, bg, length=n_iters,
+                                consts=(R_i, kf_R_wb, pre_dR, pre_J_R_bg, w))
 
 
 def gravity_from_accel_average(acc_samples, mask):
