@@ -112,7 +112,13 @@ result):
      the eager frames; captures, their seconds and replays per batched
      frame; on the profiled frame per form the ms, host launch calls,
      device kernels and the device's busy share; host reads and peak
-     memory;
+     memory with the graphs' memory split (`graph_memory`). The VIO-init
+     frames (those whose loops ran through the fleet's lifted scans, all
+     before the profile frame, so held bit for bit with the rest) with
+     their ms in the graphed replay (a synchronize after each frame) and
+     eager, captures and scan steps; the largest group's again from the
+     eager state before it, graphed and timed, and with `--only` under
+     torch.profiler split by span in both forms;
  13. batched replay of the mono step (`batched_replay`, graphed): 4
      streams, 40 frames, 512x640, phase 5's settings: more than half the
      streams WORKING on >= 60% of frames with >= 3 keyframes and
@@ -180,7 +186,10 @@ result):
      centre within 0.15 of that keyframe's (the reference's
      tests/test_device_vip.py:91-148); (c) from phase 9's state after
      frame 35, one frame whose VI solve is made to fail: the first-try lane's
-     solve reaches `reloc_min`, WORKING, the forced keyframe made. Each
+     solve reaches `reloc_min`, WORKING, the forced keyframe made (lane 1
+     holding), and with the lane's gate raised past any count IMU_RELOC
+     (lane 1 failing); each graphed (a capturing call, a replay) bit for
+     bit equal to `graphs=False`, with ms of the three. Each
      with exactly the launches its frames' branches imply, ms by branch,
      host reads and peak memory;
  19. the fleets' per-stream loops: `VipFleetStep` over 2 streams, 70
@@ -220,18 +229,20 @@ result):
      device ms), graphed from a fresh graphed run and eager from the
      eager run's states (the eager VIO-init frame only under `--only
      graphs`: its ~2.7M-event trace takes ~30 s to read); the graphs per
-     key of the new keys (D, E and R before VIO init, the scans).
+     key of the new keys (D, E and R before VIO init, the scans); the
+     graphed steps' memory split (`graph_memory`).
 
 Every phase before 21 runs the steps' and fleets' default: on the card
 the WORKING frames and the fleets' batched frames replay captured CUDA
-graphs, and so do the loops of the single step's VIO init and of the
-streams' closing passes (`Segments.scan`, one graph per iteration). A replay runs no Python, so on a graphed frame the launch
+graphs, and so do the loops of the VIO init (the fleets' lifted over
+the stream axis) and of the streams' closing passes (`Segments.scan`,
+one graph per iteration). A replay runs no Python, so on a graphed frame the launch
 counters move by each graph's captured launches per replay; phases 7, 9,
 12, 13 and 21 hold that count against the profiler trace's kernel
 records of their profiled frame (`hold_trace`: the same launches of each
-hand kernel, no capture in the window). Phase 18c alone runs an eager
-step (its forced failure patches a function inside a captured segment
-with a host read).
+hand kernel, no capture in the window). Phase 18c runs lane 1 in both
+forms (its forced failure patches the step's lane 0 with a capturable
+zeroing of its inliers).
 
 Every path's launch counts are read from zero just before it and just
 after it, and no main path may take the wide refinement route
@@ -1151,6 +1162,7 @@ def stream_vip_phase(torch, np, tklt, dev, smi, seq):
         bundles)
     launches = read_launches(tklt)
     peak = torch.cuda.max_memory_allocated()
+    memory = graph_memory(torch, ds.step.segments)
 
     states_a = np.asarray(states)
     vios_a = np.asarray(vios)
@@ -1176,6 +1188,7 @@ def stream_vip_phase(torch, np, tklt, dev, smi, seq):
         f"{f' (expected {expect})' if expect is not None else ''}, peak allocated "
         f"{peak / 2**20:.1f} MiB")
     log(f"  states {''.join(str(s) for s in states)}")
+    log(f"  the stream's graphs after the run: {fmt_memory(memory)}")
     passes = log_passes(ds, n)
     ate_split = None
     if ds.loop_events:
@@ -1254,7 +1267,7 @@ def stream_vip_phase(torch, np, tklt, dev, smi, seq):
     record = {"n_frames": n, "vio_init_frame": init_f, "frames_working": int(working.sum()),
               "ate_metric_m": ate, "ate_threshold_m": 0.05 * extent,
               "ate_before_and_from_first_closure_m": ate_split, "loops_closed": lc.n_closed, "median_ms_per_frame": statistics.median(frame_ms[2:]),
-              "peak_allocated_bytes": peak, "passes": passes,
+              "peak_allocated_bytes": peak, "graph_memory": memory, "passes": passes,
               "navstate_ba": {"card_ms": ms_card, "card_scanned": scanned, "cpu_ms": ms_cpu,
                               "max_abs_diff_m": diff,
                               "bound_m": NAVSTATE_BA_TOL * extent, "cost_card": cost_card,
@@ -1497,6 +1510,40 @@ def drive_fleet(torch, run, states0, feeds):
     return outs, fleet, time.perf_counter() - t0, run.step
 
 
+class FrameClock:
+    """While active, every call of the fleet step class `cls` (as a
+    replay's `run` makes them) is timed to a synchronize after it, with
+    the step's captures, capture seconds, replays and scan steps over the
+    call: the per-frame record of a whole replay (the synchronize after
+    each frame is the clock's own)."""
+
+    def __init__(self, torch, cls):
+        self.torch, self.cls, self.frames = torch, cls, []
+
+    def __enter__(self):
+        real, torch, frames = self.cls.__call__, self.torch, self.frames
+
+        def timed(step, *a, **kw):
+            seg = step.segments
+            before = (seg.captures, seg.capture_seconds, seg.replays, seg.scan_steps)
+            t0 = time.perf_counter()
+            out = real(step, *a, **kw)
+            torch.cuda.synchronize()
+            frames.append(dict(ms=(time.perf_counter() - t0) * 1e3, **{
+                k: v - b for k, v, b in zip(("captures", "capture_seconds", "replays",
+                                             "scan_steps"),
+                                            (seg.captures, seg.capture_seconds, seg.replays,
+                                             seg.scan_steps), before)}))
+            return out
+
+        self.real = real
+        self.cls.__call__ = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__call__ = self.real
+
+
 class FleetCall:
     """A fleet step with its streams' generators, called as a single step
     is (`step(st, feed)`) so that `chiptime.profile_phase` drives it;
@@ -1512,7 +1559,7 @@ class FleetCall:
 
 
 def fleet_against_eager(torch, tklt, dev, name, graphed, eager, states0, frames, outs, start, n,
-                        expect):
+                        expect, vio_frames=(), eager_vio_split=False):
     """Phases 12-13: the graphed replay (its fleet step `graphed`, its
     outputs `outs` with leaves [S, T, ...]) against the eager fleet step
     `eager` (graphs=False). The eager step goes frame by frame over frames
@@ -1527,6 +1574,11 @@ def fleet_against_eager(torch, tklt, dev, name, graphed, eager, states0, frames,
     torch.profiler; the two forms' outputs and whole fleet states after
     the frame bit for bit equal, with the same host reads and hand-kernel
     launches, each profile's trace held to the counters (`hold_trace`).
+    `vio_frames` (the replay's frames that ran the VIO init, all before
+    `start`, the one to rerun first): it again from the eager state before it,
+    graphed and timed (any capture falls here), and with
+    `eager_vio_split` under the profiler split by span (`frame_split`) in
+    both forms (traces of ~0.9M and ~4.9M events, read in ~30 and ~65 s).
     Returns the record."""
     from uvipslam_torch.core.tree import tree_map
     from uvipslam_torch.parallel.replay import stream_generators
@@ -1539,9 +1591,12 @@ def fleet_against_eager(torch, tklt, dev, name, graphed, eager, states0, frames,
     torch.cuda.reset_peak_memory_stats()
     reset_launches(tklt)
     st, ms, differ, st_prof, gen_states = states0, [], [], None, None
+    f_vio = vio_frames[0] if vio_frames else None
     for f in range(n):
         if f == start:
             st_prof, gen_states = st, [g.get_state() for g in gens]
+        if f == f_vio:
+            st_vio, gen_vio = st, [g.get_state() for g in gens]
         t1 = time.perf_counter()
         st, o = eager(st, frames[f], gens)
         torch.cuda.synchronize()
@@ -1598,13 +1653,38 @@ def fleet_against_eager(torch, tklt, dev, name, graphed, eager, states0, frames,
     if fails:
         raise AssertionError(f"{name} fleet graphed vs eager: " + "; ".join(fails))
     del st_prof
+    vio = None
+    if f_vio is not None:
+        vio = dict(frame=f_vio, eager_ms=ms[f_vio])
+        for form, step in (("graphed", graphed), ("eager", eager)):
+            for timed in ((True, False) if form == "graphed" else (False,)):
+                if not timed and not eager_vio_split:
+                    continue
+                for gen, state in zip(gens, gen_vio):
+                    gen.set_state(state)
+                call = FleetCall(step, gens)
+                if timed:
+                    c0, s0 = step.segments.captures, step.segments.scan_steps
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    call(st_vio, frames[f_vio])
+                    torch.cuda.synchronize()
+                    vio["graphed_again_ms"] = (time.perf_counter() - t1) * 1e3
+                    vio["graphed_again_captures"] = step.segments.captures - c0
+                    vio["graphed_again_scan_steps"] = step.segments.scan_steps - s0
+                else:
+                    log(f"phase {name} fleet split, {form}, the VIO-init frame {f_vio}:")
+                    vio[f"{form}_split"] = frame_split(
+                        torch, call, st_vio, frames[f_vio],
+                        f"split_fleet_{name}_{form}_{f_vio}.txt")[1]
+        del st_vio
     rec = dict(frames_compared=n, differing_frames=differ, profile_frame=start,
                eager_ms_per_batched_frame=sum(ms) / n, eager_frame_ms=ms,
                eager_host_reads=syncs, eager_launches=launches, eager_peak_above_start=peak,
                graphed_frame_ms=g_ms, graphed_frame_median_ms=statistics.median(g_ms),
                eager_frame_ms_profile_frame=ms[start], captures_at_profile_frame=warm_captures,
                frame_host_reads=g["reads"], frame_launches=g["counted"],
-               profile={"graphed": g["profile"], "eager": e["profile"]})
+               profile={"graphed": g["profile"], "eager": e["profile"]}, vio_init=vio)
     for form, r, fms in (("graphed", g, rec["graphed_frame_median_ms"]),
                          ("eager", e, ms[start])):
         p = r["profile"]
@@ -1620,16 +1700,26 @@ def fleet_against_eager(torch, tklt, dev, name, graphed, eager, states0, frames,
         f"{expect}); eager {sum(ms) / n:.1f} ms per batched "
         f"frame over its {n} frames, peak allocated {peak / 2**20:.1f} MiB above its start; "
         f"{warm_captures} captures on the graphed step's first call of frame {start}")
+    if vio is not None:
+        log(f"  the VIO-init frame {f_vio} again from the eager state before it, graphed: "
+            f"{vio['graphed_again_ms']:.1f} ms ({vio['graphed_again_captures']} captures, "
+            f"{vio['graphed_again_scan_steps']} scan steps); eager in the comparison "
+            f"{vio['eager_ms']:.1f} ms")
+        for form in ("graphed", "eager"):
+            if f"{form}_split" in vio:
+                log(f"  VIO-init frame {f_vio}, {form}: {fmt_split(vio[f'{form}_split'])}")
     return rec
 
 
-def fleet_vip_phase(torch, np, tklt, dev, smi, single, seqs):
+def fleet_vip_phase(torch, np, tklt, dev, smi, single, seqs, eager_vio_split=False):
     """Phase 12: `batched_replay_vip`, 8 streams over 8 distinct scenes at
     full width, their first FLEET_FRAMES frames, graphed (the default),
     then held against the eager fleet up to the profile frame
-    (`fleet_against_eager`). `single` = phase 9's record (None on a
-    partial run); `seqs` = the 8 sequences. Returns (the record, the
-    launches, the fleet's outputs)."""
+    (`fleet_against_eager`), the replay's VIO-init frames (those whose
+    loops ran through the fleet's lifted scans) timed in both forms and
+    split by span graphed (eager too with `eager_vio_split`). `single` =
+    phase 9's record (None on a partial run); `seqs` = the 8 sequences.
+    Returns (the record, the launches, the fleet's outputs)."""
     from uvipslam_torch.core.tree import tree_map
     from uvipslam_torch.frontend.tracker import IMU_RELOC, LOST, WORKING
     from uvipslam_torch.frontend.device_vip import VipFleetStep
@@ -1645,9 +1735,11 @@ def fleet_vip_phase(torch, np, tklt, dev, smi, single, seqs):
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(tklt)
-    outs, fleet, secs, step = drive_fleet(torch, run, states0, feeds)
+    with FrameClock(torch, VipFleetStep) as clock:
+        outs, fleet, secs, step = drive_fleet(torch, run, states0, feeds)
     launches = read_launches(tklt)
     peak = torch.cuda.max_memory_allocated() - base
+    memory = graph_memory(torch, step.segments)
     syncs, seg = step.host_syncs, step.segments
     per_key = step.segments.graphs_per_key()
     states = outs.state.cpu().numpy()
@@ -1698,8 +1790,21 @@ def fleet_vip_phase(torch, np, tklt, dev, smi, single, seqs):
         f"tables); kernel launches {launches}"
         f"{f' (expected {expect})' if expect is not None else ''}; peak allocated "
         f"{peak / 2**20:.1f} MiB above the run's start")
+    log(f"  the fleet's graphs after the replay: {fmt_memory(memory)}")
+    vio_frames = [f for f, r in enumerate(clock.frames) if r["scan_steps"] > 0]
+    group = {}
+    for f in vio_frames:
+        r = clock.frames[f]
+        fired = [s for s in range(S) if vios[s, f] and (f == 0 or not vios[s, f - 1])]
+        group[f] = len(fired)
+        log(f"  VIO-init frame {f} of the graphed replay (streams {fired} initialized): "
+            f"{r['ms']:.1f} ms with {r['captures']} captures ({r['capture_seconds']:.2f} s) and "
+            f"{r['scan_steps']} scan steps")
     if n_vio <= S / 2 or n_ate <= S / 2:
         raise AssertionError(f"VIP fleet: {n_vio}/{S} initialized VIO, {n_ate}/{S} below 12%")
+    if not vio_frames or vio_frames[-1] >= start:
+        raise AssertionError(f"VIP fleet: the VIO init's loops ran on frames {vio_frames}, not "
+                             f"all before the profile frame {start}")
     if max(per_key.values()) > FLEET_LAYOUT_BOUND:
         raise AssertionError(f"VIP fleet: {max(per_key.values())} layouts captured for one key")
     if min(launches.values()) <= 0 or (expect is not None and launches != expect):
@@ -1711,7 +1816,14 @@ def fleet_vip_phase(torch, np, tklt, dev, smi, single, seqs):
         torch, tklt, dev, "VIP", step, VipFleetStep(cam, cfg, 64, device=dev, graphs=False),
         states0, frames, outs, start, start + 1,
         expected_launches_fleet(states[:, :start + 1].tolist(), orb_levels(512, 640), vip=True)
-        if clean else None)
+        if clean else None, sorted(vio_frames, key=lambda f: -group[f]), eager_vio_split)
+    cmp["graphed_replay_frames"] = clock.frames
+    n_cmp = start + 1
+    g_cmp = sum(r["ms"] for r in clock.frames[:n_cmp]) / n_cmp
+    log(f"  frames 0-{start}: graphed replay {g_cmp:.1f} ms per batched frame, eager "
+        f"{cmp['eager_ms_per_batched_frame']:.1f}; VIO-init frames (graphed replay / eager): "
+        + ", ".join(f"{f}: {clock.frames[f]['ms']:.1f} / {cmp['eager_frame_ms'][f]:.1f} ms"
+                    for f in vio_frames))
     del frames, states0
     # the fleet's device kernels per frame against a single stream's (on a
     # partial run, a keyframe-free VI frame as phase 9 of a whole run of
@@ -1736,6 +1848,7 @@ def fleet_vip_phase(torch, np, tklt, dev, smi, single, seqs):
               "captures": seg.captures, "capture_seconds": seg.capture_seconds,
               "keys": len(per_key), "replays_per_batched_frame": seg.replays / T,
               "host_reads_per_batched_frame": syncs / T, "peak_above_start_bytes": peak,
+              "graph_memory": memory, "vio_init_frames": vio_frames,
               "against_eager": cmp, "card": smi}
     return record, launches, outs
 
@@ -2514,26 +2627,30 @@ def seeded_generators(torch, dev, n):
 
 
 class FirstTryLog:
-    """While active, records each call of a `VipStep`'s first-try lane
-    (`_vi_lane1`, run when the VI solve fails) as (frame, the label it
-    returned); the caller sets `frame` before each step."""
+    """While active, records each run of a `VipStep`'s first-try lane
+    (lane 1, run when the VI solve fails) as (frame, the label it gives:
+    WORKING when its solve holds, else IMU_RELOC), from the lane's one
+    host read (`_lane1_holds`); the caller sets `frame` before each
+    step."""
 
     def __init__(self, step):
         self.step, self.frame, self.calls = step, -1, []
 
     def __enter__(self):
-        real = self.step._vi_lane1
+        from uvipslam_torch.frontend.tracker import IMU_RELOC, WORKING
 
-        def lane1(*a, **kw):
-            out = real(*a, **kw)
-            self.calls.append((self.frame, out[1]))
+        real = self.step._lane1_holds
+
+        def holds(flag):
+            out = real(flag)
+            self.calls.append((self.frame, WORKING if out else IMU_RELOC))
             return out
 
-        self.step._vi_lane1 = lane1
+        self.step._lane1_holds = holds
         return self
 
     def __exit__(self, *exc):
-        del self.step._vi_lane1
+        del self.step._lane1_holds
 
 
 def drive_vip_rare(torch, new_tracker, feeds, first=0, keep=(), keep_on=None, on_frame=None):
@@ -2619,8 +2736,9 @@ def vip_rare_phase(torch, np, tklt, dev, smi, seq, host_labels=None, prefix=None
     IMU_RELOC dead-reckons and re-anchors back to WORKING, behind phase
     15's gates; (b) a blackout before VIO init: LOST, then the
     relocalization against the last keyframe (the reference's
-    tests/test_device_vip.py:91-148); (c) the first-try lane holding on
-    a clean frame after VIO init when the VI solve is made to fail.
+    tests/test_device_vip.py:91-148); (c) the first-try lane holding and
+    failing on a clean frame after VIO init when the VI solve is made to
+    fail, graphed against eager.
     (a)'s frames before the blackout are phase 9's (the same inputs, the
     same seed): `prefix` = phase 9's (per-frame lists, kept states), run
     here when None; (a) drives frames RARE_BLACK[0] on from the kept
@@ -2629,7 +2747,6 @@ def vip_rare_phase(torch, np, tklt, dev, smi, seq, host_labels=None, prefix=None
     record, launches by path, (a)'s labels)."""
     import dataclasses
 
-    from uvipslam_torch.frontend import device_vip
     from uvipslam_torch.frontend.device_vip import VipStep, build_vip_tracker, make_bundles
     from uvipslam_torch.frontend.tracker import IMU_RELOC, LOST, WORKING
     from uvipslam_torch.io.synthetic import ate_rmse
@@ -2765,54 +2882,87 @@ def vip_rare_phase(torch, np, tklt, dev, smi, seq, host_labels=None, prefix=None
         raise AssertionError("VIP step pre-init blackout: " + "; ".join(fails))
     mark("vip_preinit_blackout")
 
-    # (c) the first-try lane holding: lane 0's inliers forced to zero for
-    # one frame, as tests/test_torch_vip.py::test_first_try_lane_forces_a_keyframe
+    # (c) lane 1 on a clean frame after VIO init, the VI solve made to fail
+    # for that frame (lane 0's inliers zeroed inside segment B, a patch of
+    # the step that its capture records), as
+    # tests/test_torch_vip.py::test_first_try_lane_forces_a_keyframe: the
+    # lane holding (a forced keyframe through segments L, C, D, E) and
+    # failing (its gate raised past any count: IMU_RELOC through segments
+    # L, I); each graphed (a first call that captures, a second that
+    # replays) against `graphs=False`, bit for bit
     f_c = FIRST_TRY_AFTER + 1
     if labels[FIRST_TRY_AFTER] != WORKING or not run["vios"][FIRST_TRY_AFTER]:
         raise AssertionError(f"frame {FIRST_TRY_AFTER} of (a) is no WORKING VI frame")
-    st_ft = clone_vip_state(torch, kept[FIRST_TRY_AFTER], dev)
-    n_kf0 = int(st_ft.map.n_kf)
-    # eager: the failure is forced by a patched `_vi_track` inside segment
-    # B, whose host read of the inliers no capture could take (lane 1 runs
-    # eagerly in both forms)
-    step_c = VipStep(cam, cfg, 64, device=dev, graphs=False)
-    calls = []
-    real = device_vip._vi_track
+    n_kf0 = int(kept[FIRST_TRY_AFTER].map.n_kf)
+    expect_c = expected_launches_vip([WORKING], n_levels, prev=WORKING)
+    lane1_rec, launches_c, fails = {}, None, []
+    for outcome, label in (("holds", WORKING), ("fails", IMU_RELOC)):
+        runs = {}
+        for graphs in (False, True):
+            step_c = VipStep(cam, cfg, 64, device=dev, graphs=graphs)
+            real = step_c._vi_lane0
 
-    def lane0_fails(tracks, *a):
-        out = real(tracks, *a)
-        calls.append(int(out[2]))
-        return out if len(calls) > 1 else out[:2] + (torch.zeros_like(out[2]),) + out[3:]
+            def lane0_fails(st_, b_, ns_pred, pre_frame, real=real, step_c=step_c):
+                out, (_, need) = real(st_, b_, ns_pred, pre_frame)
+                out = out[:2] + (torch.zeros_like(out[2]),) + out[3:]
+                return out, (out[2] >= step_c.cfg.min_tracked, need)
 
-    reset_launches(tklt)
-    device_vip._vi_track = lane0_fails
-    try:
-        with FirstTryLog(step_c) as lane1c:
-            lane1c.frame = f_c
-            t1 = time.perf_counter()
-            st_c, out_c = step_c(st_ft, bundles[f_c])
-            torch.cuda.synchronize()
-            ms_c = (time.perf_counter() - t1) * 1e3
-    finally:
-        device_vip._vi_track = real
-    launches_c = read_launches(tklt)
-    expect_c = expected_launches_vip([int(out_c.state)], n_levels, prev=WORKING)
-    log(f"phase VIP step rare branches (c) frame {f_c} from the state after frame "
-        f"{FIRST_TRY_AFTER}, the VI solve's inliers forced to 0: inliers of the two solves "
-        f"{calls} (the second on the first-try associations, gate {step_c.reloc_min}), state "
-        f"{int(out_c.state)}, new_kf {int(out_c.new_kf)} (keyframes before: {n_kf0}); "
-        f"{ms_c:.1f} ms, host reads {step_c.host_syncs}, kernel launches {launches_c} (expected "
-        f"{expect_c})")
-    fails = []
-    if len(calls) != 2 or calls[1] < step_c.reloc_min or lane1c.calls != [(f_c, WORKING)]:
-        fails.append(f"VI solves {calls}, first-try lane {lane1c.calls}")
-    if int(out_c.state) != WORKING or int(out_c.new_kf) != n_kf0:
-        fails.append(f"state {int(out_c.state)}, new_kf {int(out_c.new_kf)} (want {n_kf0})")
-    if min(launches_c.values()) <= 0 or launches_c != expect_c:
-        fails.append(f"kernel launches {launches_c}, expected {expect_c}")
+            step_c._vi_lane0 = lane0_fails
+            if outcome == "fails":
+                step_c.reloc_min = 1 << 30
+            calls = []
+            for _ in range(2 if graphs else 1):
+                st_in = clone_vip_state(torch, kept[FIRST_TRY_AFTER], dev)
+                reset_launches(tklt)
+                reads, c0 = step_c.host_syncs, step_c.segments.captures
+                with FirstTryLog(step_c) as lane1c:
+                    lane1c.frame = f_c
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    st_c, out_c = step_c(st_in, bundles[f_c])
+                    torch.cuda.synchronize()
+                calls.append(dict(ms=(time.perf_counter() - t1) * 1e3,
+                                  bits=(tree_bits(torch, out_c), tree_bits(torch, st_c)),
+                                  launches=read_launches(tklt), reads=step_c.host_syncs - reads,
+                                  captures=step_c.segments.captures - c0, lane1=lane1c.calls,
+                                  state=int(out_c.state), new_kf=int(out_c.new_kf)))
+                del st_in, st_c, out_c
+            runs[graphs] = (calls, step_c.segments.keys)
+        (eager,), _ = runs[False]
+        graphed, keys = runs[True]
+        want_kf = n_kf0 if outcome == "holds" else -1
+        want_keys = {("L",), ("C", True, True), ("D", True, cfg.map_hygiene), ("E", True)} \
+            if outcome == "holds" else {("L",), ("I",)}
+        same = [all(torch.equal(a, b) for a, b in zip(x["bits"], eager["bits"]))
+                for x in graphed]
+        lane1_rec[outcome] = dict(eager_ms=eager["ms"], graphed_first_ms=graphed[0]["ms"],
+                                  graphed_replay_ms=graphed[1]["ms"],
+                                  captures=[x["captures"] for x in graphed],
+                                  host_reads=eager["reads"], launches=eager["launches"],
+                                  state=eager["state"], new_kf=eager["new_kf"],
+                                  bitwise_equal=same)
+        launches_c = launches_c or eager["launches"]
+        log(f"phase VIP step rare branches (c) frame {f_c} from the state after frame "
+            f"{FIRST_TRY_AFTER}, the VI solve's inliers forced to 0, lane 1 {outcome}: state "
+            f"{eager['state']}, new_kf {eager['new_kf']} (keyframes before: {n_kf0}); eager "
+            f"{eager['ms']:.1f} ms, graphed {graphed[0]['ms']:.1f} ms on its first call "
+            f"({graphed[0]['captures']} captures), {graphed[1]['ms']:.1f} ms replayed "
+            f"({graphed[1]['captures']} captures); host reads {eager['reads']} / "
+            f"{[x['reads'] for x in graphed]}, kernel launches {eager['launches']} / "
+            f"{[x['launches'] for x in graphed]} eager / graphed (expected {expect_c}); "
+            f"graphed bit for bit equal to eager: {same}; segments met {sorted(keys)}")
+        for x in [eager] + graphed:
+            if x["lane1"] != [(f_c, label)] or x["state"] != label or x["new_kf"] != want_kf:
+                fails.append(f"{outcome}: first-try lane {x['lane1']}, state {x['state']}, "
+                             f"new_kf {x['new_kf']} (want {label}, {want_kf})")
+            if x["reads"] != eager["reads"] or x["launches"] != expect_c:
+                fails.append(f"{outcome}: host reads {x['reads']} (eager {eager['reads']}), "
+                             f"launches {x['launches']}, expected {expect_c}")
+        if not all(same) or not want_keys <= keys or graphed[1]["captures"]:
+            fails.append(f"{outcome}: graphed bit for bit {same}, segments {sorted(keys)}, "
+                         f"{graphed[1]['captures']} captures on the second call")
     if fails:
         raise AssertionError("VIP step first-try lane: " + "; ".join(fails))
-    del st_ft, st_c
     mark("vip_first_try")
     record = {"blackout": {"n_frames": n, "black": list(RARE_BLACK), "vio_init_frame": init_f,
                            "lane1_calls": lane1, "imu_reloc_frames": reloc,
@@ -2827,8 +2977,7 @@ def vip_rare_phase(torch, np, tklt, dev, smi, seq, host_labels=None, prefix=None
                                    "keyframe_frame": kf_frame, "frames_to_recover": n_rec,
                                    "centre_error": err_b, "ms_by_branch": by_b,
                                    "peak_allocated_bytes": peak_b},
-              "first_try": {"frame": f_c, "inliers": calls, "ms": ms_c,
-                            "new_kf": int(out_c.new_kf)},
+              "first_try": {"frame": f_c, "lane1": lane1_rec},
               "card": smi}
     return record, {"vip_blackout": launches_a, "vip_preinit_blackout": launches_b,
                     "vip_first_try": launches_c}, labels
@@ -3064,7 +3213,7 @@ class FrameRecord:
     VIO flag, keyframe slot and recovery-anchor flag (before the frame),
     and after it the step's host reads, the hand-kernel counters, the
     graph captures, replays and scan steps and the peak memory above the
-    run's start.
+    run's start; after the last, the graphs' memory (`graph_memory`).
     The run's `ms` and its profile are added after it."""
 
     def __init__(self, torch, tklt, n):
@@ -3072,7 +3221,7 @@ class FrameRecord:
         self.base = torch.cuda.memory_allocated()
         self.bits, self.labels, self.vios, self.new_kf, self.tally = [], [], [], [], []
         self.anchored = [False]
-        self.ms, self.profile, self.profile_frame = [], None, None
+        self.ms, self.profile, self.profile_frame, self.memory = [], None, None, None
 
     def __call__(self, step, st, out):
         if len(self.bits) >= self.n:
@@ -3089,6 +3238,32 @@ class FrameRecord:
                       "anchor_refine": tklt.refine_launches},
             captures=seg.captures, replays=seg.replays, capture_seconds=seg.capture_seconds,
             scan_steps=seg.scan_steps, peak=torch.cuda.max_memory_allocated() - self.base))
+        if len(self.bits) == self.n:
+            self.memory = graph_memory(torch, seg)
+
+
+def graph_memory(torch, seg):
+    """The split of what a step's graphs hold: `Segments.memory` (the
+    static-input pool, the scans' private carries, the static outputs,
+    and what one static copy per graph and per scan would have held), and
+    the bytes allocated and reserved in the step's CUDA graph memory pool,
+    which holds the static outputs and the captures' intermediates."""
+    mem = dict(seg.memory())
+    pool = tuple(seg._pool) if seg._pool is not None else None
+    pools = [s for s in torch.cuda.memory_snapshot()
+             if tuple(s.get("segment_pool_id", (0, 0))) == pool]
+    mem["graph_pool_allocated"] = sum(s.get("allocated_size", 0) for s in pools)
+    mem["graph_pool_reserved"] = sum(s.get("total_size", 0) for s in pools)
+    return mem
+
+
+def fmt_memory(mem):
+    mib = {k: v / 2**20 for k, v in mem.items()}
+    return (f"static-input pool {mib['static_in']:.1f} MiB (one copy per graph and scan: "
+            f"{mib['unpooled_in']:.1f} + {mib['unpooled_scan']:.1f} MiB of scan step slices "
+            f"and constants), scan carries {mib['carries']:.1f}, static outputs "
+            f"{mib['static_out']:.1f}; the graphs' memory pool {mib['graph_pool_allocated']:.1f} "
+            f"allocated / {mib['graph_pool_reserved']:.1f} reserved")
 
 
 def hold_trace(profile, what):
@@ -3397,6 +3572,9 @@ def graphs_phase(torch, np, tklt, dev, smi, vseq, mseq, graphed, eager_vio_split
                    if p else "; profile not read"))
         log(f"  states {rec['labels']}; outputs and states bit for bit equal on "
             f"{n - len(differ)}/{n} frames")
+        rec["graph_memory"] = g.memory
+        if g.memory is not None:
+            log(f"  the graphed step's memory after frame {n - 1}: {fmt_memory(g.memory)}")
         fails = []
         if name == "vip":
             rec["ms_by_branch"] = {form: ms_by_branch(branches, r["ms"])
@@ -3546,7 +3724,8 @@ def run_phases(torch, np, dev, smi, renders) -> int:
             stream_vip_phase(torch, np, tklt, dev, smi, renders.get("stream_vip"))
         if "fleet_vip" in only:
             _, _, fleet_outs = fleet_vip_phase(torch, np, tklt, dev, smi, None,
-                                               [renders.get(n) for n in FLEET_VIP_SEQS])
+                                               [renders.get(n) for n in FLEET_VIP_SEQS],
+                                               eager_vio_split=True)
         if "fleet_mono" in only:
             fleet_mono_phase(torch, np, tklt, dev, smi, None,
                              [renders.get(n) for n in FLEET_MONO_SEQS])

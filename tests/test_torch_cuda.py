@@ -802,3 +802,153 @@ def test_graphed_mono_fleet_equals_eager_on_card(cuda_device):
     _check_fleet_forms(res[False], res[None])
     seg = res[None]["step"].segments
     assert {"A", "B", "C"} <= {k[0] for k in seg.keys} and seg.replays > 2 * 14
+
+
+@pytest.fixture(scope="module")
+def card_vip_states():
+    """The VIP parity sequence at 120x160 through the eager single step on
+    the card: the step, the bundles, the state before the VIO-init frame
+    and the state one frame after it (the frame index it was kept at)."""
+    import dataclasses
+
+    from uvipslam_torch.frontend import device_vip
+    from uvipslam_torch.frontend.vip_tracker import VipConfig
+    from uvipslam_torch.io.synthetic import make_sequence
+    from uvipslam_torch.models.camera import CameraModel
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    seq = make_sequence(n_frames=40, H=120, W=160, n_points=800, seed=3, speed=1.2,
+                        gyr_noise=0.005, acc_noise=0.05, gyr_bias=(0.004, -0.006, 0.003),
+                        depth_noise=0.02, z_amp=0.5)
+    cfg = VipConfig(n_tracks=100, min_init_tracks=60, local_window=6, gyr_noise_sd=0.01,
+                    acc_noise_sd=0.1, depth_noise_sd=0.05, vio_init_min_kfs=5,
+                    vio_init_min_time=1.0, imu_cap_per_kf=256)
+    cam = CameraModel.create(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2], width=160,
+                             height=120)
+    st, step = device_vip.build_vip_tracker(cam, cfg, 16, 1024, device=dev, graphs=False)
+    bundles = device_vip.make_bundles(seq, device=dev)
+    pre = None
+    for f, b in enumerate(bundles):
+        before = st
+        st, out = step(st, b)
+        if pre is None and bool(out.vio_ok):
+            pre = dataclasses.replace(before, gen=None)
+        elif pre is not None:
+            return dict(step=step, bundles=bundles, pre_trigger=pre, post_init=st, post_frame=f)
+    pytest.fail("VIO never initialized on the parity sequence")
+
+
+@pytest.mark.cuda
+def test_fleet_vio_init_through_lifted_scans_on_card(card_vip_states):
+    """The fleet's VIO init on the card, the pre-trigger state stacked as
+    two streams: its loops replayed from graphs captured over the stream
+    axis (`Segments.lifted_scan`) equal the plain loops of the vmapped
+    bodies (`graphs=False`) bit for bit, twice (the second call replays
+    the first's graphs on fresh constants)."""
+    from uvipslam_torch.core.tree import over_streams, stack_streams
+    from uvipslam_torch.frontend import device_vip
+
+    step = card_vip_states["step"]
+    fleet_st = stack_streams([card_vip_states["pre_trigger"]] * 2)
+    eager = device_vip.VipFleetStep(step.cam, step.cfg, 16, device="cuda", graphs=False)
+    graphed = device_vip.VipFleetStep(step.cam, step.cfg, 16, device="cuda")
+    want = _bits(over_streams(eager.one._try_init_vio, fleet_st))
+    seg, counts = graphed.segments, []
+    for n in (1, 2):
+        assert torch.equal(_bits(over_streams(graphed.one._try_init_vio, fleet_st)), want), n
+        counts.append((seg.captures, seg.scan_steps))
+    assert eager.segments.scan_steps == 0 and counts[0][1] > 0
+    assert counts[1] == (counts[0][0], 2 * counts[0][1])      # the second call replays
+    assert {k[-1] for k in seg.keys} == {"streams"} and seg.captures == len(seg.graphs)
+
+
+def _lane1_frame(card_vip_states, graphs, fails):
+    """The frame after `post_init` with the VI solve's inliers zeroed
+    (inside segment B, so a capture records it), lane 1 holding, or
+    failing with its gate raised past any count: twice through one step
+    (graphed: a capture, then a replay). Returns per call (the output's
+    bits, the state's, the label, the new keyframe slot), and the step."""
+    import dataclasses
+
+    from uvipslam_torch.core.tree import tree_map
+    from uvipslam_torch.frontend import device_vip
+
+    src = card_vip_states["step"]
+    step = device_vip.VipStep(src.cam, src.cfg, 16, device="cuda", graphs=graphs)
+    real = step._vi_lane0
+
+    def lane0_fails(st, b, ns_pred, pre_frame):
+        out, (_, need) = real(st, b, ns_pred, pre_frame)
+        out = out[:2] + (torch.zeros_like(out[2]),) + out[3:]
+        return out, (out[2] >= step.cfg.min_tracked, need)
+
+    step._vi_lane0 = lane0_fails
+    if fails:
+        step.reloc_min = 1 << 30
+    post = card_vip_states["post_init"]
+    b = card_vip_states["bundles"][card_vip_states["post_frame"] + 1]
+    bits = []
+    for _ in range(2):
+        gen = torch.Generator(device="cuda")
+        gen.set_state(post.gen.get_state())
+        st, out = step(dataclasses.replace(tree_map(torch.clone, post), gen=gen), b)
+        bits.append((_bits(out), _bits(st), int(out.state), int(out.new_kf)))
+    return bits, step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fails", [False, True])
+def test_lane1_frame_graphed_equals_eager_on_card(card_vip_states, fails):
+    """A lane-1 frame on the card (the VI solve made to fail): graphed,
+    its capturing call and its replay give `graphs=False`'s output and
+    state bit for bit with the same host reads; holding it makes the
+    forced keyframe through segments L, C, D, E, failing it enters
+    IMU_RELOC through segments L and I."""
+    from uvipslam_torch.frontend.tracker import IMU_RELOC, WORKING
+
+    (e_bits, e_step), (g_bits, g_step) = (_lane1_frame(card_vip_states, g, fails)
+                                          for g in (False, True))
+    for x in e_bits + g_bits:
+        assert torch.equal(x[0], e_bits[0][0]) and torch.equal(x[1], e_bits[0][1])
+    assert e_step.host_syncs == g_step.host_syncs
+    n_kf = int(card_vip_states["post_init"].map.n_kf)
+    assert e_bits[0][2:] == ((IMU_RELOC, -1) if fails else (WORKING, n_kf))
+    keys = g_step.segments.keys
+    assert ({("L",), ("I",)} if fails else {("L",), ("C", True, True), ("E", True)}) <= keys
+    assert g_step.segments.captures == len(g_step.segments.graphs)
+
+
+@pytest.mark.cuda
+def test_static_input_pool_on_card(cuda_device):
+    """One static-input pool per Segments on the card: two segments of one
+    input layout, captured into CUDA graphs and replayed in turn on
+    changing inputs, equal their eager calls; a graph's two inputs of one
+    layout take two buffers; a scan's carry stays private while its
+    constants come from the pool, and a segment replayed between two
+    scans leaves the second scan's result the plain loop's."""
+    from uvipslam_torch.utils.graphs import Segments, plain_scan
+
+    seg = Segments(cuda_device)
+    fa, fb = (lambda t, u: t * 2.0 + u), (lambda t, u: t.flip(0) - u)
+    for k in range(3):
+        x = torch.arange(256.0, device=cuda_device) + k
+        y = torch.full((256,), 0.5 * k, device=cuda_device)
+        assert torch.equal(seg.run(("a",), fa, x, y), fa(x, y))
+        assert torch.equal(seg.run(("b",), fb, y, x), fb(y, x))
+    ga, gb = (next(g for (key, _), g in seg.graphs.items() if key == (n,)) for n in "ab")
+    assert ga.static_in[0] is gb.static_in[0] and ga.static_in[0] is not ga.static_in[1]
+    mem = seg.memory()
+    assert mem["static_in"] == 2 * 256 * 4 and mem["unpooled_in"] == 4 * 256 * 4
+
+    c0, kc = torch.ones(256, device=cuda_device), torch.full((256,), 0.5, device=cuda_device)
+    body = lambda c, _, a: c * a + 1.0          # noqa: E731
+    want = plain_scan(None, body, c0, length=4, consts=(kc,))
+    assert torch.equal(seg.scan(("s",), body, c0, length=4, consts=(kc,)), want)
+    seg.run(("a",), fa, kc, c0)
+    assert torch.equal(seg.scan(("s",), body, c0, length=4, consts=(kc,)), want)
+    pooled = {id(t) for ts in seg.buffers.values() for t in ts}
+    scans = [g for g in seg.graphs.values() if g.then is not None]
+    assert scans and all(id(g.static_in[0]) not in pooled and id(g.static_in[1]) in pooled
+                         for g in scans)

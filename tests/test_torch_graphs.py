@@ -22,7 +22,7 @@ from uvipslam_torch.io.synthetic import make_sequence
 from uvipslam_torch.models.camera import CameraModel
 from uvipslam_torch.ops import klt
 from uvipslam_torch.ops.klt import build_flow_pyramid
-from uvipslam_torch.utils.graphs import SegmentError, Segments
+from uvipslam_torch.utils.graphs import SegmentError, Segments, plain_scan
 from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 N_FRAMES = 8
@@ -275,3 +275,64 @@ def test_graphs_default_follows_the_device(mono):
     assert tdt.MonoStep(cam, cfg, device="cpu", graphs=True).segments.enabled
     assert not tdv.VipStep(cam, tvt.VipConfig(n_tracks=100), 16, device="cpu").graphs
     assert not tdt.MonoFleetStep(cam, cfg, device="cpu").one.graphs
+
+
+def test_pool_serves_two_segments_of_one_layout_called_interleaved():
+    """One static-input pool per Segments: two segments whose inputs have
+    one layout take the same buffers, and called in turn on changing
+    inputs each still equals its eager call (every call copies its inputs
+    in before its replay)."""
+    seg = Segments("cpu")
+    fa, fb = (lambda t: t * 2.0 + 1.0), (lambda t: t.flip(0) - 3.0)
+    for k in range(3):
+        x, y = torch.arange(4.0) + k, torch.arange(4.0) * (k + 2)
+        assert torch.equal(seg.run(("a",), fa, x), fa(x))
+        assert torch.equal(seg.run(("b",), fb, y), fb(y))
+    ga, gb = (next(g for (key, _), g in seg.graphs.items() if key == (n,)) for n in "ab")
+    assert ga.static_in[0] is gb.static_in[0]
+    assert seg.captures == 2 and seg.replays == 6
+
+
+def test_pool_gives_two_leaves_of_one_layout_two_buffers():
+    """Within one graph the i-th leaf of a layout takes the pool's i-th
+    buffer of it, so two inputs of one layout stay distinct."""
+    seg = Segments("cpu")
+    x, y = torch.arange(3.0), torch.full((3,), 5.0)
+    for k in range(2):
+        assert torch.equal(seg.run(("sub",), lambda a, b: a - b, x + k, y), x + k - y)
+    g = next(iter(seg.graphs.values()))
+    assert g.static_in[0] is not g.static_in[1]
+    assert len(seg.buffers) == 1 and len(next(iter(seg.buffers.values()))) == 2
+
+
+def test_pooled_bytes_are_the_largest_set_not_their_sum():
+    """Two segments holding three and two inputs of one layout pool three
+    buffers: the largest set, where one static copy per graph held five."""
+    seg = Segments("cpu")
+    ts = [torch.full((64,), float(i)) for i in range(3)]
+    assert torch.equal(seg.run(("three",), lambda a, b, c: a + b + c, *ts), ts[0] + ts[1] + ts[2])
+    assert torch.equal(seg.run(("two",), lambda a, b: a * b, *ts[:2]), ts[0] * ts[1])
+    mem = seg.memory()
+    assert mem["static_in"] == 3 * 64 * 4 and mem["unpooled_in"] == 5 * 64 * 4
+    assert mem["carries"] == 0 and mem["static_out"] == 2 * 64 * 4
+
+
+def test_a_scans_carry_is_never_pooled():
+    """A scan's carry lives across its steps in its graph's own buffers;
+    its constants (and a segment's inputs of the same layout) come from
+    the pool. A segment called between two scans leaves the second scan's
+    result the plain loop's."""
+    seg = Segments("cpu")
+    c0, k = torch.ones(8), torch.full((8,), 0.5)
+    body = lambda c, _, a: c * a + 1.0          # noqa: E731
+    want = plain_scan(None, body, c0, length=3, consts=(k,))
+    assert torch.equal(seg.scan(("s",), body, c0, length=3, consts=(k,)), want)
+    assert torch.equal(seg.run(("seg",), lambda a: a * 4.0, torch.full((8,), 7.0)),
+                       torch.full((8,), 28.0))
+    assert torch.equal(seg.scan(("s",), body, c0, length=3, consts=(k,)), want)
+    pooled = {id(t) for ts in seg.buffers.values() for t in ts}
+    scans = [g for g in seg.graphs.values() if g.then is not None]
+    assert scans and all(g.private == 1 and id(g.static_in[0]) not in pooled
+                         and id(g.static_in[1]) in pooled for g in scans)
+    assert seg.memory()["carries"] == sum(g.static_in[0].untyped_storage().nbytes()
+                                          for g in scans)

@@ -3,10 +3,14 @@ of the reference's `lax.scan`, in its plain CPU form, and the loops that
 take it: each of the port's loops run through a graphed `Segments` on the
 CPU (a capture per key and carry layout, its function replayed on the
 static buffers) against its plain loop, bit for bit, on small inputs
-made from a seed. The card's captures are held in tests/test_torch_cuda.py;
-the VIP step through its pre-VIO keyframe and VIO init in
-tests/test_torch_vip.py. About 5 s on one thread.
+made from a seed, and `Segments.lifted_scan` (the fleets' VIO init's
+loops) over two streams. The card's captures are held in
+tests/test_torch_cuda.py; the VIP step through its pre-VIO keyframe and
+VIO init, and the fleet's VIO init, in tests/test_torch_vip.py. About
+12 s on one thread.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -14,7 +18,7 @@ import torch
 
 from uvipslam_torch.core import lie
 from uvipslam_torch.core.preintegration import PreintState, preintegrate
-from uvipslam_torch.core.tree import tree_leaves
+from uvipslam_torch.core.tree import over_streams, tree_leaves
 from uvipslam_torch.solver.essential_graph import optimize_essential_graph
 from uvipslam_torch.solver.local_ba import local_ba_se3
 from uvipslam_torch.utils.graphs import SegmentError, Segments, plain_scan
@@ -37,6 +41,17 @@ def _f32(rng, *shape, scale=1.0):
     return torch.from_numpy(rng.normal(scale=scale, size=shape).astype(np.float32))
 
 
+@dataclasses.dataclass
+class _Run:
+    """One loop's call on fixed arguments: run(scan) calls it with `scan`."""
+    fn: object
+    args: tuple
+    kw: dict
+
+    def __call__(self, scan):
+        return self.fn(*self.args, **self.kw, scan=scan)
+
+
 def _preint_case(seed):
     """Three windows of 20 samples, some masked (dt 0 where masked)."""
     rng = np.random.default_rng(seed)
@@ -45,7 +60,7 @@ def _preint_case(seed):
     dts = torch.full((K, T), 0.005) * (1.0 + 0.1 * _f32(rng, K, T))
     args = (_f32(rng, K, T, 3, scale=0.3), _f32(rng, K, T, 3) + torch.tensor([0.0, 0.0, 9.81]),
             dts, mask, _f32(rng, K, 3, scale=0.01), _f32(rng, K, 3, scale=0.05))
-    return lambda scan: preintegrate(*args, 0.01, 0.1, scan=scan), T
+    return _Run(preintegrate, args + (0.01, 0.1), {}), T
 
 
 def _ba_case(seed, W=4, P=64, F=48):
@@ -66,7 +81,7 @@ def _ba_case(seed, W=4, P=64, F=48):
             torch.ones(W, dtype=torch.bool), pts + _f32(rng, P, 3, scale=0.02),
             torch.ones(P, dtype=torch.bool), torch.arange(W)[:, None].expand(W, F), obs_pt, uv,
             torch.ones(W, F), obs_mask, FX, FY, CX, CY)
-    return lambda scan: local_ba_se3(*args, n_iters=3, rounds=2, p_active=P, scan=scan), 6
+    return _Run(local_ba_se3, args, dict(n_iters=3, rounds=2, p_active=P)), 6
 
 
 def _gyro_case(seed, K=6):
@@ -75,7 +90,7 @@ def _gyro_case(seed, K=6):
     dR = R_wb.transpose(-1, -2) @ torch.roll(R_wb, -1, 0)
     args = (R_wb, torch.roll(dR, 1, 0) @ _rotations(rng, K, 0.01), _f32(rng, K, 3, 3, scale=0.1),
             torch.from_numpy(np.arange(K) > 0))
-    return lambda scan: estimate_gyro_bias(*args, scan=scan), 5
+    return _Run(estimate_gyro_bias, args, {}), 5
 
 
 def _eg_case(seed, K=6, E=8):
@@ -85,7 +100,7 @@ def _eg_case(seed, K=6, E=8):
             torch.from_numpy(rng.integers(0, K, E)), torch.from_numpy(rng.integers(0, K, E)),
             1.0 + 0.05 * _f32(rng, E), _rotations(rng, E, 0.3), _f32(rng, E, 3),
             torch.from_numpy(rng.random(E) > 0.2))
-    return lambda scan: optimize_essential_graph(*args, n_iters=4, scan=scan), 4
+    return _Run(optimize_essential_graph, args, dict(n_iters=4)), 4
 
 
 CASES = {"preintegrate": _preint_case, "local_ba_se3": _ba_case,
@@ -192,3 +207,45 @@ def test_preintegration_of_a_step_minor_window_takes_one_graph():
     out = run(seg.scan)
     assert isinstance(out, PreintState) and torch.equal(_bits(out), _bits(run(None)))
     assert list(seg.graphs_per_key().values()) == [1] and seg.scan_steps == steps
+
+
+# per-stream agreement of the lifted loops with each stream's own plain
+# loop: bit for bit, except where the batched products of the vmapped
+# body round otherwise than the single stream's (the essential graph's
+# Sim3 solve: 1.9e-6 here)
+STREAM_ATOL = {"essential_graph": 1e-5}
+
+
+def _two_streams(name):
+    """Case `name` at seeds 0 and 1 as a fleet of two streams: (run(scan)
+    over the stream axis, the two single-stream runs, the steps)."""
+    (r0, steps), (r1, _) = CASES[name](0), CASES[name](1)
+    args = tuple(torch.stack([a, b]) if isinstance(a, torch.Tensor) else a
+                 for a, b in zip(r0.args, r1.args))
+    return (lambda scan: over_streams(lambda *a: r0.fn(*a, **r0.kw, scan=scan), *args)), \
+        (r0, r1), steps
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_lifted_scan_over_two_streams(name):
+    """`Segments.lifted_scan` under `over_streams`, as the fleets' VIO init
+    runs its loops: graphed (the plain form of one capture per key, group
+    size and carry layout, replayed once per iteration for both streams)
+    equals `graphs=False` (the plain loop of the vmapped body) bit for
+    bit, and both equal the old form (the plain loop run under the vmap)
+    bit for bit; each stream agrees with its own plain loop within
+    STREAM_ATOL. Outside a vmap the lifted scan is the plain loop."""
+    run, singles, steps = _two_streams(name)
+    seg, eager = Segments("cpu"), Segments("cpu", graphs=False)
+    got = run(seg.lifted_scan)
+    assert torch.equal(_bits(got), _bits(run(eager.lifted_scan)))
+    assert torch.equal(_bits(got), _bits(run(None)))
+    assert seg.scan_steps == steps and eager.scan_steps == 0
+    assert seg.keys and all(k[0] == "scan" and k[-1] == "streams" for k in seg.keys)
+    atol = STREAM_ATOL.get(name, 0.0)
+    for i, single in enumerate(singles):
+        for a, b in zip(tree_leaves(got), tree_leaves(single(None)), strict=True):
+            torch.testing.assert_close(a[i], b, atol=atol, rtol=0)
+    one = Segments("cpu")
+    assert torch.equal(_bits(singles[0](one.lifted_scan)), _bits(singles[0](None)))
+    assert one.scan_steps == 0 and not one.graphs

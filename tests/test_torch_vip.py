@@ -231,6 +231,50 @@ def test_first_try_lane_forces_a_keyframe(jax_run, torch_run, seq, monkeypatch):
     assert int(out.new_kf) == int(src.map.n_kf)           # the forced keyframe
 
 
+@pytest.mark.parametrize("outcome", ["holds", "fails"])
+def test_lane1_frame_graphed_equals_eager(jax_run, torch_run, seq, monkeypatch, outcome):
+    """The lane-1 frame of `test_first_try_lane_forces_a_keyframe` (the
+    VI solve made to fail; failing too on the first-try associations for
+    `fails`) through the graphed step (segment L up to the lane's read;
+    holding, the forced keyframe through the VI keyframe frame's segments
+    C, D and E; failing, the dead reckoning into IMU_RELOC and the ring in
+    segment I; their plain CPU form) against `graphs=False`: output,
+    state and host reads bit for bit equal."""
+    src = jax_run["post_init"]
+    b = tdv.make_bundles(seq, device="cpu")[int(src.frame_id) + 1]
+    real = tdv._vi_track
+    runs = {}
+    for graphs in (False, True):
+        calls = []
+
+        def lane_fails(tracks, *a, calls=calls):
+            out = real(tracks, *a)
+            calls.append(int(out[2]))
+            if outcome == "fails" or len(calls) == 1:
+                out = out[:2] + (torch.zeros_like(out[2]),) + out[3:]
+            return out
+
+        monkeypatch.setattr(tdv, "_vi_track", lane_fails)
+        step = tdv.VipStep(torch_run["cam"], tvt.VipConfig(**CFG), KF_CAP, device="cpu",
+                           graphs=graphs)
+        runs[graphs] = (step, *step(convert.vip_state(src), b), calls)
+    (e_step, e_st, e_out, e_calls), (g_step, g_st, g_out, g_calls) = runs[False], runs[True]
+    for tree in ("out", "st"):
+        e, g = (e_out, g_out) if tree == "out" else (e_st, g_st)
+        for (name, x), (_, y) in zip(_leaves(e), _leaves(g)):
+            assert torch.equal(x.contiguous().view(-1).view(torch.uint8),
+                               y.contiguous().view(-1).view(torch.uint8)), (tree, name)
+    assert e_step.host_syncs == g_step.host_syncs and e_calls == g_calls
+    assert len(e_calls) == 2 and e_step.segments.keys == set()
+    if outcome == "holds":
+        assert e_calls[1] >= e_step.reloc_min and int(e_out.state) == ttr.WORKING
+        assert int(e_out.new_kf) == int(src.map.n_kf)
+        assert {("L",), ("C", True, True), ("D", True, True), ("E", True)} <= g_step.segments.keys
+    else:
+        assert int(e_out.state) == ttr.IMU_RELOC and int(e_out.new_kf) == -1
+        assert {("L",), ("I",)} <= g_step.segments.keys
+
+
 def _vi_args(src, seq, cfg, f, convert_side):
     """Inputs of the VI pose solve for frame f from the carried state:
     the reference's IMU prediction over frame f's samples."""
@@ -342,6 +386,57 @@ def _scale_and_alignment(before, after):
 
 def test_try_init_vio_on_pre_trigger_state(jax_run, torch_run, one_torch_thread):
     _try_init_vio_against_reference(jax_run, torch_run["step"], one_torch_thread)
+
+
+def _vio_init_agrees(src, a, b):
+    """Two VIO inits of the state `src` agree within the bars the
+    reference holds the port's to: the scale within SCALE_RTOL, the
+    gravity direction within ATOL, the keyframe positions within 1e-3."""
+    s_a, Ra_a = _scale_and_alignment(src, a)
+    s_b, Ra_b = _scale_and_alignment(src, b)
+    np.testing.assert_allclose(s_a, s_b, rtol=SCALE_RTOL)
+    g = np.asarray(jvt.VipConfig(**CFG).gravity, np.float64)
+    g /= np.linalg.norm(g)
+    np.testing.assert_allclose(Ra_a.T @ g, Ra_b.T @ g, atol=ATOL)
+    np.testing.assert_allclose(_np(a.map.kf_ns.p), _np(b.map.kf_ns.p), atol=1e-3)
+
+
+def test_fleet_vio_init_through_lifted_scans(jax_run, torch_run, one_torch_thread):
+    """The fleet's VIO init on the pre-trigger state stacked as two
+    streams, its loops through the fleet's lifted scan: graphed (the
+    plain form of one capture per loop and carry layout, replayed per
+    iteration for both streams) equals `graphs=False` (the plain loops of
+    the vmapped bodies) bit for bit, and that equals the old form (the
+    plain loops run under the fleet's `vmap`) bit for bit on the CPU.
+    Each stream agrees with the single step's VIO init within the bars of
+    the reference (`_vio_init_agrees`); not bit for bit, since the
+    fleet's batched products round otherwise (a free-gauge float32 BA
+    inside)."""
+    from uvipslam_torch.core.tree import over_streams, stack_streams, tree_map
+
+    src = dataclasses.replace(convert.vip_state(jax_run["pre_trigger"]), gen=None)
+    fleet_st = stack_streams([src, src])
+    cam, cfg = torch_run["cam"], tvt.VipConfig(**CFG)
+    runs = {}
+    for form in ("graphed", "eager", "old"):
+        fleet = tdv.VipFleetStep(cam, cfg, KF_CAP, device="cpu", graphs=form == "graphed")
+        if form == "old":
+            fleet.one.scan = fleet.one.segments.scan
+        with torch_threads(one_torch_thread):
+            runs[form] = over_streams(fleet.one._try_init_vio, fleet_st), fleet.segments
+    for form in ("eager", "old"):
+        for (name, a), (_, b) in zip(_leaves(runs["graphed"][0]), _leaves(runs[form][0])):
+            assert torch.equal(a.contiguous().view(-1).view(torch.uint8),
+                               b.contiguous().view(-1).view(torch.uint8)), (form, name)
+    graphed = runs["graphed"][1]
+    assert graphed.scan_steps > 0 and runs["eager"][1].scan_steps == 0
+    assert {k[-1] for k in graphed.keys} == {"streams"}
+    with torch_threads(one_torch_thread):
+        single, ok1 = torch_run["step"]._try_init_vio(convert.vip_state(jax_run["pre_trigger"]))
+    out, ok = runs["graphed"][0]
+    assert bool(ok1) and ok.tolist() == [True, True]
+    for i in range(2):
+        _vio_init_agrees(src, tree_map(lambda a: a[i], out), single)
 
 
 def test_try_init_vio_through_scans_on_pre_trigger_state(jax_run, torch_graph_run,

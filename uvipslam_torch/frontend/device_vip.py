@@ -49,7 +49,12 @@ that pick its path:
   runs eagerly when it is due); then after VIO init E (True): the
   keyframe's bookkeeping, the ring and the output; before it E (False):
   the bookkeeping up to the VIO-init trigger read, the VIO init when the
-  trigger fires, and R: the ring and the output.
+  trigger fires, and R: the ring and the output;
+- L, when lane 0 fails after VIO init: lane 1, the VI solve on the
+  first-try associations, up to its read. Holding, its solve is taken
+  with a forced keyframe through the VI keyframe frame's segments C
+  (True, True), D and E; failing, I: the dead reckoning into IMU_RELOC,
+  the ring and the output.
 
 The VIO init (`_try_init_vio`, once per run) stays an eager function of
 straight-line parts, whose loops, the reference's `lax.scan`s (the
@@ -62,16 +67,19 @@ frame launches the same kernels on the same inputs and gives the eager
 step's outputs and states bit for bit, with the same host reads. These
 stay eager, after A: NOT_INITIALIZED, INITIALIZING, LOST and IMU_RELOC
 (rare; their two-view and relocalization draw from the generator
-inside), lane 1 after a failed VI solve, the compaction, and the VIO
+inside), a mono frame that loses track, the compaction, and the VIO
 init's straight-line parts.
 
 `VipFleetStep(graphs=...)` is the counterpart of the reference's batched
 replay, `jax.jit(vmap(scan(step)))`: a batched frame's stages over the
 stream groups replay captured graphs cut at the fleet's host reads, the
 group index tensors riding in the inputs (`device_tracker.Fleet`); the
-per-stream branches stay eager as in the single step, and so does the
-VIO init, its loops plain (it runs under `torch.func.vmap`, where a scan
-body cannot be captured: the fleet's `one` step has graphs off).
+per-stream branches stay eager as in the single step (lane 1 among
+them), and so do the VIO init's straight-line parts, run once for the
+streams whose trigger fired (`over_streams`), while its loops replay one
+graph per iteration for that group: the fleet's `one` step runs them
+through the fleet's `segments.lifted_scan`, the counterpart of the
+reference's `vmap(scan(...))`.
 """
 
 from __future__ import annotations
@@ -251,6 +259,8 @@ class VipStep:
         self.device = dev = step_device(device)
         self.graphs = dev.type == "cuda" if graphs is None else bool(graphs)
         self.segments = Segments(dev, graphs=self.graphs)
+        # the VIO init's loops (a fleet gives its `one` step its lifted scan)
+        self.scan = self.segments.scan
         f32 = dict(dtype=torch.float32)
         self.scale_sigmas = torch.tensor(cfg.scale_sigmas, **f32).to(dev)
         self.K = torch.as_tensor(cam.K).to(dev)
@@ -347,10 +357,12 @@ class VipStep:
         re-anchor, the camera -> body table conversion, the depth anchor
         and velocities. Returns (state after a successful init, ok flag).
         An eager function whose loops (the BA's LM iterations, the gyro
-        bias's, both preintegrations') run through `self.segments.scan`:
-        captured graphs replayed per iteration when the step is graphed,
-        the plain loops otherwise and inside a fleet's `one` step."""
-        cam, cfg, dev, scan = self.cam, self.cfg, self.device, self.segments.scan
+        bias's, both preintegrations') run through `self.scan`: the step's
+        `segments.scan` (captured graphs replayed per iteration when the
+        step is graphed, the plain loops otherwise), and in a fleet's `one`
+        step the fleet's `segments.lifted_scan` (the loops lifted over the
+        stream axis, replayed once per iteration for the group)."""
+        cam, cfg, dev, scan = self.cam, self.cfg, self.device, self.scan
         Rcb, gravity = self.Rcb, self.gravity
         # full-map BA first: the windowed BA lets mono scale drift across
         # the init window; slots fill in insertion order, so 24 suffice
@@ -632,12 +644,13 @@ class VipStep:
         return dataclasses.replace(st, tracks=tracks2, ns=ns_opt, Rcw=Rcw, tcw=tcw,
                                    H_prior=capped_prior(H_post))
 
-    def _vi_lane1(self, st, b, ns_pred, Rcw_pred, tcw_pred, pre_frame):
-        """Lane 1 (only when lane 0 fails): the first-try relocalization
-        associations, which force a keyframe; on their failure IMU
-        dead-reckoning with the pressure-z override (the anchor, a fresh
-        detection + stash, is captured on the next frame)."""
+    def _lane1_solve(self, st, b, pred):
+        """Segment L, lane 1 (only when lane 0 fails): the VI solve on the
+        first-try relocalization associations, with the flag of its one
+        host read (enough inliers: the solve holds and forces a
+        keyframe)."""
         cam, cfg = self.cam, self.cfg
+        ns_pred, Rcw_pred, tcw_pred, pre_frame = pred
         with record_function("step.first_try"):
             ft_pid, ft_nm = first_try_associations(
                 st.tracks, st.map, torch.clamp(st.last_kf_slot, 0, self.kf_cap - 1),
@@ -648,12 +661,33 @@ class VipStep:
                 st.tracks, pt_id=torch.where(ft_gate, ft_pid, torch.full_like(ft_pid, -1)))
         with record_function("step.vi_track"):
             out = self._vi_solve(st, tracks_ft, b, ns_pred, pre_frame)
-        if self._read_bool(out[2] >= self.reloc_min):
+        return out, out[2] >= self.reloc_min
+
+    def _lane1_holds(self, flag) -> bool:
+        """Lane 1's host read."""
+        return self._read_bool(flag)
+
+    def _imu_reloc(self, st, b, ns_pred):
+        """Lane 1 failed: IMU dead-reckoning with the pressure-z override
+        and IMU_RELOC (the anchor, a fresh detection + stash, is captured
+        on the next frame)."""
+        return dataclasses.replace(self._dead_reckon(st, b, ns_pred),
+                                   state=_i32(IMU_RELOC, self.device),
+                                   rec_frame=_i32(-1, self.device), H_prior=self.H0)
+
+    def _imu_reloc_ring(self, st, b, ns_pred, pyr):
+        """Segment I: a failed lane 1's dead reckoning, the ring and the
+        output."""
+        return self._ring_and_out(self._imu_reloc(st, b, ns_pred), pyr)
+
+    def _vi_lane1(self, st, b, ns_pred, Rcw_pred, tcw_pred, pre_frame):
+        """Lane 1 of one stream as a fleet runs it, per failed stream: the
+        solve, its read, then the solve taken with a forced keyframe, or
+        IMU_RELOC. Returns (state, label, ctl)."""
+        out, holds = self._lane1_solve(st, b, (ns_pred, Rcw_pred, tcw_pred, pre_frame))
+        if self._lane1_holds(holds):
             return self._vi_apply(st, out), WORKING, self._kf_ctl(True, trigger=False)
-        st = dataclasses.replace(self._dead_reckon(st, b, ns_pred),
-                                 state=_i32(IMU_RELOC, self.device),
-                                 rec_frame=_i32(-1, self.device), H_prior=self.H0)
-        return st, IMU_RELOC, _Ctl()
+        return self._imu_reloc(st, b, ns_pred), IMU_RELOC, _Ctl()
 
     def _dead_reckon(self, st, b, ns_pred):
         p = ns_pred.p.clone()
@@ -928,12 +962,18 @@ class VipStep:
         st = dataclasses.replace(st, gen=gen)
         held, need = self._read(*flags)
         held, need = (bool(held), bool(need)) if vio_ok else (not held, bool(need))
+        if not held and not vio_ok:
+            return self._finish(self._state(st, LOST), b, pyr, _Ctl(), vio_ok)
         if not held:
-            if vio_ok:
-                st, _, ctl = self._vi_lane1(st, b, *pred)
-            else:
-                st, ctl = self._state(st, LOST), _Ctl()
-            return self._finish(st, b, pyr, ctl, vio_ok)
+            # lane 1 up to its read; holding, its solve is taken with a
+            # forced keyframe through the VI keyframe frame's segments C-E
+            sol, holds = seg.run(("L",), self._lane1_solve, dataclasses.replace(st, gen=None),
+                                 bf, pred)
+            if not self._lane1_holds(holds):
+                st, out = seg.run(("I",), self._imu_reloc_ring, dataclasses.replace(st, gen=None),
+                                  bf, pred[0], pyr)
+                return dataclasses.replace(st, gen=gen), out
+            need = True
         st = seg.run(("C", vio_ok, need), lambda *a: self._accept(*a, vio_ok=vio_ok, need=need),
                      dataclasses.replace(st, gen=None), sol, pyr)
         if not need:
@@ -995,7 +1035,8 @@ class VipFleetStep(Fleet):
     - D per (vio, hygiene, trigger) group: the window BA and adoption up
       to the compaction read; E, after the eager compaction: the
       bookkeeping, the scatter and the VIO-init trigger flags (the VIO
-      init runs eagerly);
+      init runs eagerly over the streams that fire, its loops through
+      the lifted scans, `one.scan`);
     - the ring and the output end C or the last E when nothing eager
       follows, else run as R.
 
@@ -1008,6 +1049,7 @@ class VipFleetStep(Fleet):
     def __init__(self, cam: CameraModel, cfg: VipConfig, kf_cap: int, device="cuda",
                  graphs: bool | None = None):
         super().__init__(VipStep(cam, cfg, kf_cap, device=device, graphs=False), graphs)
+        self.one.scan = self.segments.lifted_scan
 
     # -- the batched frame's segments ----------------------------------
     def _start(self, st, b, ix):

@@ -13,7 +13,8 @@ alone. `Segments.run(key, fn, *trees)` runs one:
 - `trees` are dataclasses, tuples, lists and dicts of tensors. Their
   values at a call are copied into static input buffers laid out as the
   call's tensors are (shape, strides, and the storage offset modulo 512
-  bytes), so every operation sees the layout the eager step gives it: a
+  bytes; the buffers come from the step's one pool, below), so every
+  operation sees the layout the eager step gives it: a
   matrix product of a transposed view rounds otherwise than one of a
   contiguous copy, and a reduction's order follows its input's 16-byte
   alignment. One graph serves one key with one layout of its inputs
@@ -70,7 +71,8 @@ replays, each in a span `step.graph.scan.<name>`. Its rules:
 
 - Nesting: inside a segment (its warm-up, capture or CPU plain form) or
   any stream capture, with `graphs=False`, and so in a fleet's `one`
-  step, `scan` runs the plain loop (`plain_scan`, the loops' default),
+  step's own `segments`, `scan` runs the plain loop (`plain_scan`, the
+  loops' default),
   which the outer capture records as it records any code. Graphs are
   never nested. On the CPU with graphs on, the steps run the plain form
   of a capture, as `run` does.
@@ -90,17 +92,53 @@ replays, each in a span `step.graph.scan.<name>`. Its rules:
   must be elementwise (the preintegration subtracts the bias), which
   rounds alike whatever the layout, so the bits stay the plain loop's.
 
+`Segments.lifted_scan` (`scan`'s arguments but `ys`) is the counterpart
+of the reference's `vmap(scan(body))`, for a loop inside a stage that a
+fleet runs over its streams (`tree.over_streams`, a `torch.func.vmap`),
+where no graph can be captured step by step. It is one
+`torch.autograd.Function`
+(`_LiftedScan`, the idiom of `ops.klt._PatchOp`): outside any vmap its
+forward is the plain loop; under the vmap its rule takes the leaves'
+stream dimension to the front (a leaf the map does not cover is
+repeated), puts `xs` step-major as [T, G, ...] and runs `scan` (key + the
+word "streams") of `torch.func.vmap(body)` over the G streams of the
+group: one graph per key, group size and carry layout, replayed once per
+iteration, and with `graphs=False` the plain loop of the vmapped body. The
+trees pass through the Function as flat tensor lists, their skeletons
+(no tensor) beside them; the vmapped body is made anew at each call and
+reads only Python values. A fleet's `one` step runs its VIO init's loops
+through its fleet's `lifted_scan`; on the CPU both forms give the old
+form's bits (the plain loops under the fleet's vmap).
+
 The single-stream steps (`VipStep`, `MonoStep`) and the fleet steps
 (`VipFleetStep`, `MonoFleetStep`, through `device_tracker.Fleet`) each
-own one `Segments`, so one memory pool per step. A fleet's segment takes
+own one `Segments`, so one memory pool per step, and one pool of static
+input buffers (`buffers`), keyed by the layout `_like` reproduces (shape,
+strides, dtype, offset modulo 512 bytes): the i-th input leaf of a layout
+in a graph takes the pool's i-th buffer of it, so one graph's buffers are
+distinct and every segment graph and every scan's step slice and
+constants share them; only a scan's carry, which lives in its graph's
+buffers across the loop and which `then` hands from one graph's outputs
+to the next one's inputs, keeps buffers of its own. That is safe because
+a step replays its graphs one at a time on one stream, every call copies
+all of its inputs in before it replays and its new outputs out before
+any other graph runs, and an output that is an input comes back as the
+caller's own tensor. Keys, layouts and captures are what they were with
+one static copy per graph, and so are the bits. A fleet's segment takes
 its stream groups as index tensors among its inputs: the key holds only
 whether each group is empty, whole or some rows, the layout the index
 tensors' lengths, so every group of one size replays one graph whatever
 its members (a function that computed its rows from Python stream ids
 would bake the capture's rows into the graph). `graphs_per_key` counts
-the layouts met per key. The cost of the design: every graph keeps a
-static copy of every input leaf, the whole state where a segment reads a
-few fields (a fleet of 8 VIP streams: ~120 MiB per graph).
+the layouts met per key. `memory()` splits what the graphs hold. The
+cost of the design: every static output stays in the graphs' memory
+pool, and the pool holds the largest set of input leaves of each layout
+that one graph takes, the whole state where a segment reads a few fields
+(a fleet of 8 VIP streams at 512x640 over 36 frames on an H100, 73
+graphs: a 879 MiB pool where one copy per graph and per scan would hold
+5,968 + 1,204 MiB, 111 MiB of scan carries and 2,760 MiB of static
+outputs; 4.4 GiB above the run's start at its peak, against 9.1 GiB with
+one copy per graph).
 """
 
 from __future__ import annotations
@@ -123,18 +161,19 @@ class SegmentError(RuntimeError):
     """A segment's capture or replay failed."""
 
 
-def _map(fn, tree):
-    """`tree` with every tensor leaf t replaced by fn(t); dataclasses,
-    tuples, lists and dicts are walked, anything else is kept."""
-    if isinstance(tree, torch.Tensor):
+def _map(fn, tree, leaf=lambda x: isinstance(x, torch.Tensor)):
+    """`tree` with every leaf t (a tensor, or what `leaf` picks) replaced
+    by fn(t); dataclasses, tuples, lists and dicts are walked, anything
+    else is kept."""
+    if leaf(tree):
         return fn(tree)
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        return dataclasses.replace(tree, **{f.name: _map(fn, getattr(tree, f.name))
+        return dataclasses.replace(tree, **{f.name: _map(fn, getattr(tree, f.name), leaf)
                                             for f in dataclasses.fields(tree)})
     if isinstance(tree, (tuple, list)):
-        return type(tree)(_map(fn, t) for t in tree)
+        return type(tree)(_map(fn, t, leaf) for t in tree)
     if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
+        return {k: _map(fn, v, leaf) for k, v in tree.items()}
     return tree
 
 
@@ -147,6 +186,21 @@ def _leaves(tree) -> list:
 def _rebuild(tree, leaves):
     it = iter(leaves)
     return _map(lambda _: next(it), tree)
+
+
+_HOLE = object()         # a tensor's place in a tree's skeleton
+
+
+def _skeleton(tree):
+    """`tree` with its tensors taken out (their places marked), so that
+    holding it keeps no tensor alive."""
+    return _map(lambda _: _HOLE, tree)
+
+
+def _fill(skeleton, leaves):
+    """The tree of `skeleton` with its marked places filled by `leaves`."""
+    it = iter(leaves)
+    return _map(lambda _: next(it), skeleton, leaf=lambda x: x is _HOLE)
 
 
 def _has_generator(tree) -> bool:
@@ -172,6 +226,22 @@ def _span(t: torch.Tensor) -> int:
     if t.numel() == 0:
         return 0
     return 1 + sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
+
+
+def _pool_key(t: torch.Tensor) -> tuple:
+    """The layout `_like` reproduces: a static buffer of this key serves
+    every tensor of it."""
+    return t.shape, t.stride(), t.dtype, t.storage_offset() % max(1, ALIGN_BYTES //
+                                                                 t.element_size())
+
+
+def _bytes(tensors) -> int:
+    """Bytes of the distinct storages under `tensors`."""
+    seen = {}
+    for t in tensors:
+        s = t.untyped_storage()
+        seen[s.data_ptr()] = s.nbytes()
+    return sum(seen.values())
 
 
 def _like(t: torch.Tensor, device) -> torch.Tensor:
@@ -236,13 +306,16 @@ class _Graph:
     delta: tuple             # their change during the capture
     graph: object = None     # torch.cuda.CUDAGraph (None on the CPU)
     then: tuple = None       # a scan step's graph: the spec of the next step's
+    private: int = 0         # a scan step's graph: its first `private` inputs, the
+    #                          carry, are its own (the rest come from the pool)
 
 
 class Segments:
     """The graphs of one step, one per key and input layout (see the
     module docstring): `graphs` maps (key, layout) to a graph, `keys` the
-    keys met. With `graphs=False`, `run` calls the function and `scan`
-    runs its plain loop."""
+    keys met, `buffers` the pool of static input buffers by layout. With
+    `graphs=False`, `run` calls the function and `scan` (and
+    `lifted_scan`'s lifted loop) runs its plain loop."""
 
     def __init__(self, device, graphs: bool = True):
         self.device = torch.device(device)
@@ -256,7 +329,9 @@ class Segments:
         self._stream = None
         self._pool = None
         self._warm: set = set()         # keys warmed up on the side stream
-        self._scan_in: dict = {}        # a scan's static step slice and constants
+        self.buffers: dict = {}         # layout -> the pool's static buffers of it
+        self._scan_sets: dict = {}      # a scan's (key, layouts) -> its static slice and
+        #                                 constants (buffers of the pool)
         self._inside = 0                # > 0 while a segment's or a step's code runs
 
     @property
@@ -271,6 +346,42 @@ class Segments:
             out[k] = out.get(k, 0) + 1
         return out
 
+    def memory(self) -> dict:
+        """Bytes the graphs hold, by kind: `static_in` the pool of static
+        input buffers (segments' inputs and scans' step slices and
+        constants), `carries` the scans' private carry buffers,
+        `static_out` the static outputs (on the card in the graphs' memory
+        pool); `unpooled_in` and `unpooled_scan` what the inputs and the
+        scans' constants would hold with one static copy per graph and per
+        scan key and layout (no pool)."""
+        segs = [g for g in self.graphs.values() if g.then is None]
+        scans = [g for g in self.graphs.values() if g.then is not None]
+        return dict(
+            static_in=_bytes(t for ts in self.buffers.values() for t in ts),
+            carries=_bytes(t for g in scans for t in g.static_in[:g.private]),
+            static_out=_bytes(t for g in self.graphs.values() for t in g.static_new),
+            unpooled_in=sum(_bytes(g.static_in) for g in segs),
+            unpooled_scan=sum(_bytes(ts) for ts in self._scan_sets.values()))
+
+    def _static(self, leaves) -> list:
+        """Static buffers from the pool for one graph's leaves: the i-th
+        leaf of a layout takes the pool's i-th buffer of it (made at its
+        first use), so the buffers of one graph are distinct and every
+        graph shares them with the others. Safe because a step replays its
+        graphs one at a time on one stream, each call copies all of its
+        inputs in before its replay and its new outputs out after it, and
+        an output that is an input comes back as the caller's tensor."""
+        taken: dict = {}
+        out = []
+        for t in leaves:
+            k = _pool_key(t)
+            i = taken[k] = taken.get(k, -1) + 1
+            bufs = self.buffers.setdefault(k, [])
+            if i == len(bufs):
+                bufs.append(_like(t, self.device))
+            out.append(bufs[i])
+        return out
+
     def run(self, key: tuple, fn, *trees):
         """fn(*trees) through the graph of `key` and the inputs' layout,
         captured at its first call; returns fresh outputs."""
@@ -281,7 +392,7 @@ class Segments:
         g = self.graphs.get(spec)
         captured = g is None
         if captured:
-            static_in = [_like(t, self.device) for t in flat]
+            static_in = self._static(flat)
             _copy(static_in, flat)
             g = self._capture(spec, fn, static_in, _rebuild(trees, static_in))
         try:
@@ -320,9 +431,9 @@ class Segments:
         flat_fixed = _leaves(fixed)
         n_x = len(_leaves(fixed[0]))
         fspec = (skey, tuple(_layout(t) for t in flat_fixed))
-        shared = self._scan_in.get(fspec)
+        shared = self._scan_sets.get(fspec)
         if shared is None:
-            shared = self._scan_in[fspec] = [_like(t, self.device) for t in flat_fixed]
+            shared = self._scan_sets[fspec] = self._static(flat_fixed)
         src = _leaves(carry)
         spec = (skey, (tuple(_layout(t) for t in src), fspec[1]))
         out_ys = []
@@ -345,6 +456,7 @@ class Segments:
                                       static_c + shared,
                                       (_rebuild(carry, static_c),) + _rebuild(fixed, shared))
                     g.then = self._scan_then(spec, g, len(src), ys)
+                    g.private = len(src)
                 else:
                     for d, t in zip(g.static_in, src):
                         if d is not t:
@@ -368,6 +480,21 @@ class Segments:
             raise SegmentError(f"scan {key!r}: replay failed: {e}") from e
         last = _rebuild(g.out[0] if ys else g.out, fresh)
         return (last, _stack(out_ys)) if ys else last
+
+    def lifted_scan(self, key: tuple, body, carry, xs=None, length: int | None = None,
+                    consts=()):
+        """`scan`'s loop as one operation that `torch.func.vmap` batches
+        (the counterpart of the reference's `vmap(scan(body))`): outside
+        any vmap it is the plain loop; under `tree.over_streams` its rule
+        lifts the loop over the stream axis and runs `scan` (key + the
+        word "streams") of the vmapped body on the leaves stacked stream
+        first, so a fleet's stage replays one graph per iteration for all
+        of its streams, and with `graphs=False` the plain loop of the
+        vmapped body. `scan`'s arguments and rules (no `ys`); returns the
+        final carry."""
+        lift = _Lift(self, tuple(key), body, length, carry, xs, consts)
+        out = _LiftedScan.apply(lift, *_leaves((carry, xs, consts)))
+        return _fill(lift.carry, out)
 
     # ------------------------------------------------------------------
     def _scan_then(self, spec, g: _Graph, n_carry: int, ys: bool) -> tuple:
@@ -484,6 +611,58 @@ class Segments:
                 _copy([g.static_new[k] for kind, k in g.source if kind == "new"],
                       [r for (kind, _), r in zip(g.source, res) if kind == "new"])
         _set_counters(g.counters, tuple(a + d for a, d in zip(_counters(g.counters), g.delta)))
+
+
+class _Lift:
+    """One call of `Segments.lifted_scan`: its Python values and the
+    skeletons of its trees, whose leaves go through `_LiftedScan.apply`
+    flat (carry, xs, constants). It holds no tensor: a captured body
+    holds it and must read no tensor of an earlier call."""
+
+    def __init__(self, seg, key, body, length, carry, xs, consts):
+        self.seg, self.key, self.body, self.length = seg, key, body, length
+        self.carry, self.xs, self.consts = _skeleton(carry), _skeleton(xs), _skeleton(consts)
+        self.sizes = tuple(len(_leaves(t)) for t in (carry, xs, consts))
+
+    def trees(self, flat):
+        n_c, n_x, _ = self.sizes
+        return (_fill(self.carry, flat[:n_c]), _fill(self.xs, flat[n_c:n_c + n_x]),
+                _fill(self.consts, flat[n_c + n_x:]))
+
+    def body_of_leaves(self, c, x, k):
+        """The body over flat leaves (what the vmapped loop runs): the
+        carry's leaves out."""
+        carry, x_k, consts = self.trees(list(c) + list(x or ()) + list(k))
+        return _leaves(self.body(carry, x_k, *consts))
+
+
+class _LiftedScan(torch.autograd.Function):
+    """A `_Lift`'s loop as one operation: forward is the plain loop, and
+    the vmap rule (the idiom of `ops.klt._PatchOp`) moves each leaf's
+    stream dimension to the front (repeating a leaf the map does not
+    cover), puts `xs` step-major as [T, G, ...] and runs the Segments'
+    `scan` of the body vmapped over the streams: one graph per key, group
+    size and carry layout, replayed once per iteration. Returns the final
+    carry's leaves."""
+
+    @staticmethod
+    def forward(lift, *flat):
+        carry, xs, consts = lift.trees(flat)
+        return tuple(_leaves(plain_scan(lift.key, lift.body, carry, xs, lift.length, consts)))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, lift, *flat):
+        n_c, n_x, _ = lift.sizes
+        flat = klt._stream_first(info, in_dims[1:], flat)
+        c, x, k = flat[:n_c], flat[n_c:n_c + n_x], flat[n_c + n_x:]
+        x = [t.movedim(0, 1) for t in x] if n_x else None      # [T, G, ...]
+        body = torch.func.vmap(lift.body_of_leaves, in_dims=(0, 0 if n_x else None, 0))
+        out = lift.seg.scan(lift.key + ("streams",), body, list(c), x, lift.length, (list(k),))
+        return tuple(out), (0,) * len(out)
 
 
 def _n_steps(xs, length) -> int:
