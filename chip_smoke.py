@@ -2057,7 +2057,9 @@ def app_phase(torch, np, tklt, dev, smi, seq, vip_record):
     from a 512x640 bag of phase 9's sequence, four runs on the card:
     (a) `--device` VIP, (b) `--device` MONO, (c) the host MonoTracker
     (MONO without `--device`), (d) the host VipTracker (VIP without
-    `--device`). Gates, the reference's app tests'
+    `--device`), the host trackers graphed as the app runs them on the
+    card; then (e) each host tracker graphed against eager frame by frame
+    (`host_graphs_phase`). Gates, the reference's app tests'
     (tests/test_parity_harness.py): VIP at least 12 keyframes matched,
     posyaw ATE below 12% of the span, VIO up; MONO at least 8 matched and
     Sim3 ATE below 5%. Each run must launch both hand kernels, (d) exactly
@@ -2135,6 +2137,7 @@ def app_phase(torch, np, tklt, dev, smi, seq, vip_record):
         record[name] = rec
         by_path[name] = launches
         mark(name)
+    record["host_graphs"] = host_graphs_phase(torch, np, tklt, dev, yaml, bag)
     # the IMU window trap: the bag's bundles pad every frame's IMU window to
     # 64 samples, and the preintegration steps through every sample
     width = int(vip_record["imu_window"]) if vip_record else int(seq.imu_mask.shape[1])
@@ -2152,6 +2155,277 @@ def app_phase(torch, np, tklt, dev, smi, seq, vip_record):
     return record, by_path
 
 
+def tracker_digest(torch, tr):
+    """A host tracker's whole state after a frame, the counterpart of
+    `tree_bits` for its attributes (`core.tree.attr_state`): per attribute
+    the sha256 of the bytes of every tensor under it (the generator's
+    state among them, so that both forms must draw alike), its host
+    values, and the trajectory's frame ids."""
+    import hashlib
+
+    from uvipslam_torch.core.tree import attr_state
+
+    leaves, host = attr_state(tr, tr.NOT_STATE)
+    out = {k: hashlib.sha256(tree_bits(torch, ts).numpy().tobytes()).hexdigest()
+           for k, ts in leaves.items()}
+    out.update(host)
+    out["trajectory_frames"] = [f for f, *_ in tr.trajectory]
+    return out
+
+
+def plain_host_frame(run, f, vio=None) -> bool:
+    """Frame f of a host run was a keyframe-free WORKING frame without a
+    first try or a recovery (of the given VIO mode)."""
+    st = run["status"][f]
+    return (st["state"] == "WORKING" and not run["kf"][f] and "recovery" not in st
+            and "first_try_reloc" not in st and (vio is None or run["vio"][f] == vio))
+
+
+def profile_host_frame(torch, tklt, tr, feed, f):
+    """Frame f of host tracker `tr` under torch.profiler: (its status,
+    its host-clock ms, the profile: host launch calls (kernel and graph
+    launches) and device kernels and ms, the hand kernels' launches in the
+    trace beside their counters' change (`hold_trace` holds them), and
+    the graph captures in the window)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from uvipslam_torch.utils import chiptime
+
+    seg = tr.segments
+    c0 = (tklt.patch_launches, tklt.refine_launches, seg.captures)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st = feed(tr, f)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    counted = (tklt.patch_launches - c0[0], tklt.refine_launches - c0[1])
+    t1 = time.perf_counter()
+    events = chiptime.trace_events(prof)
+    dev, host, _, launches = chiptime.trace_summary(events)
+    hand = {name: dict(launches=sum(v[0] for k, v in dev.items() if name in k), counted=c)
+            for name, c in zip(("extract_patches_kernel", "anchor_refine_kernel"), counted)}
+    return st, ms, dict(
+        frame=f, wall_ms_profiled=ms, host_launch_calls=launches,
+        graph_launches=sum(host.get(k, [0])[0] for k in chiptime.GRAPH_LAUNCH_NAMES),
+        device_kernels=sum(c for c, _ in dev.values()),
+        device_ms=sum(us for _, us in dev.values()) / 1e3, hand_kernels=hand,
+        captures_in_window=seg.captures - c0[2], trace_events=len(events),
+        read_s=time.perf_counter() - t1)
+
+
+def drive_host(torch, tklt, new_tracker, feed, n, profile=None, profile_vio=None):
+    """A host tracker from `new_tracker()` over frames 0..n-1 (`feed(tr, f)`
+    runs frame f and returns its status), timed from the run's start (the
+    tracker is made inside it). Per frame: the ms (host clock to a
+    synchronize), the status, `tracker_digest`, the host reads, the hand
+    kernels' launches so far, the captures, the VIO flag and whether it
+    made a keyframe; after the run the peak memory (allocated, and above
+    the run's start), the graphs' memory split, captures, their seconds, replays and scan
+    steps. `profile`: a frame index to run under the profiler, or
+    "replay": the first frame after two keyframe-free WORKING frames (of
+    VIO mode `profile_vio`) that captured nothing, again on the next one
+    while a profiled frame captured a graph."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(tklt)
+    base = torch.cuda.memory_allocated()
+    tr = new_tracker()
+    run = dict(ms=[], status=[], digest=[], syncs=[], launches=[], captures=[], vio=[], kf=[],
+               new_graphs=[], profile=None)
+    for f in range(n):
+        at = profile == f if not isinstance(profile, str) else (
+            run["profile"] is None and f >= 2
+            and all(plain_host_frame(run, g, profile_vio) for g in (f - 1, f - 2))
+            and run["captures"][f - 1] == run["captures"][f - 2])
+        if at:
+            st, ms, prof = profile_host_frame(torch, tklt, tr, feed, f)
+            if not prof["captures_in_window"]:
+                run["profile"] = prof
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = feed(tr, f)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        run["ms"].append(ms)
+        run["status"].append(st)
+        run["digest"].append(tracker_digest(torch, tr))
+        run["syncs"].append(tr.host_syncs)
+        run["launches"].append(read_launches(tklt))
+        run["new_graphs"].append([repr(k) for k, _ in list(tr.segments.graphs)[
+            run["captures"][-1] if run["captures"] else 0:]])
+        run["captures"].append(tr.segments.captures)
+        run["vio"].append(bool(getattr(tr, "vio_ok", False)))
+        run["kf"].append(tr.last_kf_frame == tr.frame_id)
+    seg = tr.segments
+    peak_abs = torch.cuda.max_memory_allocated()
+    run.update(tr=tr, peak=peak_abs - base, peak_abs=peak_abs,
+               memory=graph_memory(torch, seg) if tr.graphs else None,
+               capture_seconds=seg.capture_seconds, replays=seg.replays,
+               scan_steps=seg.scan_steps, graphs_per_key=seg.graphs_per_key())
+    return run
+
+
+def host_against_eager(graphed, eager):
+    """The first frame at which two host runs differ over the eager run's
+    frames, as (frame, what, detail): the status, the host reads, the hand
+    kernels' launches, the state (the attributes whose bits differ); None
+    when every frame agrees bit for bit."""
+    for f in range(len(eager["status"])):
+        for key in ("status", "syncs", "launches"):
+            if graphed[key][f] != eager[key][f]:
+                return f, key, (graphed[key][f], eager[key][f])
+        g, e = graphed["digest"][f], eager["digest"][f]
+        if g != e:
+            return f, "state", sorted(k for k in set(g) | set(e) if g.get(k) != e.get(k))
+    return None
+
+
+def host_frame_ms(run):
+    """ms per frame by kind (the profiled frame left out): the median
+    keyframe-free WORKING frame before and after VIO init, the median
+    WORKING frame, the VIO-init frame and the recovery frame (None when
+    the run has none)."""
+    skip = run["profile"]["frame"] if run["profile"] else -1
+    ms, st, vio = run["ms"], run["status"], run["vio"]
+
+    def med(frames):
+        frames = [f for f in frames if f != skip]
+        return statistics.median([ms[f] for f in frames]) if frames else None
+
+    n = len(ms)
+    init = next((f for f in range(1, n) if vio[f] and not vio[f - 1]), None)
+    rec = next((f for f in range(n) if st[f].get("recovery") == "re-initialized"), None)
+    return dict(working=med([f for f in range(n) if st[f]["state"] == "WORKING"]),
+                plain_mono=med([f for f in range(n) if plain_host_frame(run, f, False)]),
+                plain_vi=med([f for f in range(n) if plain_host_frame(run, f, True)]),
+                vio_init=ms[init] if init is not None else None, vio_init_frame=init,
+                recovery=ms[rec] if rec is not None else None, recovery_frame=rec,
+                first_ms=ms[0])
+
+
+def settled_captures(run):
+    """The keyframe-free WORKING frames that followed another of their
+    VIO mode after the first such pair, and those of them that captured a
+    graph (none once the layouts settle)."""
+    seen, settled = set(), []
+    for f in range(1, len(run["status"])):
+        vio = run["vio"][f]
+        if plain_host_frame(run, f, vio) and plain_host_frame(run, f - 1, vio):
+            if vio in seen:
+                settled.append(f)
+            seen.add(vio)
+    return settled, [(f, run["new_graphs"][f]) for f in settled
+                     if run["captures"][f] != run["captures"][f - 1]]
+
+
+def fmt_ms(d):
+    return ", ".join(f"{k} {v:.1f}" for k, v in d.items()
+                     if v is not None and not k.endswith("_frame")) + (
+        f" (VIO init at frame {d['vio_init_frame']})" if d["vio_init_frame"] is not None
+        else "") + (f" (recovery at frame {d['recovery_frame']})"
+                    if d["recovery_frame"] is not None else "")
+
+
+def host_pair(torch, tklt, name, new_tracker, feed, n, stop):
+    """`drive_host` graphed (`new_tracker(True)`, n frames, a replayed
+    frame profiled) and eager (`new_tracker(False)`, the frames up to
+    `stop(graphed run)`, the same frame profiled): the gates (bit for bit,
+    host reads, launches; the launches held to the graphed frame's trace;
+    no capture on a settled frame), the log lines and the record."""
+    g = drive_host(torch, tklt, lambda: new_tracker(True), feed, n, profile="replay",
+                   profile_vio=True if name != "host_mono" else None)
+    if g["profile"] is None:
+        raise AssertionError(f"{name}: no replayed frame to profile")
+    hold_trace(g["profile"], f"{name}, the graphed frame {g['profile']['frame']}")
+    m = max(stop(g), g["profile"]["frame"] + 1)
+    e = drive_host(torch, tklt, lambda: new_tracker(False), feed, m, profile=g["profile"]["frame"])
+    cmp = host_against_eager(g, e)
+    settled, grew = settled_captures(g)
+    gm, em = host_frame_ms(g), host_frame_ms(e)
+    gp, ep = g["profile"], e["profile"]
+    log(f"  {name}: graphed against eager over frames 0-{m - 1}: "
+        f"{'bit for bit, the same host reads and launches' if cmp is None else cmp}; "
+        f"{g['launches'][m - 1]} launches by frame {m - 1} in both")
+    log(f"    ms per bag frame graphed: {fmt_ms(gm)}; eager: {fmt_ms(em)}")
+    log(f"    frame {gp['frame']} profiled: graphed {gp['host_launch_calls']} host launch calls "
+        f"({gp['graph_launches']} graph launches), {gp['device_kernels']} device kernels, "
+        f"{gp['device_ms']:.2f} ms device, {gp['wall_ms_profiled']:.1f} ms wall; eager "
+        f"{ep['host_launch_calls']} host launch calls, {ep['device_kernels']} device kernels, "
+        f"{ep['device_ms']:.2f} ms device, {ep['wall_ms_profiled']:.1f} ms wall; hand kernels "
+        f"in the graphed trace {gp['hand_kernels']}")
+    log(f"    graphed: {g['captures'][-1]} captures in {g['capture_seconds']:.1f} s for "
+        f"{len(g['graphs_per_key'])} keys (at most {max(g['graphs_per_key'].values())} per "
+        f"key), {g['replays']} replays, {g['scan_steps']} scan steps; captures by frame "
+        f"{g['captures']}; settled frames {len(settled)}, capturing {grew}")
+    log(f"    peak above the run's start: graphed {g['peak'] / 2**20:.1f} MiB, eager "
+        f"{e['peak'] / 2**20:.1f} MiB over its {m} frames; {fmt_memory(g['memory'])}")
+    fails = []
+    if cmp is not None:
+        fails.append(f"graphed against eager at frame {cmp}")
+    if grew or len(settled) < 3:
+        fails.append(f"captures on settled frames {grew} ({len(settled)} settled)")
+    if max(g["graphs_per_key"].values()) > 2:
+        fails.append(f"more than two input layouts of a key: {g['graphs_per_key']}")
+    if fails:
+        raise AssertionError(f"{name}: " + "; ".join(fails))
+    keys = ("peak", "capture_seconds", "replays", "scan_steps", "graphs_per_key", "memory")
+    return dict(frames_compared=m, ms_graphed=gm, ms_eager=em, profile_graphed=gp,
+                profile_eager=ep, captures=g["captures"][-1], settled_frames=len(settled),
+                launches=g["launches"][-1], host_reads=g["syncs"][-1],
+                peak_eager=e["peak"], **{k: g[k] if k != "graphs_per_key" else
+                                         {repr(a): b for a, b in g[k].items()} for k in keys})
+
+
+def host_graphs_phase(torch, np, tklt, dev, yaml, bag):
+    """Phase 14b: the app's host trackers on the phase's bag, built as
+    `app.main` builds them (`app.host_tracker`), graphed (the default on
+    the card) and eager (`graphs=False`), frame by frame (`host_pair`):
+    MonoTracker over every frame, VipTracker through its VIO init and the
+    keyframe after it. Returns the record by tracker."""
+    import dataclasses
+
+    from uvipslam_torch import app
+    from uvipslam_torch.io.config import load_settings
+
+    s0 = load_settings(yaml)
+    bundles, cam, imu_cfg = app.load_inputs(s0, bag)
+    imgs = torch.from_numpy(np.asarray(bundles["images"], np.float32)).to(dev)
+    imu = [torch.from_numpy(np.asarray(bundles[k], np.float32)).to(dev)
+           for k in ("imu_omg", "imu_acc", "imu_dt", "imu_mask")]
+    depth = np.asarray(bundles["depth"], np.float64)
+    valid = np.asarray(bundles["depth_valid"], bool)
+    stamps = np.asarray(bundles["timestamps"], np.float64)
+    n = len(stamps)
+
+    def mono(tr, f):
+        return tr.process_frame(imgs[f])
+
+    def vip(tr, f):
+        return tr.process_frame_vip(imgs[f], *(a[f] for a in imu), depth=float(depth[f]),
+                                    depth_valid=bool(valid[f]), timestamp=float(stamps[f]))
+
+    def after_vio_kf(run):
+        """Up to the keyframe after the VIO init, and a frame more."""
+        init = host_frame_ms(run)["vio_init_frame"]
+        if init is None:
+            raise AssertionError("host_vip: no VIO init on the bag")
+        kf = next((f for f in range(init + 1, n) if run["kf"][f]), n - 2)
+        return min(n, kf + 2)
+
+    log(f"phase app, host trackers graphed against eager ({n} bag frames):")
+    record = {}
+    for name, mode, feed, stop in (("host_mono", 0, mono, lambda run: n),
+                                   ("host_vip", 2, vip, after_vio_kf)):
+        s = dataclasses.replace(s0, mode=mode)
+        record[name] = host_pair(torch, tklt, name,
+                                 lambda g, s=s: app.host_tracker(s, cam, imu_cfg, dev, graphs=g),
+                                 feed, n, stop)
+        mark(f"{name}_graphs")
+    return record
+
+
 HOST_VIP_FRAMES = 60            # phase 15: the first frames of phase 9's sequence
 HOST_VIP_BLACK = (45, 46, 47)   # black frames (VIO is up from about frame 22)
 
@@ -2159,8 +2433,10 @@ HOST_VIP_BLACK = (45, 46, 47)   # black frames (VIO is up from about frame 22)
 def host_vip_blackout_phase(torch, np, tklt, dev, smi, seq):
     """Phase 15: the host VipTracker on phase 9's sequence with three
     black frames after VIO init (the reference's
-    `test_vip_recovery_after_blackout` at phase 9's width). Returns (the
-    record, launches)."""
+    `test_vip_recovery_after_blackout` at phase 9's width), graphed (the
+    default on the card), then eager through its recovery frame and held
+    to the graphed run frame by frame (`host_against_eager`). Returns
+    (the record, launches)."""
     from uvipslam_torch.frontend.vip_tracker import VipTracker
     from uvipslam_torch.io.synthetic import ate_rmse
 
@@ -2171,24 +2447,20 @@ def host_vip_blackout_phase(torch, np, tklt, dev, smi, seq):
     black = torch.zeros_like(imgs[0])
     imu = [torch.from_numpy(np.asarray(getattr(seq, k)[:n], np.float32)).to(dev)
            for k in ("imu_omg", "imu_acc", "imu_dt", "imu_mask")]
-    tr = VipTracker(cam, cfg, kf_cap=64, pt_cap=8192, device=dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches(tklt)
-    statuses, frame_ms, vio = [], [], []
+
+    def feed(tr, f):
+        return tr.process_frame_vip(black if f in HOST_VIP_BLACK else imgs[f],
+                                    *(a[f] for a in imu), depth=float(seq.depth[f]),
+                                    depth_valid=bool(seq.depth_valid[f]),
+                                    timestamp=float(seq.timestamps[f]))
+
+    # graphed (the default on the card), a replayed VI frame profiled
     with PreintCounter() as preint:
-        for f in range(n):
-            t1 = time.perf_counter()
-            st = tr.process_frame_vip(black if f in HOST_VIP_BLACK else imgs[f],
-                                      *(a[f] for a in imu), depth=float(seq.depth[f]),
-                                      depth_valid=bool(seq.depth_valid[f]),
-                                      timestamp=float(seq.timestamps[f]))
-            torch.cuda.synchronize()
-            frame_ms.append((time.perf_counter() - t1) * 1e3)
-            statuses.append(st)
-            vio.append(tr.vio_ok)
-    launches = read_launches(tklt)
-    peak = torch.cuda.max_memory_allocated()
+        g = drive_host(torch, tklt, lambda: VipTracker(cam, cfg, kf_cap=64, pt_cap=8192,
+                                                       device=dev), feed, n, profile="replay",
+                       profile_vio=True)
+    tr, statuses, frame_ms, vio = g["tr"], g["status"], g["ms"], g["vio"]
+    launches, peak = g["launches"][-1], g["peak_abs"]
     expect = expected_launches_host_vip(statuses, orb_levels(*seq.images.shape[1:]))
 
     labels = [st["state"] for st in statuses]
@@ -2243,6 +2515,31 @@ def host_vip_blackout_phase(torch, np, tklt, dev, smi, seq):
     if fails:
         raise AssertionError("host VIP blackout: " + "; ".join(fails))
     mark("host_vip_blackout")
+    # the eager tracker through the recovery, against the graphed run
+    if g["profile"] is None:
+        raise AssertionError("host VIP blackout: no replayed VI frame to profile")
+    hold_trace(g["profile"], f"host VIP blackout, the graphed frame {g['profile']['frame']}")
+    e = drive_host(torch, tklt, lambda: VipTracker(cam, cfg, kf_cap=64, pt_cap=8192, device=dev,
+                                                   graphs=False),
+                   feed, min(n, recovered[0] + 2))
+    cmp = host_against_eager(g, e)
+    settled, grew = settled_captures(g)
+    gm, em = host_frame_ms(g), host_frame_ms(e)
+    gp = g["profile"]
+    log(f"  graphed against eager over frames 0-{len(e['ms']) - 1} (through the recovery): "
+        f"{'bit for bit, the same host reads and launches' if cmp is None else cmp}")
+    log(f"    ms per frame graphed: {fmt_ms(gm)}; eager: {fmt_ms(em)}")
+    log(f"    graphed: frame {gp['frame']} profiled, {gp['host_launch_calls']} host launch "
+        f"calls, {gp['device_kernels']} device kernels, {gp['device_ms']:.2f} ms device; "
+        f"{g['captures'][-1]} captures in {g['capture_seconds']:.1f} s (at most "
+        f"{max(g['graphs_per_key'].values())} per key), {g['replays']} replays, "
+        f"{g['scan_steps']} scan steps; settled frames {len(settled)}, capturing {grew}; peak "
+        f"above the run's start {g['peak'] / 2**20:.1f} MiB (eager {e['peak'] / 2**20:.1f}); "
+        f"{fmt_memory(g['memory'])}")
+    if cmp is not None or grew or max(g["graphs_per_key"].values()) > 2:
+        raise AssertionError(f"host VIP blackout: graphed against eager {cmp}, captures on "
+                             f"settled frames {grew}, graphs per key {g['graphs_per_key']}")
+    mark("host_vip_blackout_eager")
     record = {"n_frames": n, "black": list(HOST_VIP_BLACK), "vio_init_frame": init_f,
               "imu_reloc_frames": reloc, "recovered_frame": recovered[0],
               "ate_metric_m": ate, "ate_threshold_m": 0.25 * max(span, 0.5),
@@ -2251,7 +2548,11 @@ def host_vip_blackout_phase(torch, np, tklt, dev, smi, seq):
               "host_reads_per_frame": tr.host_syncs / n,
               "preint_steps_per_frame": preint.calls / n, "launches": launches,
               "labels": "".join(names[s] for s in labels),
-              "peak_allocated_bytes": peak, "card": smi}
+              "peak_allocated_bytes": peak, "peak_above_start_bytes": g["peak"], "card": smi,
+              "graphed_against_eager": dict(
+                  frames_compared=len(e["ms"]), ms_graphed=gm, ms_eager=em, profile_graphed=gp,
+                  captures=g["captures"][-1], capture_seconds=g["capture_seconds"],
+                  settled_frames=len(settled), peak_eager=e["peak"], memory=g["memory"])}
     return record, launches
 
 

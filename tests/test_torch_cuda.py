@@ -410,6 +410,120 @@ def test_host_vip_tracker_on_card(cuda_device):
     assert torch.isfinite(torch.stack([t for _, _, t in card_tr.trajectory])).all()
 
 
+def _tracker_bits(tr):
+    """Every tensor attribute of a host tracker (its generator's state
+    among them), each as the host bytes of its leaves, and its host
+    values."""
+    from uvipslam_torch.core.tree import attr_state
+
+    leaves, host = attr_state(tr, tr.NOT_STATE)
+    return {k: torch.cat([t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+                          for t in ts]) for k, ts in leaves.items()}, host
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane0_fails", [False, True])
+def test_graphed_host_vip_tracker_equals_eager_on_card(cuda_device, lane0_fails):
+    """The host `VipTracker` graphed (its default on the card: the frames'
+    segments replayed as CUDA graphs, the VIO init's loops through
+    `Segments.scan`) against `graphs=False` over the first 26 frames of
+    the 120x160 sequence (the bootstrap, pre-VIO keyframes, the VIO init
+    and VI frames): after every frame the same bits in every tensor
+    attribute, the same host values, statuses, host reads and hand-kernel
+    launches; the graphed tracker captured and replayed, the eager one
+    did neither. With `lane0_fails` every VI frame's lane-0 solve loses
+    its inliers (a patch of segment B that a capture records), so the VI
+    frames run the first try's segments L and L2, captured on the first
+    and replayed on the next."""
+    from uvipslam_torch.frontend.vip_tracker import VipConfig, VipTracker
+    from uvipslam_torch.io.synthetic import make_sequence
+    from uvipslam_torch.models.camera import CameraModel
+
+    n = 26
+    seq = make_sequence(n_frames=36, H=120, W=160, n_points=800, seed=3, speed=1.2,
+                        gyr_noise=0.005, acc_noise=0.05, gyr_bias=(0.004, -0.006, 0.003),
+                        depth_noise=0.02, z_amp=0.5)
+    cam = CameraModel.create(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2], width=160,
+                             height=120)
+    cfg = VipConfig(n_tracks=100, min_init_tracks=60, local_window=6, gyr_noise_sd=0.01,
+                    acc_noise_sd=0.1, depth_noise_sd=0.05, vio_init_min_kfs=5,
+                    vio_init_min_time=1.0)
+    runs = {}
+    for graphs in (False, True):
+        tr = VipTracker(cam, cfg, kf_cap=16, pt_cap=1024, device=cuda_device, graphs=graphs)
+        if lane0_fails:
+            def vi_front(*a, real=tr._vi_front, **kw):
+                new, (pyr, pred, sol) = real(*a, **kw)
+                return new, (pyr, pred, sol[:2] + (torch.zeros_like(sol[2]),) + sol[3:])
+
+            tr._vi_front = vi_front
+        before = (klt.patch_launches, klt.refine_launches)
+        frames = []
+        for f in range(n):
+            st = tr.process_frame_vip(seq.images[f], seq.imu_omg[f], seq.imu_acc[f],
+                                      seq.imu_dt[f], seq.imu_mask[f], depth=seq.depth[f],
+                                      depth_valid=bool(seq.depth_valid[f]),
+                                      timestamp=seq.timestamps[f])
+            torch.cuda.synchronize()
+            frames.append((st, tr.host_syncs, (klt.patch_launches - before[0],
+                                               klt.refine_launches - before[1]),
+                           *_tracker_bits(tr)))
+        runs[graphs] = frames, tr
+    (eager, e_tr), (graphed, g_tr) = runs[False], runs[True]
+    assert e_tr.segments.captures == 0 and g_tr.segments.captures > 0
+    assert g_tr.segments.scan_steps > 0 and g_tr.vio_ok
+    if lane0_fails:
+        assert {("L",), ("L2",)} <= g_tr.segments.keys
+        assert any(e[0].get("first_try_reloc") for e in eager)
+    for f, (e, g) in enumerate(zip(eager, graphed)):
+        assert g[:3] == e[:3], (f, e[:3], g[:3])
+        assert g[3].keys() == e[3].keys()
+        bad = [k for k in e[3] if not torch.equal(e[3][k], g[3][k])]
+        assert not bad, (f, bad)
+        assert g[4] == e[4], f
+    assert min(eager[-1][2]) > 0
+
+
+@pytest.mark.cuda
+def test_graphed_host_mono_tracker_equals_eager_on_card(cuda_device):
+    """The host `MonoTracker` with `enhance` on (the app's default) graphed
+    against `graphs=False` over the first 24 frames of the 120x160 mono
+    sequence (the bootstrap, keyframes, a relocalization): after every
+    frame the same bits in every tensor attribute, host values, statuses,
+    host reads and hand-kernel launches; the graphed tracker's segment F
+    captured CLAHE on the card."""
+    from uvipslam_torch.frontend.tracker import MonoTracker, TrackerConfig
+    from uvipslam_torch.io.synthetic import make_sequence
+    from uvipslam_torch.models.camera import CameraModel
+
+    seq = make_sequence(n_frames=40, H=120, W=160, n_points=800, seed=3, speed=1.2)
+    cam = CameraModel.create(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2], width=160,
+                             height=120)
+    cfg = TrackerConfig(n_tracks=100, min_init_tracks=60, local_window=8, enhance=True)
+    runs = {}
+    for graphs in (False, True):
+        tr = MonoTracker(cam, cfg, kf_cap=16, pt_cap=1024, device=cuda_device, graphs=graphs)
+        before = (klt.patch_launches, klt.refine_launches)
+        frames = []
+        for f in range(24):
+            st = tr.process_frame(seq.images[f])
+            torch.cuda.synchronize()
+            frames.append((st, tr.host_syncs, (klt.patch_launches - before[0],
+                                               klt.refine_launches - before[1]),
+                           *_tracker_bits(tr)))
+        runs[graphs] = frames, tr
+    (eager, e_tr), (graphed, g_tr) = runs[False], runs[True]
+    assert e_tr.segments.captures == 0 and g_tr.segments.replays > 0
+    assert e_tr.state == 2 and sum(e[0].get("initialized", False) for e in eager) == 1
+    for f, (e, g) in enumerate(zip(eager, graphed)):
+        assert g[:3] == e[:3], (f, e[:3], g[:3])
+        assert g[3].keys() == e[3].keys()
+        bad = [k for k in e[3] if not torch.equal(e[3][k], g[3][k])]
+        assert not bad, (f, bad)
+        assert g[4] == e[4], f
+    assert min(eager[-1][2]) > 0
+
+
 @pytest.mark.cuda
 def test_vip_blackout_on_card_matches_cpu(cuda_device, monkeypatch):
     """The VIP step's post-init blackout (the run of

@@ -326,3 +326,79 @@ def test_convert_carries_the_tracker(jax_run):
     assert [f for f, _, _ in t.trajectory] == [f for f, _, _ in src.trajectory]
     np.testing.assert_allclose(t.trajectory_positions(), src.trajectory_positions(), atol=1e-5)
     assert dataclasses.asdict(t.cfg) == dataclasses.asdict(src.cfg) | {}
+
+
+def test_enhanced_stages_read_the_clahe_image(seq, monkeypatch):
+    """With `enhance` on (the app's default, `Enhance: 1`) the frame's CLAHE
+    image stands for the frame in every stage that reads it, in the port as
+    in the reference (`img = clahe(img)` first): over the blackout's
+    schedule (WARMUP frames, three black, then the last keyframe's image
+    until relocalized) each tracker's NOT_INITIALIZED detection, WORKING
+    top-up (refill and descriptor refresh) and LOST relocalization read
+    its own CLAHE of the frame fed (the port's bit for bit), the two
+    CLAHEs agree at tests/test_torch_reloc.py's 1e-3, and the first
+    frame's detection holds the reference's tracks as
+    tests/test_torch_frontend.py::test_refill_tracks_frame0_matches does."""
+    from uvipslam_tpu.frontend import frame as jframe
+    from uvipslam_tpu.ops.clahe import clahe as jclahe
+    from uvipslam_torch.ops.clahe import clahe as tclahe
+
+    seen = {"reference": [], "port": []}
+    at = {}
+
+    def spy(side, name, real):
+        def fn(tracks, img, *a, **kw):
+            seen[side].append((at[side], name, img))
+            return real(tracks, img, *a, **kw)
+        return fn
+
+    for side, mod in (("reference", jtr), ("port", ttr)):
+        for name in ("refill_tracks", "refresh_descriptors"):
+            monkeypatch.setattr(mod, name, spy(side, name, getattr(mod, name)))
+    # the reference's relocalization imports refill_tracks from its module
+    monkeypatch.setattr(jframe, "refill_tracks",
+                        spy("reference", "refill_tracks", jframe.refill_tracks))
+    cam = TCam.create(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2], width=W, height=H)
+    cfg = dict(CFG, enhance=True)
+    trackers = {"reference": jtr.MonoTracker(_jcam(seq), jtr.TrackerConfig(**cfg),
+                                             kf_cap=KF_CAP, pt_cap=PT_CAP),
+                "port": ttr.MonoTracker(cam, ttr.TrackerConfig(**cfg), kf_cap=KF_CAP,
+                                        pt_cap=PT_CAP, device="cpu")}
+    black = np.zeros_like(seq.images[0])
+    fed, first = {}, {}
+    with jax.enable_x64(False):
+        for side, tr in trackers.items():
+            imgs = [seq.images[f] for f in range(WARMUP)] + [black] * 3
+            fed[side], states = [], []
+            while imgs:
+                img = imgs.pop(0)
+                at[side] = (len(fed[side]), int(tr.state))
+                fed[side].append(img)
+                states.append(tr.process_frame(img)["state"])
+                first.setdefault(side, tr.tracks)
+                if len(fed[side]) == WARMUP + 3:
+                    kf_frame = int(tr.map.kf_frame_id[int(tr.map.n_kf) - 1])
+                    imgs = [seq.images[kf_frame]] * 3
+                elif len(fed[side]) > WARMUP + 3 and states[-1] == "WORKING":
+                    break
+            assert states[WARMUP + 2] == "LOST" and states[-1] == "WORKING", (side, states)
+    for side, calls in seen.items():
+        stages = {(state, name) for (_, state), name, _ in calls}
+        assert {(jtr.NOT_INITIALIZED, "refill_tracks"), (jtr.WORKING, "refill_tracks"),
+                (jtr.WORKING, "refresh_descriptors"), (jtr.LOST, "refill_tracks"),
+                (jtr.LOST, "refresh_descriptors")} <= stages, (side, stages)
+        for (f, _), name, img in calls:
+            x = fed[side][f]
+            if side == "port":
+                assert torch.equal(img, tclahe(torch.from_numpy(x.astype(np.float32)))), (f, name)
+            else:
+                np.testing.assert_array_equal(np.asarray(img),
+                                              np.asarray(jclahe(jnp.asarray(x, jnp.float32))),
+                                              err_msg=f"{f} {name}")
+    for x in {id(x): x for x in fed["port"] + fed["reference"]}.values():
+        np.testing.assert_allclose(tclahe(torch.from_numpy(x.astype(np.float32))).numpy(),
+                                   np.asarray(jclahe(jnp.asarray(x, jnp.float32))), atol=1e-3,
+                                   rtol=0)
+    for f in ("xy", "desc", "level", "valid"):
+        np.testing.assert_array_equal(_np(getattr(first["port"], f)),
+                                      _np(getattr(first["reference"], f)), err_msg=f)

@@ -26,7 +26,9 @@ branch only). Without `--device`, MONO runs the host `MonoTracker` and
 VI/VIP the host `VipTracker` (`frontend/vip_tracker.py`), one
 `process_frame` / `process_frame_vip` call per frame with the images and
 IMU windows uploaded before the clock starts (depth, its flag and the
-timestamp stay host values); `LoopC` switches their loop closer on. The
+timestamp stay host values); `LoopC` switches their loop closer on. On
+the card they replay their frames' segments as captured CUDA graphs
+(`host_tracker`; the trackers' `graphs=False` is the eager form). The
 `run_end` metrics event carries the run's host reads in every branch.
 
 `main(argv, device="cuda")` runs on the card unless the caller names
@@ -83,6 +85,58 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def load_inputs(s, bag=None, synthetic: int = 0):
+    """The run's frame bundles (a dict of per-frame arrays), camera and the
+    VI configuration's inertial fields: from the rosbag (`bag`, else the
+    settings' `bagfile`) and the settings `s`, or a rendered sequence of
+    `synthetic` frames."""
+    from uvipslam_torch.models.camera import FISHEYE, RADTAN, CameraModel
+
+    if synthetic:
+        from uvipslam_torch.io.synthetic import make_sequence
+        seq = make_sequence(n_frames=synthetic, H=240, W=320, n_points=4000, speed=1.2,
+                            z_amp=0.5, depth_noise=0.02)
+        bundles = dict(images=seq.images, timestamps=seq.timestamps, imu_omg=seq.imu_omg,
+                       imu_acc=seq.imu_acc, imu_dt=seq.imu_dt, imu_mask=seq.imu_mask,
+                       depth=seq.depth, depth_valid=seq.depth_valid)
+        cam = CameraModel.create(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2],
+                                 width=320, height=240)
+        imu_cfg = dict(gyr_noise_sd=0.01, acc_noise_sd=0.1, depth_noise_sd=0.05,
+                       vio_init_min_kfs=8, vio_init_min_time=2.5)
+        return bundles, cam, imu_cfg
+    from uvipslam_torch.io.bag import make_frame_bundles, read_bag
+    rb = read_bag(bag or s.bagfile, s.image_topic, s.imu_topic, s.depth_topic)
+    bundles = make_frame_bundles(rb, delay_to_imu=s.delay_to_imu)
+    cam = CameraModel.create(s.fx, s.fy, s.cx, s.cy, dist=(s.k1, s.k2, s.p1, s.p2),
+                             kind=FISHEYE if s.fisheye else RADTAN,
+                             width=s.width, height=s.height)
+    # Camera.Tbc rides along: every VI stage consumes the extrinsics
+    imu_cfg = dict(gyr_noise_sd=s.gyr_noise, acc_noise_sd=s.acc_noise,
+                   gyr_bias_rw2=s.gyr_rw ** 2, acc_bias_rw2=s.acc_rw ** 2,
+                   depth_noise_sd=s.depth_noise, vio_init_min_time=s.init_time,
+                   init_mode=s.init_mode,
+                   Tbc=tuple(map(tuple, np.asarray(s.Tbc, np.float64).tolist())))
+    return bundles, cam, imu_cfg
+
+
+def host_tracker(s, cam, imu_cfg: dict, device, graphs: bool | None = None):
+    """The host tracker of the settings' mode, as `main` runs it without
+    `--device`: `MonoTracker` for MONO, `VipTracker` for VI/VIP, `LoopC`
+    switching their loop closer on; `graphs` as the trackers take it (on
+    the card they replay their segments as CUDA graphs unless it is
+    False)."""
+    from uvipslam_torch.io.config import MONO
+
+    common = dict(n_tracks=s.n_features, px_distance=s.px_distance,
+                  local_window=s.local_window_size, enhance=bool(s.enhance),
+                  loop_closing=bool(s.loop_closing))
+    if s.mode == MONO:
+        from uvipslam_torch.frontend.tracker import MonoTracker, TrackerConfig
+        return MonoTracker(cam, TrackerConfig(**common), device=device, graphs=graphs)
+    from uvipslam_torch.frontend.vip_tracker import VipConfig, VipTracker
+    return VipTracker(cam, VipConfig(**common, **imu_cfg), device=device, graphs=graphs)
+
+
 def main(argv=None, device="cuda"):
     ap = argparse.ArgumentParser(prog="python -m uvipslam_torch.app")
     ap.add_argument("--settings", help="reference-schema YAML settings file")
@@ -107,7 +161,6 @@ def main(argv=None, device="cuda"):
     from uvipslam_torch.frontend.tracker import WORKING, step_device
     from uvipslam_torch.io.config import MONO, Settings, load_settings
     from uvipslam_torch.io.trajectory import save_tum_trajectory
-    from uvipslam_torch.models.camera import FISHEYE, RADTAN, CameraModel
     from uvipslam_torch.utils.metrics import MetricsLogger
 
     device = step_device(device)
@@ -120,31 +173,7 @@ def main(argv=None, device="cuda"):
     if args.mode is not None:
         s.mode = args.mode
 
-    if args.synthetic:
-        from uvipslam_torch.io.synthetic import make_sequence
-        seq = make_sequence(n_frames=args.synthetic, H=240, W=320, n_points=4000, speed=1.2,
-                            z_amp=0.5, depth_noise=0.02)
-        bundles = dict(images=seq.images, timestamps=seq.timestamps, imu_omg=seq.imu_omg,
-                       imu_acc=seq.imu_acc, imu_dt=seq.imu_dt, imu_mask=seq.imu_mask,
-                       depth=seq.depth, depth_valid=seq.depth_valid)
-        cam = CameraModel.create(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2],
-                                 width=320, height=240)
-        imu_cfg = dict(gyr_noise_sd=0.01, acc_noise_sd=0.1, depth_noise_sd=0.05,
-                       vio_init_min_kfs=8, vio_init_min_time=2.5)
-    else:
-        from uvipslam_torch.io.bag import make_frame_bundles, read_bag
-        bag = read_bag(args.bag or s.bagfile, s.image_topic, s.imu_topic, s.depth_topic)
-        bundles = make_frame_bundles(bag, delay_to_imu=s.delay_to_imu)
-        cam = CameraModel.create(s.fx, s.fy, s.cx, s.cy, dist=(s.k1, s.k2, s.p1, s.p2),
-                                 kind=FISHEYE if s.fisheye else RADTAN,
-                                 width=s.width, height=s.height)
-        # Camera.Tbc rides along: every VI stage consumes the extrinsics
-        imu_cfg = dict(gyr_noise_sd=s.gyr_noise, acc_noise_sd=s.acc_noise,
-                       gyr_bias_rw2=s.gyr_rw ** 2, acc_bias_rw2=s.acc_rw ** 2,
-                       depth_noise_sd=s.depth_noise, vio_init_min_time=s.init_time,
-                       init_mode=s.init_mode,
-                       Tbc=tuple(map(tuple, np.asarray(s.Tbc, np.float64).tolist())))
-
+    bundles, cam, imu_cfg = load_inputs(s, args.bag, args.synthetic)
     n_frames = len(bundles["timestamps"])
     ml = MetricsLogger(args.metrics, run_id=f"mode{s.mode}")
     # every frame's input goes to the device once, before the clock starts
@@ -189,11 +218,8 @@ def main(argv=None, device="cuda"):
         vio_ok = bool(getattr(st, "vio_ok", False))
         host_reads = step.host_syncs
     elif s.mode == MONO:
-        from uvipslam_torch.frontend.tracker import MonoTracker, TrackerConfig
-        cfg = TrackerConfig(n_tracks=s.n_features, px_distance=s.px_distance,
-                            local_window=s.local_window_size, enhance=bool(s.enhance),
-                            loop_closing=bool(s.loop_closing))
-        st = MonoTracker(cam, cfg, device=device)
+        st = host_tracker(s, cam, imu_cfg, device)
+        cfg = st.cfg
         t0 = time.time()
         for f in range(n_frames):
             ml.frame(f, st.process_frame(xs[f]))
@@ -201,11 +227,8 @@ def main(argv=None, device="cuda"):
         wall = time.time() - t0
         vio_ok = False
     else:
-        from uvipslam_torch.frontend.vip_tracker import VipConfig, VipTracker
-        cfg = VipConfig(n_tracks=s.n_features, px_distance=s.px_distance,
-                        local_window=s.local_window_size, enhance=bool(s.enhance),
-                        loop_closing=bool(s.loop_closing), **imu_cfg)
-        st = VipTracker(cam, cfg, device=device)
+        st = host_tracker(s, cam, imu_cfg, device)
+        cfg = st.cfg
         imu = [torch.from_numpy(np.asarray(bundles[k], np.float32)).to(device)
                for k in ("imu_omg", "imu_acc", "imu_dt", "imu_mask")]
         depth = np.asarray(bundles["depth"], np.float64)

@@ -33,6 +33,41 @@ def tree_map(fn, tree, *rest):
     return tree
 
 
+def attr_state(obj, skip=()) -> tuple[dict, dict]:
+    """An object's state attribute by attribute, for holding two runs
+    alike: the tensor leaves under each attribute (through dataclasses,
+    tuples, lists and dicts; a `torch.Generator` gives its state) and the
+    host values (ints, floats, bools, strings, None) of the others, both
+    in the order of the attributes' names. Attributes named in `skip` are
+    left out."""
+    def walk(x, out):
+        if isinstance(x, torch.Tensor):
+            out.append(x)
+        elif isinstance(x, torch.Generator):
+            out.append(x.get_state())
+        elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name), out)
+        elif isinstance(x, (tuple, list)):
+            for y in x:
+                walk(y, out)
+        elif isinstance(x, dict):
+            for y in x.values():
+                walk(y, out)
+        return out
+
+    leaves, host = {}, {}
+    for k, v in sorted(vars(obj).items()):
+        if k in skip:
+            continue
+        ts = walk(v, [])
+        if ts:
+            leaves[k] = ts
+        elif isinstance(v, (int, float, bool, str, type(None))):
+            host[k] = v
+    return leaves, host
+
+
 def row(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """a[k] for a device-scalar index k, clamped like a JAX gather."""
     k = k.reshape(1).long().clamp(0, a.shape[0] - 1)

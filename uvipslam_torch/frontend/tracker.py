@@ -20,6 +20,23 @@ the candidate keyframes, then the seeds' inlier counts in LOST. A stored
 trajectory pose stays on the device until `trajectory_positions`. One
 `torch.Generator` seeded from `seed` takes the place of the reference's
 PRNG key.
+
+A frame is cut at those reads into segments, the counterparts of the
+reference's compiled stages, run through the tracker's one
+`utils.graphs.Segments` (`self.segments`, which the loop closer shares):
+F, CLAHE (with `enhance`: its image then stands for the frame in every
+later stage, as in the reference) and the image's pyramid with the
+propagation (and the NOT_INITIALIZED frame's detection); T, the WORKING solve up to its read; C, the accepted
+frame's refill and refresh (and the pose ring when no keyframe follows);
+K, the keyframe up to its read (triangulation, insertion, hygiene, the
+window BA, the pose adopted from the keyframe); R, the pose ring. Each
+segment takes the attributes it reads as a dict and hands back those it
+writes; the host values it reads (the frame id, the last keyframe's
+slot) enter as device scalars made beside the host copies (`_dev`), so
+no per-frame Python value is baked into a graph. With `graphs` on (the
+default on a CUDA device) the segments replay captured CUDA graphs; off,
+the same segments run eagerly, bit for bit alike. The two-view bootstrap
+and the relocalization draw from `gen` and stay eager.
 """
 
 from __future__ import annotations
@@ -34,7 +51,7 @@ from uvipslam_torch.core import lie
 from uvipslam_torch.core.lie import mm, mv
 from uvipslam_torch.core.preintegration import PreintState
 from uvipslam_torch.core.state import NavState
-from uvipslam_torch.core.tree import row, tree_map
+from uvipslam_torch.core.tree import put_row, row, tree_map
 from uvipslam_torch.frontend.frame import (Tracks, propagate_tracks, refill_tracks,
                                            refresh_descriptors)
 from uvipslam_torch.loop.reloc import relocalize_frame
@@ -47,6 +64,7 @@ from uvipslam_torch.ops.klt import build_flow_pyramid
 from uvipslam_torch.ops.twoview import draw_uniform, initialize_two_view, triangulate_linear
 from uvipslam_torch.solver.local_ba import local_ba_se3
 from uvipslam_torch.solver.pose_opt import pose_optimization_se3
+from uvipslam_torch.utils.graphs import Segments
 
 NOT_INITIALIZED = 0
 INITIALIZING = 1
@@ -312,15 +330,23 @@ def _set_row(a: torch.Tensor, k: int, v) -> torch.Tensor:
 
 class MonoTracker:
     """Host-side orchestration of the mono VO pipeline: `process_frame`
-    per image, a status dict of host values back."""
+    per image, a status dict of host values back. `graphs` (default: on
+    for a CUDA device, off on the CPU) replays the frames' segments as
+    captured graphs (`self.segments`); `graphs=False` is the eager form,
+    and `graphs=True` on the CPU runs the captures' plain form."""
 
     RING = 64
+    # attributes that hold no state of a frame's (`core.tree.attr_state`)
+    NOT_STATE = ("cam", "cfg", "segments", "loop_closer", "graphs")
 
     def __init__(self, cam: CameraModel, cfg: TrackerConfig | None = None,
-                 kf_cap: int = 128, pt_cap: int = 8192, seed: int = 0, device="cuda"):
+                 kf_cap: int = 128, pt_cap: int = 8192, seed: int = 0, device="cuda",
+                 graphs: bool | None = None):
         self.cam = cam
         self.cfg = cfg or TrackerConfig()
         self.device = dev = step_device(device)
+        self.graphs = dev.type == "cuda" if graphs is None else bool(graphs)
+        self.segments = Segments(dev, graphs=self.graphs)
         f32 = dict(dtype=torch.float32, device=dev)
         self.state = NOT_INITIALIZED
         self.tracks = Tracks.empty(self.cfg.n_tracks, device=dev)
@@ -353,7 +379,7 @@ class MonoTracker:
             self.loop_closer = LoopCloser(
                 cam.fx, cam.fy, cam.cx, cam.cy,
                 min_sim3_inliers=self.cfg.loop_min_sim3_inliers,
-                min_total_matches=None if mt < 0 else mt, device=dev)
+                min_total_matches=None if mt < 0 else mt, device=dev, segments=self.segments)
         self.loop_events = []       # (frame_id, loop_kf) for diagnostics
 
     # ------------------------------------------------------------------
@@ -363,27 +389,52 @@ class MonoTracker:
         self.host_syncs += 1
         return torch.cat([x.reshape(-1).to(torch.int64) for x in xs]).tolist()
 
+    def _dev(self) -> dict:
+        """The host values the segments read, as device scalars made by
+        fills (no host-to-device copy): the frame id and the last
+        keyframe's slot."""
+        i32 = dict(dtype=torch.int32, device=self.device)
+        return dict(frame=torch.full((), self.frame_id, **i32),
+                    last_kf=torch.full((), self.last_kf_slot, **i32))
+
+    def _seg(self, key: tuple, fn, names: tuple, *trees):
+        """fn(attrs, *trees) as the segment `key`, attrs the dict of the
+        attributes `names`: fn returns (a dict of attributes to set, its
+        outputs). Sets those attributes and returns the outputs. `fn` reads
+        tensors only through its arguments and Python values only of
+        `key` (a capture bakes in whatever else it reads)."""
+        new, out = self.segments.run(key, fn, {n: getattr(self, n) for n in names}, *trees)
+        for n, v in new.items():
+            setattr(self, n, v)
+        return out
+
+    def _upload(self, x) -> torch.Tensor:
+        """A frame's input on the device in float32 at a 16-byte aligned
+        offset: a view into the caller's stacked frames that sits
+        elsewhere is copied (a graph is specialized to its inputs'
+        alignment, which would otherwise change from frame to frame)."""
+        t = torch.as_tensor(x).to(device=self.device, dtype=torch.float32)
+        return t.clone() if t.storage_offset() * t.element_size() % 16 else t
+
     def process_frame(self, img) -> dict:
         """Feed one grayscale frame [H, W] (numpy or tensor). Returns a
         dict of host status values."""
         cfg = self.cfg
         self.frame_id += 1
-        img = torch.as_tensor(img).to(device=self.device, dtype=torch.float32)
-        if cfg.enhance:
-            img = clahe(img)
-        pyr = tuple(build_flow_pyramid(img, cfg.n_levels_klt))
+        img = self._upload(img)
+        s = self.state
+        prop = self.pyr_prev is not None and s != NOT_INITIALIZED
+        detect, und = s == NOT_INITIALIZED, s in (INITIALIZING, WORKING)
+        u = draw_uniform(self.gen, 200, self.tracks.n_slots, self.device) if prop else None
+        # with `enhance` the frame's CLAHE image stands for it from here on
+        pyr, n_valid, img = self._seg(
+            ("F", prop, detect, und),
+            lambda S, x, u_, sc: self._front(S, x, u_, sc, prop=prop, detect=detect, und=und),
+            ("tracks", "map", "pyr_prev", "Rcw", "tcw", "R_vel", "t_vel"), img, u, self._dev())
 
-        if self.pyr_prev is not None and self.state != NOT_INITIALIZED:
-            guess, guess_ok = self._motion_guesses()
-            u = draw_uniform(self.gen, 200, self.tracks.n_slots, self.device)
-            self.tracks = propagate_tracks(
-                self.tracks, self.pyr_prev, pyr, guess, guess_ok, None,
-                win=cfg.klt_win, iters=cfg.klt_iters, levels=cfg.n_levels_klt, u=u)
-
-        status = {}
-        if self.state == NOT_INITIALIZED:
-            self.tracks = self._undistort(self._refill(self.tracks, img))
-            n = self._read(torch.sum(self.tracks.valid))[0]
+        status, ringed = {}, False
+        if s == NOT_INITIALIZED:
+            n = self._read(n_valid)[0]
             if n >= cfg.min_init_tracks:
                 self.tracks = dataclasses.replace(
                     self.tracks,
@@ -393,8 +444,7 @@ class MonoTracker:
                 self.state = INITIALIZING
             status.update(state="NOT_INITIALIZED", n_tracks=n)
 
-        elif self.state == INITIALIZING:
-            self.tracks = self._undistort(self.tracks)
+        elif s == INITIALIZING:
             ok = self._try_initialize()
             # top up and keep trying; restart when too few candidates
             # survive (the tracks are those the attempt counted)
@@ -404,55 +454,149 @@ class MonoTracker:
                 self.tracks = Tracks.empty(cfg.n_tracks, device=self.device)
             status.update(state="INITIALIZING", initialized=ok)
 
-        elif self.state == WORKING:
-            self.tracks = self._undistort(self.tracks)
+        elif s == WORKING:
             n_in = self._track_frame()
             if n_in < cfg.min_tracked:
                 self.state = LOST
                 status.update(state="LOST", n_inliers=n_in)
             else:
-                tracks = self._refill(self.tracks, img)
-                tracks = self._undistort(refresh_descriptors(tracks, img))
-                newborn = tracks.birth_frame == self.frame_id
-                self.tracks = dataclasses.replace(tracks, birth_xy_und=torch.where(
-                    newborn[:, None], tracks.xy_und, tracks.birth_xy_und))
-                if self._need_keyframe(n_in):
+                need = self._need_keyframe(n_in)
+                self._accept_frame(img, ring=not need)
+                ringed = not need
+                if need:
                     self._create_keyframe()
                 status.update(state="WORKING", n_inliers=n_in)
 
-        elif self.state == LOST:
+        elif s == LOST:
             ok = self._relocalize(img)
             status.update(state="WORKING" if ok else "LOST", relocalized=ok)
 
         self.pyr_prev = pyr
         if self.state == WORKING:
-            slot = self.frame_id % self.RING
-            self.ring_R = _set_row(self.ring_R, slot, self.Rcw)
-            self.ring_t = _set_row(self.ring_t, slot, self.tcw)
-            self.ring_frame = _set_row(self.ring_frame, slot, self.frame_id)
+            if not ringed:
+                self._write_ring()
             self.trajectory.append((self.frame_id, self.Rcw, self.tcw))
         return status
 
+    # -- the segments' stages (pure functions of their arguments) ---------
+    def _pyramid(self, img):
+        return tuple(build_flow_pyramid(img, self.cfg.n_levels_klt))
+
+    def _propagate(self, tracks: Tracks, pyr_prev, pyr, guess, guess_ok, u) -> Tracks:
+        cfg = self.cfg
+        return propagate_tracks(tracks, pyr_prev, pyr, guess, guess_ok, None, win=cfg.klt_win,
+                                iters=cfg.klt_iters, levels=cfg.n_levels_klt, u=u)
+
+    def _front(self, S, img, u, sc, prop: bool, detect: bool, und: bool):
+        """Segment F: CLAHE (with `enhance`), the pyramid, the propagation
+        from the motion-model guesses, the NOT_INITIALIZED frame's
+        detection, the undistortion; the pyramid, the valid track count
+        and the image the frame's later stages detect and describe on (the
+        CLAHE image with `enhance`) out."""
+        if self.cfg.enhance:
+            img = clahe(img)
+        pyr = self._pyramid(img)
+        t = S["tracks"]
+        if prop:
+            guess, guess_ok = self._motion_guesses(S)
+            t = self._propagate(t, S["pyr_prev"], pyr, guess, guess_ok, u)
+        if detect:
+            t = self._refill(t, img, sc["frame"])
+        if detect or und:
+            t = self._undistort(t)
+        return {"tracks": t}, (pyr, torch.sum(t.valid), img)
+
+    def _solve(self, S):
+        """Segment T: pose solve on the associated tracks, local-map
+        search, second pose solve, and the pose and motion model the
+        solve would set; taken after the read when it holds."""
+        cam = self.cam
+        R1, t1, _, n1, tracks2 = _pose_and_localmap(
+            S["tracks"], S["map"], mm(S["R_vel"], S["Rcw"]), mv(S["R_vel"], S["tcw"]) + S["t_vel"],
+            cam.fx, cam.fy, cam.cx, cam.cy, self.scale_sigmas)
+        Rinv, tinv = lie.se3_inverse(S["Rcw"], S["tcw"])
+        R_vel, t_vel = lie.se3_compose(R1, t1, Rinv, tinv)
+        return {}, (n1, dict(Rcw=lie.normalize_rotation(R1), tcw=t1, tracks=tracks2,
+                             R_vel=lie.normalize_rotation(R_vel), t_vel=t_vel))
+
+    def _top_up(self, t: Tracks, img, frame) -> Tracks:
+        """Refill and descriptor refresh of an accepted frame's tracks; the
+        newborn tracks' birth position is their undistorted one."""
+        t = self._undistort(refresh_descriptors(self._refill(t, img, frame), img))
+        newborn = t.birth_frame == frame
+        return dataclasses.replace(t, birth_xy_und=torch.where(
+            newborn[:, None], t.xy_und, t.birth_xy_und))
+
+    def _ring(self, S, frame) -> dict:
+        """The pose ring with the frame's pose at slot frame % RING."""
+        slot = torch.remainder(frame, self.RING)
+        return dict(ring_R=put_row(S["ring_R"], slot, S["Rcw"]),
+                    ring_t=put_row(S["ring_t"], slot, S["tcw"]),
+                    ring_frame=put_row(S["ring_frame"], slot, frame))
+
+    def _accept(self, S, img, sc, ring: bool):
+        """Segment C of a mono frame: the top-up, and the pose ring when
+        no keyframe follows."""
+        new = {"tracks": self._top_up(S["tracks"], img, sc["frame"])}
+        if ring:
+            new.update(self._ring(S, sc["frame"]))
+        return new, None
+
+    def _keyframe(self, S, sc, hygiene: bool):
+        """Segment K: triangulate new landmarks against their birth poses,
+        insert the keyframe, map hygiene, window BA; the pose adopted from
+        the keyframe; its slot and the reference track count out."""
+        cam, t, fr = self.cam, S["tracks"], sc["frame"]
+        m, t = _triangulate_new(S["map"], t, S["ring_R"], S["ring_t"], S["ring_frame"],
+                                S["Rcw"], S["tcw"], cam.fx, cam.fy, cam.cx, cam.cy, fr,
+                                sc["last_kf"])
+        m, k = m.add_keyframe(_cam_pose_to_ns(S["Rcw"], S["tcw"]), fr.to(torch.float32), fr,
+                              t.xy_und, t.desc, t.level, t.angle, t.valid, t.pt_id, 0.0, False,
+                              self.zero_preint, sc["last_kf"])
+        if hygiene:
+            m, t = self._run_hygiene(m, t, fr, S["Rcw"], S["tcw"])
+        m = self._run_local_ba(m)
+        Rcw, tcw = _ns_to_cam_pose(_nav_row(m.kf_ns, k))
+        return dict(map=m, tracks=t, Rcw=Rcw, tcw=tcw), (k, torch.sum(t.valid & (t.pt_id >= 0)))
+
+    def _set_ring_pose_eagerly(self, frame: int, R, t):
+        """The pose ring's slot of `frame` set to (R, t), eagerly."""
+        S = dict(ring_R=self.ring_R, ring_t=self.ring_t, ring_frame=self.ring_frame, Rcw=R, tcw=t)
+        for k, v in self._ring(S, torch.full((), frame, dtype=torch.int32,
+                                             device=self.device)).items():
+            setattr(self, k, v)
+
+    # -- the frame's segments, run ------------------------------------------
+    def _accept_frame(self, img, ring: bool):
+        self._seg(("C", False, ring), lambda S, x, sc: self._accept(S, x, sc, ring=ring),
+                  ("tracks", "ring_R", "ring_t", "ring_frame", "Rcw", "tcw"), img, self._dev())
+
+    def _write_ring(self):
+        """Segment R: the pose ring's slot of this frame."""
+        self._seg(("R",), lambda S, sc: (self._ring(S, sc["frame"]), None),
+                  ("ring_R", "ring_t", "ring_frame", "Rcw", "tcw"), self._dev())
+
     # ------------------------------------------------------------------
-    def _refill(self, tracks: Tracks, img) -> Tracks:
-        return refill_tracks(tracks, img, self.frame_id, n_features=self.cfg.n_tracks,
+    def _refill(self, tracks: Tracks, img, frame) -> Tracks:
+        return refill_tracks(tracks, img, frame, n_features=self.cfg.n_tracks,
                              px_distance=self.cfg.px_distance)
 
     def _undistort(self, tracks: Tracks) -> Tracks:
         return dataclasses.replace(tracks, xy_und=self.cam.undistort_pixels(tracks.xy))
 
-    def _motion_guesses(self):
+    def _motion_guesses(self, S):
         """Landmarks projected with the motion-model pose: the KLT
         initial guesses."""
         cam = self.cam
-        return _motion_guess(self.tracks, self.map, mm(self.R_vel, self.Rcw),
-                             mv(self.R_vel, self.tcw) + self.t_vel,
-                             cam.fx, cam.fy, cam.cx, cam.cy)
+        return _motion_guess(S["tracks"], S["map"], mm(S["R_vel"], S["Rcw"]),
+                             mv(S["R_vel"], S["tcw"]) + S["t_vel"], cam.fx, cam.fy, cam.cx,
+                             cam.cy)
 
     # ------------------------------------------------------------------
     def _try_initialize(self) -> bool:
         """H/F two-view bootstrap: the initial map of two keyframes, the
-        median depth normalized to 1, refined by the window BA."""
+        median depth normalized to 1, refined by the window BA (eager: the
+        reconstruction draws from `gen`)."""
         cfg, dev, t = self.cfg, self.device, self.tracks
         cand = t.valid & (t.birth_frame == self.init_frame_id)
         self.n_init_cand = self._read(torch.sum(cand))[0]
@@ -487,36 +631,28 @@ class MonoTracker:
 
         self.map = m
         self.tracks = dataclasses.replace(t, pt_id=feat_pt)
-        self.Rcw, self.tcw = _ns_to_cam_pose(_nav_row(m.kf_ns, 1))
+        # keyframe 1's pose as a row of its own (the layout every later
+        # keyframe's adopted pose has)
+        self.Rcw, self.tcw = _ns_to_cam_pose(_nav_row(m.kf_ns, k1))
         self.R_vel, self.t_vel = eye, zero3
         self.last_kf_slot, self.n_ref_tracked = self._read(k1, torch.sum(good))
         self.last_kf_frame = self.frame_id
         # the init frame's pose (identity), so that tracks born then can
         # triangulate against their birth pose
-        slot0 = self.init_frame_id % self.RING
-        self.ring_R = _set_row(self.ring_R, slot0, eye)
-        self.ring_t = _set_row(self.ring_t, slot0, zero3)
-        self.ring_frame = _set_row(self.ring_frame, slot0, self.init_frame_id)
+        self._set_ring_pose_eagerly(self.init_frame_id, eye, zero3)
         self.state = WORKING
         return True
 
     # ------------------------------------------------------------------
     def _track_frame(self) -> int:
-        """Pose solve on the associated tracks, local-map search, second
-        pose solve; the motion model follows the new pose."""
-        cam = self.cam
-        R1, t1, _, n1, tracks2 = _pose_and_localmap(
-            self.tracks, self.map, mm(self.R_vel, self.Rcw), mv(self.R_vel, self.tcw) + self.t_vel,
-            cam.fx, cam.fy, cam.cx, cam.cy, self.scale_sigmas)
+        """Segment T up to its read; when the solve holds, the pose, the
+        motion model following it and the tracks are taken."""
+        n1, upd = self._seg(("T",), self._solve, ("tracks", "map", "Rcw", "tcw", "R_vel",
+                                                  "t_vel"))
         n1 = self._read(n1)[0]
-        if n1 < self.cfg.min_tracked:
-            return n1
-        R_prev, t_prev = self.Rcw, self.tcw
-        self.Rcw, self.tcw = lie.normalize_rotation(R1), t1
-        Rinv, tinv = lie.se3_inverse(R_prev, t_prev)
-        R_vel, self.t_vel = lie.se3_compose(R1, t1, Rinv, tinv)
-        self.R_vel = lie.normalize_rotation(R_vel)
-        self.tracks = tracks2
+        if n1 >= self.cfg.min_tracked:
+            for k, v in upd.items():
+                setattr(self, k, v)
         return n1
 
     # ------------------------------------------------------------------
@@ -529,34 +665,24 @@ class MonoTracker:
         return n_in < self.cfg.kf_track_ratio * max(self.n_ref_tracked, 1)
 
     def _create_keyframe(self):
-        """Triangulate new landmarks against their birth poses, insert the
-        keyframe, map hygiene, window BA; the pose follows the BA."""
-        cam, t = self.cam, self.tracks
-        m, t = _triangulate_new(self.map, t, self.ring_R, self.ring_t, self.ring_frame,
-                                self.Rcw, self.tcw, cam.fx, cam.fy, cam.cx, cam.cy,
-                                self.frame_id, self.last_kf_slot)
-        m, k = m.add_keyframe(_cam_pose_to_ns(self.Rcw, self.tcw), float(self.frame_id),
-                              self.frame_id, t.xy_und, t.desc, t.level, t.angle, t.valid,
-                              t.pt_id, 0.0, False, self.zero_preint, self.last_kf_slot)
-        m, t = self._run_hygiene(m, t)
-        m = self._run_local_ba(m)
-        self.map, self.tracks = m, t
-        k, self.n_ref_tracked = self._read(k, torch.sum(t.valid & (t.pt_id >= 0)))
-        self.Rcw, self.tcw = _ns_to_cam_pose(_nav_row(m.kf_ns, k))
+        """Segment K up to its read, then the keyframe's bookkeeping and
+        the loop closer's pass."""
+        hyg = self.cfg.map_hygiene
+        k, n_ref = self._seg(("K", False, hyg), lambda S, sc: self._keyframe(S, sc, hygiene=hyg),
+                             ("map", "tracks", "ring_R", "ring_t", "ring_frame", "Rcw", "tcw"),
+                             self._dev())
+        k, self.n_ref_tracked = self._read(k, n_ref)
         self.last_kf_slot = k
         self.last_kf_frame = self.frame_id
         self._maybe_close_loop(k)
 
     # ------------------------------------------------------------------
-    def _run_hygiene(self, m: MapState, t: Tracks):
-        """Landmark culling and recent-duplicate fusion at each keyframe;
-        tracks lose associations to landmarks that went."""
-        if not self.cfg.map_hygiene:
-            return m, t
+    def _run_hygiene(self, m: MapState, t: Tracks, frame, Rcw, tcw):
+        """Landmark culling and recent-duplicate fusion at each keyframe
+        (`map_hygiene`); tracks lose associations to landmarks that went."""
         cam = self.cam
-        m = cull_points(m, self.frame_id)
-        m = fuse_duplicates_recent(m, self.frame_id, self.Rcw, self.tcw, cam.fx, cam.fy,
-                                   cam.cx, cam.cy)
+        m = cull_points(m, frame)
+        m = fuse_duplicates_recent(m, frame, Rcw, tcw, cam.fx, cam.fy, cam.cx, cam.cy)
         pid = t.pt_id.clamp(0, m.pt_cap - 1).long()
         alive = (t.pt_id >= 0) & m.pt_valid[pid]
         return m, dataclasses.replace(
@@ -582,8 +708,7 @@ class MonoTracker:
         the pose + local-map solve; the best seed is taken back to
         WORKING when it holds max(min_tracked, 15) inliers."""
         cfg, cam, dev = self.cfg, self.cam, self.device
-        fresh = refill_tracks(Tracks.empty(cfg.n_tracks, device=dev), img, self.frame_id,
-                              n_features=cfg.n_tracks, px_distance=cfg.px_distance)
+        fresh = self._refill(Tracks.empty(cfg.n_tracks, device=dev), img, self.frame_id)
         fresh = self._undistort(refresh_descriptors(fresh, img))
         R, t, pt_id, n_in, top_kfs = relocalize_frame(fresh, self.map, self.gen,
                                                       cam.fx, cam.fy, cam.cx, cam.cy)

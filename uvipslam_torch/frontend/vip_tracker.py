@@ -25,6 +25,27 @@ tracker's device. Each host decision is one counted read (`host_syncs`);
 the keyframe window's fill level stays on the device, so the sample
 stash reads nothing. As in the reference, CLAHE (`enhance`) applies to
 the frames of the mono bootstrap only.
+
+A frame runs as `MonoTracker`'s segments, cut at its reads: A, the
+frame's two preintegrations (plain inside the capture), the sample stash
+and the specific-force sum, ahead of every frame; before VIO init the
+mono frame's F, T, C, K and R (K storing the IMU window, time and
+depth); a VI frame's B (the pyramid, the IMU prediction, the
+propagation and lane 0's VI solve, up to its read), L (the first-try
+associations up to their read) and L2 (the lane-1 solve up to its
+read), then C (the accepted solve, the top-up and, without a keyframe,
+the ring) or I (the dead reckoning into IMU_RELOC with its fresh
+detection); the VI keyframe's K (the window re-integrated at the bias,
+triangulation, insertion, hygiene and the VI BA up to its read); a
+recovery frame's Q (the dead reckoning and the propagation up to its
+read) and N (a re-anchor's fresh detection). The frame time, the depth
+flag, the frame id and the last keyframe's slot enter as device scalars
+(`_dev`). The loops outside any segment (the VIO init's full-map BA,
+gyro biases and re-integrations, the post-recovery bias recompute, the
+recovery's two re-integrations, the closer's NavState BA) run through
+`self.segments.scan`. The two-view re-anchor of the recovery draws from
+`gen` and stays eager, as do the VIO init and the recovery around their
+loops.
 """
 
 from __future__ import annotations
@@ -39,7 +60,7 @@ from uvipslam_torch.core.lie import mm, mv
 from uvipslam_torch.core.preintegration import PreintState, preintegrate, preintegrate_continue
 from uvipslam_torch.core.state import NavState
 from uvipslam_torch.core.tree import row, tree_map
-from uvipslam_torch.frontend.frame import Tracks, propagate_tracks, refresh_descriptors
+from uvipslam_torch.frontend.frame import Tracks
 from uvipslam_torch.frontend.tracker import (IMU_RELOC, WORKING, MonoTracker, TrackerConfig,
                                              _cam_pose_to_ns, _cam_pose_to_ns_ext, _inv_sigma,
                                              _motion_guess, _nav_row, _ns_to_cam_pose,
@@ -47,7 +68,6 @@ from uvipslam_torch.frontend.tracker import (IMU_RELOC, WORKING, MonoTracker, Tr
 from uvipslam_torch.loop.reloc import first_try_associations
 from uvipslam_torch.mapstate.map import MapState
 from uvipslam_torch.ops import hamming
-from uvipslam_torch.ops.klt import build_flow_pyramid
 from uvipslam_torch.ops.twoview import draw_uniform, initialize_two_view
 from uvipslam_torch.solver.global_ba import global_ba_navstate, global_ba_visual
 from uvipslam_torch.solver.local_ba import local_ba_navstate
@@ -210,12 +230,12 @@ def gravity_alignment(g_dir, g_cfg_dir):
 class VipTracker(MonoTracker):
     """Host-orchestrated VIP pipeline: `process_frame_vip` per frame
     bundle, a status dict of host values back. On the card unless
-    `device` names another."""
+    `device` names another; `graphs` as `MonoTracker` takes it."""
 
     def __init__(self, cam, cfg: VipConfig | None = None, kf_cap: int = 128,
-                 pt_cap: int = 8192, seed: int = 0, device="cuda"):
+                 pt_cap: int = 8192, seed: int = 0, device="cuda", graphs: bool | None = None):
         cfg = cfg or VipConfig()
-        super().__init__(cam, cfg, kf_cap, pt_cap, seed, device)
+        super().__init__(cam, cfg, kf_cap, pt_cap, seed, device, graphs)
         dev = self.device
         self.vio_ok = False
         self.gravity_w = torch.tensor(cfg.gravity, dtype=torch.float32).to(dev)
@@ -243,39 +263,50 @@ class VipTracker(MonoTracker):
         # the frame-to-frame 15-dof marginal prior
         self._reset_marginal_prior()
 
-    def _reset_marginal_prior(self):
-        self.H_prior = torch.eye(15, dtype=torch.float32, device=self.device) * 1e2
+    def _prior0(self) -> torch.Tensor:
+        return torch.eye(15, dtype=torch.float32, device=self.device) * 1e2
 
-    def _reset_kf_accumulators(self):
+    def _reset_marginal_prior(self):
+        self.H_prior = self._prior0()
+
+    def _zero_accumulators(self):
+        """The since-keyframe preintegration and raw window, emptied."""
         S, dev = self.cfg.imu_cap_per_kf, self.device
         f32 = dict(dtype=torch.float32, device=dev)
-        self.preint_kf = PreintState.zero((), device=dev)
-        self.kf_imu = dict(omg=torch.zeros((S, 3), **f32), acc=torch.zeros((S, 3), **f32),
-                           dt=torch.zeros((S,), **f32), mask=torch.zeros((S,), **f32),
-                           n=torch.zeros((), dtype=torch.int32, device=dev))
+        return PreintState.zero((), device=dev), dict(
+            omg=torch.zeros((S, 3), **f32), acc=torch.zeros((S, 3), **f32),
+            dt=torch.zeros((S,), **f32), mask=torch.zeros((S,), **f32),
+            n=torch.zeros((), dtype=torch.int32, device=dev))
+
+    def _reset_kf_accumulators(self):
+        self.preint_kf, self.kf_imu = self._zero_accumulators()
 
     def _readf(self, *xs: torch.Tensor) -> list:
         """One host read of device values -> a flat list of Python floats."""
         self.host_syncs += 1
         return torch.cat([x.reshape(-1).to(torch.float64) for x in xs]).tolist()
 
+    def _dev(self) -> dict:
+        """`MonoTracker._dev`, and the frame time and the depth flag."""
+        return dict(super()._dev(),
+                    time=torch.full((), self.frame_time, dtype=torch.float32, device=self.device),
+                    depth_valid=torch.full((), self.cur_depth_valid, dtype=torch.bool,
+                                           device=self.device))
+
     def _cam_pose(self, ns: NavState):
         return _ns_to_cam_pose_ext(ns, self.Rcb, self.tcb)
 
-    def _depth_override(self, ns: NavState) -> NavState:
-        """Clamp the dead-reckoned z to the pressure depth (world z ==
-        depth after the VIO init's anchoring)."""
-        if not self.cur_depth_valid:
-            return ns
+    def _depth_override(self, ns: NavState, depth, valid) -> NavState:
+        """Clamp the dead-reckoned z to the pressure depth where it is
+        valid (world z == depth after the VIO init's anchoring)."""
         p = ns.p.clone()
-        p[2] = self.cur_depth
+        p[2] = torch.where(valid, depth, ns.p[2])
         return dataclasses.replace(ns, p=p)
 
-    def _stash(self, omg, acc, dt, mask):
-        """The frame's first sum(mask) samples into the keyframe window at
-        its fill level (the reference's `imu[:take]`: the valid samples
+    def _stash(self, w: dict, omg, acc, dt, mask) -> dict:
+        """The frame's first sum(mask) samples into the keyframe window `w`
+        at its fill level (the reference's `imu[:take]`: the valid samples
         are taken to come first), on the device."""
-        w = self.kf_imu
         S, T = w["dt"].shape[0], dt.shape[0]
         n0 = w["n"]
         lane = torch.arange(T, dtype=torch.int32, device=self.device)
@@ -289,8 +320,8 @@ class VipTracker(MonoTracker):
             return out[:S]
 
         take = torch.clamp(torch.minimum(nsamp, S - n0), min=0)
-        self.kf_imu = dict(omg=put(w["omg"], omg), acc=put(w["acc"], acc), dt=put(w["dt"], dt),
-                           mask=put(w["mask"], mask), n=(n0 + take).to(torch.int32))
+        return dict(omg=put(w["omg"], omg), acc=put(w["acc"], acc), dt=put(w["dt"], dt),
+                    mask=put(w["mask"], mask), n=(n0 + take).to(torch.int32))
 
     # ------------------------------------------------------------------
     def process_frame_vip(self, img, imu_omg, imu_acc, imu_dt, imu_mask, depth=0.0,
@@ -299,12 +330,8 @@ class VipTracker(MonoTracker):
         since the previous frame ([T, 3], [T, 3], [T], [T]; numpy or
         tensors), the pressure depth, its flag and the timestamp (host
         values). Returns a dict of host status values."""
-        cfg, dev = self.cfg, self.device
-
-        def f32(a):
-            return torch.as_tensor(a).to(device=dev, dtype=torch.float32)
-
-        omg, acc, dt, mask = f32(imu_omg), f32(imu_acc), f32(imu_dt), f32(imu_mask)
+        dev = self.device
+        imu = tuple(self._upload(a) for a in (imu_omg, imu_acc, imu_dt, imu_mask))
         self.cur_depth = torch.full((), float(depth), dtype=torch.float32, device=dev)
         self.cur_depth_valid = bool(depth_valid)
         if timestamp is not None:
@@ -312,20 +339,12 @@ class VipTracker(MonoTracker):
         else:
             self.frame_time += self.dt_frame
 
-        # frame-to-frame preintegration at the current bias estimate
-        pre_frame = preintegrate(omg, acc, dt, mask, self.ns.bg_total, self.ns.ba_total,
-                                 cfg.gyr_noise_sd, cfg.acc_noise_sd)
-        # since the last keyframe at zero bias (re-integrated at VIO init)
-        z3 = torch.zeros(3, dtype=torch.float32, device=dev)
-        self.preint_kf = preintegrate_continue(self.preint_kf, omg, acc, dt, mask, z3, z3,
-                                               cfg.gyr_noise_sd, cfg.acc_noise_sd)
-        self._stash(omg, acc, dt, mask)
-
-        # world-frame specific force for the gravity estimate
-        if not self.vio_ok and self.state == WORKING:
-            Rwb = mm(self.Rcw.transpose(-1, -2), self.Rcb)
-            mean_acc = torch.sum(acc * mask[:, None], 0) / torch.clamp(torch.sum(mask), min=1.0)
-            self.accw_sum = self.accw_sum + mv(Rwb, mean_acc)
+        # the frame-to-frame preintegration at the current bias, the one
+        # since the last keyframe at zero bias, the stash and (tracking
+        # before VIO init) the world-frame specific force
+        accw = not self.vio_ok and self.state == WORKING
+        pre_frame = self._seg(("A", accw), lambda S, w: self._inertial(S, w, accw=accw),
+                              ("ns", "preint_kf", "kf_imu", "accw_sum", "Rcw"), imu)
 
         if self.vio_ok and self.state == IMU_RELOC:
             return self._process_frame_recovery(img, pre_frame)
@@ -339,126 +358,196 @@ class VipTracker(MonoTracker):
             return status
         return self._process_frame_vi(img, pre_frame)
 
+    def _inertial(self, S, w, accw: bool):
+        """Segment A (see `process_frame_vip`); the frame's
+        preintegration out."""
+        cfg = self.cfg
+        omg, acc, dt, mask = w
+        ns = S["ns"]
+        pre_frame = preintegrate(omg, acc, dt, mask, ns.bg_total, ns.ba_total,
+                                 cfg.gyr_noise_sd, cfg.acc_noise_sd)
+        z3 = torch.zeros(3, dtype=torch.float32, device=self.device)
+        new = dict(preint_kf=preintegrate_continue(S["preint_kf"], omg, acc, dt, mask, z3, z3,
+                                                   cfg.gyr_noise_sd, cfg.acc_noise_sd),
+                   kf_imu=self._stash(S["kf_imu"], omg, acc, dt, mask))
+        if accw:
+            Rwb = mm(S["Rcw"].transpose(-1, -2), self.Rcb)
+            mean_acc = torch.sum(acc * mask[:, None], 0) / torch.clamp(torch.sum(mask), min=1.0)
+            new["accw_sum"] = S["accw_sum"] + mv(Rwb, mean_acc)
+        return new, pre_frame
+
     # ------------------------------------------------------------------
-    def _vi_solve(self, tracks: Tracks, ns_pred: NavState, pre_frame: PreintState):
+    def _vi_solve(self, S, tracks: Tracks, ns_pred: NavState, pre_frame: PreintState, sc):
         cam, cfg = self.cam, self.cfg
-        info = torch.full((), self.depth_inv_var if self.cur_depth_valid else 0.0,
-                          dtype=torch.float32, device=self.device)
-        return _vi_track(tracks, self.map, ns_pred, self.ns, pre_frame, self.gravity_w, cam.fx,
+        depth = S["cur_depth"]
+        info = torch.where(sc["depth_valid"], torch.full_like(depth, self.depth_inv_var),
+                           torch.zeros_like(depth))
+        return _vi_track(tracks, S["map"], ns_pred, S["ns"], pre_frame, self.gravity_w, cam.fx,
                          cam.fy, cam.cx, cam.cy, self.scale_sigmas, cfg.gyr_bias_rw2,
-                         cfg.acc_bias_rw2, self.cur_depth, info, self.H_prior, self.Rcb, self.tcb)
+                         cfg.acc_bias_rw2, depth, info, S["H_prior"], self.Rcb, self.tcb)
+
+    def _vi_front(self, S, img, pre_frame, u, sc, prop: bool):
+        """Segment B: the pyramid, the IMU prediction, the propagation from
+        its guesses, the undistortion and lane 0's VI solve; the pyramid,
+        the prediction and the solve out."""
+        pyr = self._pyramid(img)
+        ns_pred = predict_navstate(S["ns"], pre_frame, self.gravity_w)
+        Rcw_pred, tcw_pred = self._cam_pose(ns_pred)
+        t = S["tracks"]
+        if prop:
+            cam = self.cam
+            guess, guess_ok = _motion_guess(t, S["map"], Rcw_pred, tcw_pred, cam.fx, cam.fy,
+                                            cam.cx, cam.cy)
+            t = self._propagate(t, S["pyr_prev"], pyr, guess, guess_ok, u)
+        t = self._undistort(t)
+        sol = self._vi_solve(dict(S, tracks=t), t, ns_pred, pre_frame, sc)
+        return {"tracks": t}, (pyr, (ns_pred, Rcw_pred, tcw_pred), sol)
+
+    def _first_try(self, S, pose_pred, sc):
+        """Segment L: the last keyframe's landmarks re-associated at the
+        predicted pose."""
+        cam = self.cam
+        return {}, first_try_associations(S["tracks"], S["map"], sc["last_kf"], *pose_pred,
+                                          cam.fx, cam.fy, cam.cx, cam.cy, min_matches=self.ft_min)
+
+    def _vi_accept(self, S, img, sol, sc, ring: bool):
+        """Segment C of a VI frame: the solve taken (pose, previous state,
+        capped marginal prior), the top-up, and the ring when no keyframe
+        follows."""
+        ns_opt, _, _, tracks2, H_post = sol
+        Rcw, tcw = self._cam_pose(ns_opt)
+        new = dict(tracks=self._top_up(tracks2, img, sc["frame"]), ns_prev=S["ns"], ns=ns_opt,
+                   Rcw=Rcw, tcw=tcw, H_prior=capped_prior(H_post))
+        if ring:
+            new.update(self._ring(dict(S, Rcw=Rcw, tcw=tcw), sc["frame"]))
+        return new, None
+
+    def _anchor(self, S, img, sc) -> dict:
+        """IMU_RELOC's anchor: the current IMU state with its
+        preintegration chain back to the last keyframe, the accumulators
+        emptied, and a fresh detection, every track born at the anchor."""
+        t = self._undistort(self._refill(Tracks.empty(self.cfg.n_tracks, device=self.device),
+                                         img, sc["frame"]))
+        t = dataclasses.replace(t, birth_frame=torch.full_like(t.birth_frame, 0) + sc["frame"],
+                                birth_xy_und=t.xy_und)
+        preint_kf, kf_imu = self._zero_accumulators()
+        return dict(rec_anchor_ns=S["ns"], rec_anchor_preint=S["preint_kf"],
+                    rec_anchor_imu=dict(S["kf_imu"]), preint_kf=preint_kf, kf_imu=kf_imu,
+                    tracks=t)
+
+    def _dead_reckon(self, S, img, ns_pred, sc):
+        """Segment I: both tiers failed: IMU dead reckoning with the
+        pressure-z override, the recovery's anchor and the prior reset."""
+        ns = self._depth_override(ns_pred, S["cur_depth"], sc["depth_valid"])
+        Rcw, tcw = self._cam_pose(ns)
+        new = dict(ns_prev=S["ns"], ns=ns, Rcw=Rcw, tcw=tcw, H_prior=self._prior0())
+        new.update(self._anchor(dict(S, ns=ns), img, sc))
+        return new, None
+
+    _VI_STATE = ("tracks", "map", "ns", "H_prior", "cur_depth")
 
     def _process_frame_vi(self, img, pre_frame: PreintState) -> dict:
         """NavState tracking: the IMU prediction seeds the KLT guesses and
         the VI solve; on its failure the first-try tier (the last
         keyframe's landmarks projected at the predicted pose), and on that
         tier's failure IMU_RELOC."""
-        cfg, cam, dev = self.cfg, self.cam, self.device
+        cfg, dev = self.cfg, self.device
         self.frame_id += 1
-        img = torch.as_tensor(img).to(device=dev, dtype=torch.float32)
-        pyr = tuple(build_flow_pyramid(img, cfg.n_levels_klt))
-
-        ns_pred = predict_navstate(self.ns, pre_frame, self.gravity_w)
-        Rcw_pred, tcw_pred = self._cam_pose(ns_pred)
-        if self.pyr_prev is not None:
-            guess, guess_ok = _motion_guess(self.tracks, self.map, Rcw_pred, tcw_pred, cam.fx,
-                                            cam.fy, cam.cx, cam.cy)
-            u = draw_uniform(self.gen, 200, self.tracks.n_slots, dev)
-            self.tracks = propagate_tracks(self.tracks, self.pyr_prev, pyr, guess, guess_ok, None,
-                                           win=cfg.klt_win, iters=cfg.klt_iters,
-                                           levels=cfg.n_levels_klt, u=u)
-        self.tracks = self._undistort(self.tracks)
-
-        ns_opt, _, n_in, tracks2, H_post = self._vi_solve(self.tracks, ns_pred, pre_frame)
-        n_in = self._read(n_in)[0]
+        img = self._upload(img)
+        prop = self.pyr_prev is not None
+        u = draw_uniform(self.gen, 200, self.tracks.n_slots, dev) if prop else None
+        sc = self._dev()
+        pyr, pred, sol = self._seg(
+            ("B", prop), lambda S, x, p, u_, sc_: self._vi_front(S, x, p, u_, sc_, prop=prop),
+            self._VI_STATE + ("pyr_prev",), img, pre_frame, u, sc)
+        ns_pred = pred[0]
+        n_in = self._read(sol[2])[0]
         status = {}
         first_try_ok = False
         if n_in < cfg.min_tracked and cfg.reloc_first_try and self.last_kf_slot >= 0:
             # first relocalization tier: a 1-2 frame association loss must
             # not cost a re-anchor
-            pid_ft, n_m = first_try_associations(
-                self.tracks, self.map,
-                torch.full((), self.last_kf_slot, dtype=torch.int32, device=dev), Rcw_pred,
-                tcw_pred, cam.fx, cam.fy, cam.cx, cam.cy, min_matches=self.ft_min)
+            pid_ft, n_m = self._seg(("L",), self._first_try, ("tracks", "map"), pred[1:], sc)
             if self._read(n_m)[0] >= self.ft_min:
-                out = self._vi_solve(dataclasses.replace(self.tracks, pt_id=pid_ft), ns_pred,
-                                     pre_frame)
+                out = self._seg(
+                    ("L2",), lambda S, pid, p, pre, sc_: ({}, self._vi_solve(
+                        S, dataclasses.replace(S["tracks"], pt_id=pid), p, pre, sc_)),
+                    self._VI_STATE, pid_ft, ns_pred, pre_frame, sc)
                 n2 = self._read(out[2])[0]
                 if n2 >= self.ft_accept:
-                    n_in, first_try_ok = n2, True
-                    ns_opt, _, _, tracks2, H_post = out
+                    n_in, first_try_ok, sol = n2, True, out
         if n_in < cfg.min_tracked and not first_try_ok:
             # sustained failure: IMU dead-reckoning and a fresh sub-map
-            self.ns_prev = self.ns
-            self.ns = self._depth_override(ns_pred)
-            self.Rcw, self.tcw = self._cam_pose(self.ns)
-            self._enter_recovery(img, pyr)
-            self._reset_marginal_prior()
+            self._seg(("I",), self._dead_reckon, ("ns", "preint_kf", "kf_imu", "cur_depth"), img,
+                      ns_pred, sc)
+            self._recovery_anchored()
             status.update(state="IMU_RELOC", n_inliers=n_in)
         else:
-            self.tracks = tracks2
-            self.ns_prev = self.ns
-            self.ns = ns_opt
-            self.Rcw, self.tcw = self._cam_pose(ns_opt)
-            self.H_prior = capped_prior(H_post)
-            tracks = self._refill(self.tracks, img)
-            tracks = self._undistort(refresh_descriptors(tracks, img))
-            newborn = tracks.birth_frame == self.frame_id
-            self.tracks = dataclasses.replace(tracks, birth_xy_und=torch.where(
-                newborn[:, None], tracks.xy_und, tracks.birth_xy_und))
-            if first_try_ok or self._need_keyframe(n_in):
-                # a first-try relocalization forces a keyframe
+            # a first-try relocalization forces a keyframe
+            need = first_try_ok or self._need_keyframe(n_in)
+            self._seg(("C", True, not need),
+                      lambda S, x, so, sc_: self._vi_accept(S, x, so, sc_, ring=not need),
+                      ("ns", "ring_R", "ring_t", "ring_frame"), img, sol, sc)
+            if need:
                 self._create_keyframe()
             status.update(state="WORKING", n_inliers=n_in, vio=True,
                           **({"first_try_reloc": True} if first_try_ok else {}))
+            if need:
+                self._write_ring()
 
         self.pyr_prev = pyr
         if self.state == WORKING:
-            self._ring_write(self.frame_id, self.Rcw, self.tcw)
             self.trajectory.append((self.frame_id, self.Rcw, self.tcw))
         return status
 
-    def _ring_write(self, frame: int, R, t):
-        slot = frame % self.RING
-        self.ring_R = _set_row(self.ring_R, slot, R)
-        self.ring_t = _set_row(self.ring_t, slot, t)
-        self.ring_frame = _set_row(self.ring_frame, slot, frame)
-
     # ------------------------------------------------------------------
-    def _create_keyframe(self):
-        """Triangulation, the keyframe with its IMU window, depth and
-        preintegration, hygiene, the window BA of the inertial mode (after
-        VIO init the window is re-integrated at the current bias first),
-        the pending post-recovery bias recompute or the VIO-init attempt,
-        and the loop closer's pass."""
-        cam, cfg = self.cam, self.cfg
-        ns = self.ns if self.vio_ok else _cam_pose_to_ns(self.Rcw, self.tcw)
-        if self.vio_ok:
-            w = self.kf_imu
-            self.preint_kf = preintegrate(w["omg"], w["acc"], w["dt"], w["mask"], self.ns.bg,
-                                          self.ns.ba, cfg.gyr_noise_sd, cfg.acc_noise_sd)
-        m, t = _triangulate_new(self.map, self.tracks, self.ring_R, self.ring_t, self.ring_frame,
-                                self.Rcw, self.tcw, cam.fx, cam.fy, cam.cx, cam.cy,
-                                self.frame_id, self.last_kf_slot)
-        w = self.kf_imu
-        m, k = m.add_keyframe(ns, self.frame_time, self.frame_id, t.xy_und, t.desc, t.level,
-                              t.angle, t.valid, t.pt_id, self.cur_depth, self.cur_depth_valid,
-                              self.preint_kf, self.last_kf_slot, imu_omg=w["omg"],
-                              imu_acc=w["acc"], imu_dt=w["dt"], imu_mask=w["mask"])
-        m, t = self._run_hygiene(m, t)
-        m = self._run_vi_ba(m) if self.vio_ok else self._run_local_ba(m)
-        self.map, self.tracks = m, t
-        k, self.n_ref_tracked, n_kf = self._read(k, torch.sum(t.valid & (t.pt_id >= 0)), m.n_kf)
-        ns_k = _nav_row(m.kf_ns, k)
-        if self.vio_ok:
-            self.ns = ns_k
-            self.Rcw, self.tcw = self._cam_pose(ns_k)
+    def _vip_keyframe(self, S, sc, vio: bool, hygiene: bool):
+        """Segment K: (after VIO init) the keyframe window re-integrated at
+        the current bias, triangulation, the keyframe with its IMU window,
+        depth and preintegration, hygiene, the window BA of the inertial
+        mode, the state adopted from the keyframe; its slot, the
+        reference track count and the keyframe count out."""
+        cam, cfg, fr = self.cam, self.cfg, sc["frame"]
+        w, pre = S["kf_imu"], S["preint_kf"]
+        if vio:
+            ns = S["ns"]
+            pre = preintegrate(w["omg"], w["acc"], w["dt"], w["mask"], ns.bg, ns.ba,
+                               cfg.gyr_noise_sd, cfg.acc_noise_sd)
         else:
-            self.Rcw, self.tcw = _ns_to_cam_pose(ns_k)
+            ns = _cam_pose_to_ns(S["Rcw"], S["tcw"])
+        m, t = _triangulate_new(S["map"], S["tracks"], S["ring_R"], S["ring_t"], S["ring_frame"],
+                                S["Rcw"], S["tcw"], cam.fx, cam.fy, cam.cx, cam.cy, fr,
+                                sc["last_kf"])
+        m, k = m.add_keyframe(ns, sc["time"], fr, t.xy_und, t.desc, t.level, t.angle, t.valid,
+                              t.pt_id, S["cur_depth"], sc["depth_valid"], pre, sc["last_kf"],
+                              imu_omg=w["omg"], imu_acc=w["acc"], imu_dt=w["dt"],
+                              imu_mask=w["mask"])
+        if hygiene:
+            m, t = self._run_hygiene(m, t, fr, S["Rcw"], S["tcw"])
+        m = self._run_vi_ba(m) if vio else self._run_local_ba(m)
+        ns_k = _nav_row(m.kf_ns, k)
+        new = dict(map=m, tracks=t)
+        if vio:
+            new["ns"] = ns_k
+            new["Rcw"], new["tcw"] = self._cam_pose(ns_k)
+        else:
+            new["Rcw"], new["tcw"] = _ns_to_cam_pose(ns_k)
+        return new, (k, torch.sum(t.valid & (t.pt_id >= 0)), m.n_kf)
+
+    def _create_keyframe(self):
+        """Segment K up to its read; then the keyframe's bookkeeping, the
+        pending post-recovery bias recompute or the VIO-init attempt, and
+        the loop closer's pass."""
+        vio, hyg = self.vio_ok, self.cfg.map_hygiene
+        k, n_ref, n_kf = self._seg(
+            ("K", vio, hyg), lambda S, sc: self._vip_keyframe(S, sc, vio=vio, hygiene=hyg),
+            ("map", "tracks", "ring_R", "ring_t", "ring_frame", "Rcw", "tcw", "ns", "kf_imu",
+             "preint_kf", "cur_depth"), self._dev())
+        k, self.n_ref_tracked, n_kf = self._read(k, n_ref, n_kf)
         self.last_kf_slot = k
         self.last_kf_frame = self.frame_id
         self._reset_kf_accumulators()
-        if self.vio_ok:
+        if vio:
             # the window BA re-anchors the state: the marginal restarts
             self._reset_marginal_prior()
             pending = self._reloc_bias_after_kf
@@ -479,20 +568,20 @@ class VipTracker(MonoTracker):
         lc = self.loop_closer
         if lc is None:
             return
-        cam, cfg, dev = self.cam, self.cfg, self.device
+        cam, cfg, dev, scan = self.cam, self.cfg, self.device, self.segments.scan
         if self.vio_ok:
             lc.Rcb, lc.tcb, lc.Rbc, lc.tbc = self.Rcb, self.tcb, self.Rbc, self.tbc
             lc.post_ba = lambda m: global_ba_navstate(
                 m, self.gravity_w, self.Rcb, self.tcb, cam.fx, cam.fy, cam.cx, cam.cy,
                 cfg.gyr_noise_sd, cfg.acc_noise_sd, cfg.gyr_bias_rw2, cfg.acc_bias_rw2,
-                self.depth_inv_var, self.scale_sigmas)
+                self.depth_inv_var, self.scale_sigmas, scan=scan)
         else:
             # before VIO init the map stores camera-as-body states
             eye3 = torch.eye(3, dtype=torch.float32, device=dev)
             z3 = torch.zeros(3, dtype=torch.float32, device=dev)
             lc.Rcb, lc.tcb, lc.Rbc, lc.tbc = eye3, z3, eye3, z3
             lc.post_ba = lambda m: global_ba_visual(m, cam.fx, cam.fy, cam.cx, cam.cy,
-                                                    self.scale_sigmas)
+                                                    self.scale_sigmas, scan=scan)
         self.map, st = lc.process_keyframe(self.map, kf_slot)
         if st.get("loop"):
             ns_k = _nav_row(self.map.kf_ns, kf_slot)
@@ -514,22 +603,23 @@ class VipTracker(MonoTracker):
         keyframe chain (the last `window` keyframes); adopted as the new
         linearization point, with every stored keyframe preintegration
         re-integrated at it, when finite and |bg| <= 0.5. The accelerometer
-        bias stays at its random-walk estimate."""
-        cfg, m = self.cfg, self.map
+        bias stays at its random-walk estimate. Eager, its loops through
+        `segments.scan`."""
+        cfg, m, scan = self.cfg, self.map, self.segments.scan
         z3 = torch.zeros(3, dtype=torch.float32, device=self.device)
         pre0 = preintegrate(m.kf_imu_omg, m.kf_imu_acc, m.kf_imu_dt, m.kf_imu_mask, z3, z3,
-                            cfg.gyr_noise_sd, cfg.acc_noise_sd)
+                            cfg.gyr_noise_sd, cfg.acc_noise_sd, scan=scan)
         ks = torch.arange(m.kf_cap, device=self.device)
         pair = (m.kf_valid & (m.kf_prev >= 0) & (ks >= m.n_kf - window) & (ks < m.n_kf)
                 & (pre0.dt > 1e-6))
         if self._read(torch.sum(pair))[0] < 2:
             return
-        bg = vio_init.estimate_gyro_bias(m.kf_ns.R, pre0.dR, pre0.J_R_bg, pair)
+        bg = vio_init.estimate_gyro_bias(m.kf_ns.R, pre0.dR, pre0.J_R_bg, pair, scan=scan)
         if not self._read(torch.all(torch.isfinite(bg))
                           & (torch.linalg.vector_norm(bg) <= 0.5))[0]:
             return
         pre2 = preintegrate(m.kf_imu_omg, m.kf_imu_acc, m.kf_imu_dt, m.kf_imu_mask, bg,
-                            self.ns.ba, cfg.gyr_noise_sd, cfg.acc_noise_sd)
+                            self.ns.ba, cfg.gyr_noise_sd, cfg.acc_noise_sd, scan=scan)
         kf_ns = dataclasses.replace(m.kf_ns, bg=bg.expand(m.kf_cap, 3).clone(),
                                     dbg=torch.zeros_like(m.kf_ns.dbg))
         self.map = dataclasses.replace(m, kf_ns=kf_ns, kf_preint=pre2)
@@ -538,23 +628,32 @@ class VipTracker(MonoTracker):
     # ------------------------------------------------------------------
     # sustained-failure recovery: IMU dead-reckoning and a fresh sub-map
     # ------------------------------------------------------------------
-    def _enter_recovery(self, img, pyr):
-        """IMU_RELOC: the current IMU state becomes the anchor (with its
-        preintegration chain back to the last keyframe) and a fresh
-        detection, every track born at the anchor."""
-        cfg = self.cfg
+    def _recovery_anchored(self):
+        """The host half of entering IMU_RELOC (segment I or N made the
+        anchor on the device)."""
         self.state = IMU_RELOC
-        self.rec_anchor_ns = self.ns
         self.rec_anchor_frame = self.frame_id
         self.rec_anchor_time = self.frame_time
         self.rec_anchor_depth = (self.cur_depth, self.cur_depth_valid)
-        self.rec_anchor_preint = self.preint_kf
-        self.rec_anchor_imu = dict(self.kf_imu)
-        self._reset_kf_accumulators()
-        t = self._undistort(self._refill(Tracks.empty(cfg.n_tracks, device=self.device), img))
-        self.tracks = dataclasses.replace(
-            t, birth_frame=torch.full_like(t.birth_frame, self.frame_id), birth_xy_und=t.xy_und)
-        self.pyr_prev = pyr
+
+    def _recovery_front(self, S, img, pre_frame, u, sc):
+        """Segment Q: dead reckoning with the pressure-z override, the
+        propagation of the recovery tracks (no landmark guesses), the
+        anchor's camera pose, the track count and the IMU baseline."""
+        pyr = self._pyramid(img)
+        ns = self._depth_override(predict_navstate(S["ns"], pre_frame, self.gravity_w),
+                                  S["cur_depth"], sc["depth_valid"])
+        Rcw, tcw = self._cam_pose(ns)
+        t = S["tracks"]
+        n = t.n_slots
+        t = self._undistort(self._propagate(t, S["pyr_prev"], pyr, t.xy,
+                                            torch.zeros((n,), dtype=torch.bool,
+                                                        device=self.device), u))
+        Ra, ta = self._cam_pose(S["rec_anchor_ns"])
+        R_rel = mm(Rcw, Ra.transpose(-1, -2))
+        baseline = torch.linalg.vector_norm(tcw - mv(R_rel, ta))
+        new = dict(ns_prev=S["ns"], ns=ns, Rcw=Rcw, tcw=tcw, tracks=t, pyr_prev=pyr)
+        return new, (Ra, ta, torch.sum(t.valid), baseline)
 
     def _process_frame_recovery(self, img, pre_frame: PreintState) -> dict:
         """One IMU_RELOC frame: dead-reckoning with the pressure-z
@@ -563,31 +662,22 @@ class VipTracker(MonoTracker):
         IMU baseline's metric scale, two keyframes and the VI BA."""
         cfg, dev = self.cfg, self.device
         self.frame_id += 1
-        img = torch.as_tensor(img).to(device=dev, dtype=torch.float32)
-        pyr = tuple(build_flow_pyramid(img, cfg.n_levels_klt))
-
-        self.ns_prev = self.ns
-        self.ns = self._depth_override(predict_navstate(self.ns, pre_frame, self.gravity_w))
-        self.Rcw, self.tcw = self._cam_pose(self.ns)
-
+        img = self._upload(img)
         # the recovery tracks have no landmark guesses
-        n = self.tracks.n_slots
-        u = draw_uniform(self.gen, 200, n, dev)
-        self.tracks = propagate_tracks(
-            self.tracks, self.pyr_prev, pyr, self.tracks.xy,
-            torch.zeros((n,), dtype=torch.bool, device=dev), None, win=cfg.klt_win,
-            iters=cfg.klt_iters, levels=cfg.n_levels_klt, u=u)
-        self.tracks = self._undistort(self.tracks)
-        self.pyr_prev = pyr
+        u = draw_uniform(self.gen, 200, self.tracks.n_slots, dev)
+        Ra, ta, n_valid, baseline_t = self._seg(
+            ("Q",), self._recovery_front,
+            ("ns", "tracks", "pyr_prev", "rec_anchor_ns", "cur_depth"), img, pre_frame, u,
+            self._dev())
 
         status = {"state": "IMU_RELOC"}
         since = self.frame_id - self.rec_anchor_frame
-        Ra, ta = self._cam_pose(self.rec_anchor_ns)
-        R_rel = mm(self.Rcw, Ra.transpose(-1, -2))
-        baseline_t = torch.linalg.vector_norm(self.tcw - mv(R_rel, ta))
-        n_valid, baseline = self._readf(torch.sum(self.tracks.valid), baseline_t)
+        n_valid, baseline = self._readf(n_valid, baseline_t)
         if since >= cfg.recovery_max_frames or n_valid < cfg.min_init_tracks // 2:
-            self._enter_recovery(img, pyr)       # re-anchor and keep trying
+            # re-anchor and keep trying
+            self._seg(("N",), lambda S, x, sc: (self._anchor(S, x, sc), None),
+                      ("ns", "preint_kf", "kf_imu"), img, self._dev())
+            self._recovery_anchored()
             status["recovery"] = "re-anchored"
             return status
         if since < cfg.recovery_min_frames or baseline < cfg.recovery_min_baseline:
@@ -616,11 +706,11 @@ class VipTracker(MonoTracker):
         feat_pt = torch.where(good, ids, torch.full_like(ids, -1))
 
         # both stored windows re-integrated at the current bias
-        a, w = self.rec_anchor_imu, self.kf_imu
+        a, w, scan = self.rec_anchor_imu, self.kf_imu, self.segments.scan
         pre_anchor = preintegrate(a["omg"], a["acc"], a["dt"], a["mask"], self.ns.bg,
-                                  self.ns.ba, cfg.gyr_noise_sd, cfg.acc_noise_sd)
+                                  self.ns.ba, cfg.gyr_noise_sd, cfg.acc_noise_sd, scan=scan)
         pre_cur = preintegrate(w["omg"], w["acc"], w["dt"], w["mask"], self.ns.bg, self.ns.ba,
-                               cfg.gyr_noise_sd, cfg.acc_noise_sd)
+                               cfg.gyr_noise_sd, cfg.acc_noise_sd, scan=scan)
         da, dv = self.rec_anchor_depth
         m, k0 = m.add_keyframe(self.rec_anchor_ns, self.rec_anchor_time, self.rec_anchor_frame,
                                t.birth_xy_und, t.desc, t.level, t.angle, cand, feat_pt, da, dv,
@@ -629,22 +719,24 @@ class VipTracker(MonoTracker):
         ns_cur = dataclasses.replace(_cam_pose_to_ns_ext(R1, t1, self.Rbc, self.tbc),
                                      v=self.ns.v, bg=self.ns.bg, ba=self.ns.ba,
                                      dbg=self.ns.dbg, dba=self.ns.dba)
-        m, k1 = m.add_keyframe(ns_cur, self.frame_time, self.frame_id, t.xy_und, t.desc, t.level,
-                               t.angle, cand, feat_pt, self.cur_depth, self.cur_depth_valid,
-                               pre_cur, k0, imu_omg=w["omg"], imu_acc=w["acc"], imu_dt=w["dt"],
-                               imu_mask=w["mask"])
+        m, k1_t = m.add_keyframe(ns_cur, self.frame_time, self.frame_id, t.xy_und, t.desc,
+                                 t.level, t.angle, cand, feat_pt, self.cur_depth,
+                                 self.cur_depth_valid, pre_cur, k0, imu_omg=w["omg"],
+                                 imu_acc=w["acc"], imu_dt=w["dt"], imu_mask=w["mask"])
         m = self._run_vi_ba(m)
         self.map = m
         self.tracks = dataclasses.replace(t, pt_id=feat_pt)
-        k1, n_good, n_kf = self._read(k1, torch.sum(good), m.n_kf)
-        self.ns = _nav_row(m.kf_ns, k1)
+        k1, n_good, n_kf = self._read(k1_t, torch.sum(good), m.n_kf)
+        # the keyframe's state as a row of its own (the layout of every
+        # adopted state)
+        self.ns = _nav_row(m.kf_ns, k1_t)
         self.Rcw, self.tcw = self._cam_pose(self.ns)
         self.last_kf_slot = k1
         self.last_kf_frame = self.frame_id
         self.n_ref_tracked = n_good
         self._reset_kf_accumulators()
-        self._ring_write(self.rec_anchor_frame, Ra, ta)
-        self._ring_write(self.frame_id, self.Rcw, self.tcw)
+        self._set_ring_pose_eagerly(self.rec_anchor_frame, Ra, ta)
+        self._set_ring_pose_eagerly(self.frame_id, self.Rcw, self.tcw)
         self.state = WORKING
         self._reset_marginal_prior()
         # the post-recovery bias recompute, once enough fresh keyframes exist
@@ -686,8 +778,10 @@ class VipTracker(MonoTracker):
         its |g| refinement, or modes 2/3's gravity from the accelerometer
         average, scale from pressure and tilt refinement at fixed scale;
         then the world Sim3, the camera -> body table conversion, the
-        depth anchor and the velocities."""
-        cfg, cam, dev = self.cfg, self.cam, self.device
+        depth anchor and the velocities. Eager, its loops (the BA's LM
+        iterations, the gyro biases', the re-integrations') through
+        `segments.scan`."""
+        cfg, cam, dev, scan = self.cfg, self.cam, self.device, self.segments.scan
         m = self.map
         n_kf, t_span = self._readf(m.n_kf, row(m.kf_time, torch.clamp(m.n_kf - 1, min=0))
                                    - m.kf_time[0])
@@ -696,19 +790,19 @@ class VipTracker(MonoTracker):
             return
         # 0. full-map visual BA: the window BA lets the mono map's scale
         # drift across the init window
-        m = global_ba_visual(m, cam.fx, cam.fy, cam.cx, cam.cy, self.scale_sigmas)
+        m = global_ba_visual(m, cam.fx, cam.fy, cam.cx, cam.cy, self.scale_sigmas, scan=scan)
         self.map = m
 
         # 1. gyro bias over consecutive keyframe pairs, body rotations
         pair_mask = m.kf_valid & (m.kf_prev >= 0)
         bg = vio_init.estimate_gyro_bias(mm(m.kf_ns.R, self.Rcb), m.kf_preint.dR,
-                                         m.kf_preint.J_R_bg, pair_mask)
+                                         m.kf_preint.J_R_bg, pair_mask, scan=scan)
         # 2. every keyframe window re-integrated with it
         z3 = torch.zeros(3, dtype=torch.float32, device=dev)
 
         def reintegrate(bg_, ba_):
             return preintegrate(m.kf_imu_omg, m.kf_imu_acc, m.kf_imu_dt, m.kf_imu_mask, bg_, ba_,
-                                cfg.gyr_noise_sd, cfg.acc_noise_sd)
+                                cfg.gyr_noise_sd, cfg.acc_noise_sd, scan=scan)
 
         pre2 = reintegrate(bg, z3)
         has_depth = m.kf_valid & m.kf_depth_valid
@@ -723,7 +817,7 @@ class VipTracker(MonoTracker):
             return s_gn
 
         def windows_pre(win, bg_, ba_):
-            return preintegrate(*win, bg_, ba_, cfg.gyr_noise_sd, cfg.acc_noise_sd)
+            return preintegrate(*win, bg_, ba_, cfg.gyr_noise_sd, cfg.acc_noise_sd, scan=scan)
 
         if cfg.init_mode == 1:
             # 3/4 (VI): the joint linear [s, g_w] solve over strided virtual
@@ -731,7 +825,7 @@ class VipTracker(MonoTracker):
             pv, Rv, vvalid, vk, win = self._strided(m, t_span, n_kf)
             pre0v = windows_pre(win, z3, z3)
             vpair = vvalid & torch.roll(vvalid, 1) & (vk >= 1) & (pre0v.dt > 1e-6)
-            bg = vio_init.estimate_gyro_bias(Rv, pre0v.dR, pre0v.J_R_bg, vpair)
+            bg = vio_init.estimate_gyro_bias(Rv, pre0v.dR, pre0v.J_R_bg, vpair, scan=scan)
             prev_ = windows_pre(win, bg, z3)
             triple = self._triple(vvalid, vk, prev_)
             _, g_w = vio_init.estimate_scale_gravity_linear(pv, Rv, prev_.dP, prev_.dV, prev_.dt,
@@ -809,8 +903,9 @@ class VipTracker(MonoTracker):
             v = _set_row(v, k_last, v[k_last - 1])
         self.map = dataclasses.replace(m, kf_ns=dataclasses.replace(kf_ns, v=v),
                                        pt_xyz=pts_shift, kf_preint=pre2)
-        # the current state: the last keyframe's
-        self.ns = _nav_row(self.map.kf_ns, k_last)
+        # the current state: the last keyframe's, as a row of its own (the
+        # layout of every adopted state)
+        self.ns = _nav_row(self.map.kf_ns, torch.full((), k_last, dtype=torch.int64, device=dev))
         self.ns_prev = self.ns
         self.Rcw, self.tcw = self._cam_pose(self.ns)
         self.vio_ok = True
