@@ -49,7 +49,8 @@ window BA.
   runs of the VIO-init frame's ms);
 - `runs_bitwise_equal`;
 - `host_reads_per_frame`: the step's device-to-host reads of the first
-  timed run (`step.host_syncs`) per frame;
+  timed run (`step.host_syncs`) per frame; `compactions`: the landmark
+  table's compactions in that run (`step.compactions`);
 - `hand_kernel_launches_per_frame` (`ops.klt` counters of the first timed
   run) and `refine_wide_calls` (the wide refinement route; 0 on this path);
 - `peak_allocated_mib`: `torch.cuda.max_memory_allocated` over the first
@@ -281,7 +282,7 @@ def measure(mode, new_tracker, feeds, reps, device, init_frame_of, profile=True)
     launches = {"extract_patches": klt.patch_launches, "anchor_refine": klt.refine_launches}
     wide = klt.refine_wide_calls
     peak = torch.cuda.max_memory_allocated() / 2 ** 20 if cuda else None
-    syncs = runs[0].step.host_syncs
+    syncs, compactions = runs[0].step.host_syncs, runs[0].step.compactions
     seg = runs[0].step.segments
     for r in range(1, reps):
         runs.append(chiptime.drive(new_tracker, feeds, device))
@@ -310,7 +311,7 @@ def measure(mode, new_tracker, feeds, reps, device, init_frame_of, profile=True)
     extra = dict(wall_ms_per_frame=wall_ms_per_frame, run_wall_ms=walls,
                  ms_per_frame=ms_per_frame, run_medians_ms=meds,
                  first_frame_ms=half.frame_ms[0], runs_bitwise_equal=equal,
-                 host_reads_per_frame=syncs / n,
+                 host_reads_per_frame=syncs / n, compactions=compactions,
                  hand_kernel_launches_per_frame={k: v / n for k, v in launches.items()},
                  refine_wide_calls=wide, peak_allocated_mib=peak,
                  graphed=seg.enabled, captures=seg.captures, replays_per_frame=seg.replays / n,

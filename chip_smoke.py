@@ -180,7 +180,12 @@ result):
      the first-try lane tried on frame 45 and failing, IMU_RELOC, WORKING
      again within `recovery_max_frames`, the last frame WORKING, metric
      ATE after VIO init below 0.25·max(span, 0.5), median |z error| below
-     0.15, |bg| below 0.1; phase 15's labels printed beside); (b) with
+     0.15, |bg| below 0.1; phase 15's labels printed beside), then the
+     recovery frame again from the state before it, eager and graphed (a
+     capturing call, a replay: its re-integration through
+     `Segments.scan`, its BA tail as segments), bit for bit equal with
+     the same host reads and launches, with the ms and scan steps of
+     each; (b) with
      `vio_init_min_time=1e6`, 28 frames, frames 28-30 black, then the
      last keyframe's image: LOST, WORKING within three frames, the camera
      centre within 0.15 of that keyframe's (the reference's
@@ -192,11 +197,16 @@ result):
      bit equal to `graphs=False`, with ms of the three. Each
      with exactly the launches its frames' branches imply, ms by branch,
      host reads and peak memory;
- 19. the fleets' per-stream loops: `VipFleetStep` over 2 streams, 70
-     frames (stream 0 with phase 18a's blackout, stream 1 clean): IMU_RELOC
-     on stream 0 only, WORKING again within `recovery_max_frames`, each
-     stream's labels equal to its single-stream run's on at least 95% of
-     frames; `MonoFleetStep` over 2 streams (stream 0 phase 8's
+ 19. the fleets' rare branches: `VipFleetStep` over 3 streams, 70
+     frames (streams 0 and 1 with phase 18a's blackout, so that lane 1
+     runs over the group of two, stream 2 clean): IMU_RELOC on the
+     blacked-out streams only, WORKING again within `recovery_max_frames`,
+     each stream's labels equal to its single-stream run's on at least
+     95% of frames, segment L among the fleet's keys; then the lane-1
+     frame again from the state before it, eager and graphed (a capturing
+     call, a replay, each form once more under the profiler for its host
+     launch calls), bit for bit equal with the same host reads and
+     launches; `MonoFleetStep` over 2 streams (stream 0 phase 8's
      relocalization input, stream 1 clean): stream 0 LOST and WORKING
      again within three frames with its centre within 0.15 of the
      keyframe's, its labels equal to phase 8's; both with exactly the
@@ -227,10 +237,17 @@ result):
      the VIO-init frame and the last pre-VIO keyframe frame before it
      under torch.profiler, split by span (host launch calls, host and
      device ms), graphed from a fresh graphed run and eager from the
-     eager run's states (the eager VIO-init frame only under `--only
-     graphs`: its ~2.7M-event trace takes ~30 s to read); the graphs per
-     key of the new keys (D, E and R before VIO init, the scans); the
-     graphed steps' memory split (`graph_memory`).
+     eager run's states (the VIO-init frame only under `--only graphs`:
+     its traces, ~2.7M events eager and ~1M graphed, take 30-45 s each to
+     read); the graphs per key of the new keys (D, E and R before VIO
+     init, and under `--only graphs` the scans); the
+     graphed steps' memory split (`graph_memory`). Then the VIP path's
+     first COMPACT_FRAMES frames again at COMPACT_PT_CAP, where the
+     landmark table passes 90% of its capacity before VIO init and after
+     it and the compaction runs inside segment E: graphed and eager bit
+     for bit on every frame, the same host reads, launches and compaction
+     frames. Phases 9, 12, 19, 20 and 21 print the
+     compactions their paths made.
 
 Every phase before 21 runs the steps' and fleets' default: on the card
 the WORKING frames and the fleets' batched frames replay captured CUDA
@@ -667,6 +684,12 @@ def expected_launches(states, n_orb_levels, prev=None):
     return {"extract_patches": pulls, "anchor_refine": refines}
 
 
+def compactions(step):
+    """The landmark-table compactions a step or fleet made (None on a
+    tree whose steps do not count them)."""
+    return getattr(step, "compactions", None)
+
+
 def read_launches(tklt):
     """The path's launches of each kernel since `reset_launches`; fails if
     the path took the wide refinement route (no main path's shape does)."""
@@ -927,7 +950,8 @@ def vip_phase(torch, np, tklt, dev, smi, seq):
         f"{seq.imu_mask.shape[1]}), kernel launches {launches}"
         f"{f' (expected {expect})' if expect is not None else ''}, "
         f"peak allocated {peak / 2**20:.1f} MiB, graph captures {seg.captures} "
-        f"({seg.capture_seconds:.2f} s), replays {seg.replays / VIP_FRAMES:.2f}/frame")
+        f"({seg.capture_seconds:.2f} s), replays {seg.replays / VIP_FRAMES:.2f}/frame, "
+        f"landmark-table compactions {compactions(step)}")
     log(f"  states {''.join(str(s) for s in states.tolist())}")
     if not gate["ok"]:
         raise AssertionError(f"bench.py's VIP gates fail: VIO init frame {init_f}, "
@@ -976,6 +1000,7 @@ def vip_phase(torch, np, tklt, dev, smi, seq):
               "preint_steps_per_frame": preint.calls / VIP_FRAMES,
               "imu_window": int(seq.imu_mask.shape[1]),
               "labels": "".join(str(x) for x in states.tolist()),
+              "compactions": compactions(step),
               "peak_allocated_bytes": peak, "profile": profile, "card": smi}
     prefix = {k: v[:RARE_BLACK[0]] for k, v in run.items() if k != "lane1"}
     prefix["lane1"] = [c for c in run["lane1"] if c[0] < RARE_BLACK[0]]
@@ -1789,7 +1814,8 @@ def fleet_vip_phase(torch, np, tklt, dev, smi, single, seqs, eager_vio_split=Fal
         f"{syncs / T:.2f} per batched frame ({syncs} total, {step.fleet_syncs} of them fleet "
         f"tables); kernel launches {launches}"
         f"{f' (expected {expect})' if expect is not None else ''}; peak allocated "
-        f"{peak / 2**20:.1f} MiB above the run's start")
+        f"{peak / 2**20:.1f} MiB above the run's start; landmark-table compactions "
+        f"{compactions(step)}")
     log(f"  the fleet's graphs after the replay: {fmt_memory(memory)}")
     vio_frames = [f for f, r in enumerate(clock.frames) if r["scan_steps"] > 0]
     group = {}
@@ -1848,6 +1874,7 @@ def fleet_vip_phase(torch, np, tklt, dev, smi, single, seqs, eager_vio_split=Fal
               "captures": seg.captures, "capture_seconds": seg.capture_seconds,
               "keys": len(per_key), "replays_per_batched_frame": seg.replays / T,
               "host_reads_per_batched_frame": syncs / T, "peak_above_start_bytes": peak,
+              "compactions": compactions(step),
               "graph_memory": memory, "vio_init_frames": vio_frames,
               "against_eager": cmp, "card": smi}
     return record, launches, outs
@@ -3067,9 +3094,16 @@ def vip_rare_phase(torch, np, tklt, dev, smi, seq, host_labels=None, prefix=None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(tklt)
+    in_reloc = {}      # the state after the last IMU_RELOC frame: the recovery frame's input
+
+    def keep_reloc(step_, st_, out_):
+        if int(out_.state) == IMU_RELOC:
+            in_reloc["st"] = clone_vip_state(torch, st_)
+
+    feeds_a = blacked(torch, bundles[:n], RARE_BLACK)
     step, st, own, _ = drive_vip_rare(
         torch, lambda: (clone_vip_state(torch, kept[b0 - 1], dev), VipStep(cam, cfg, 64, device=dev)),
-        blacked(torch, bundles[:n], RARE_BLACK)[b0:], first=b0)
+        feeds_a[b0:], first=b0, on_frame=keep_reloc)
     launches_a = read_launches(tklt)
     peak_a = torch.cuda.max_memory_allocated()
     expect_a = expected_launches_vip(own["states"], n_levels, own["anchored"],
@@ -3126,6 +3160,9 @@ def vip_rare_phase(torch, np, tklt, dev, smi, seq, host_labels=None, prefix=None
     if fails:
         raise AssertionError("VIP step blackout: " + "; ".join(fails))
     mark("vip_blackout")
+    recovery = recovery_frame(torch, tklt, dev, cam, cfg, in_reloc.pop("st"), back[0],
+                              feeds_a[back[0]])
+    mark("vip_recovery_frame")
 
     # (b) blackout before VIO init, then the last keyframe's image
     st, step = build_vip_tracker(cam, vip_cam_cfg(seq.K, vio_init_min_time=1e6)[1], kf_cap=64,
@@ -3232,7 +3269,7 @@ def vip_rare_phase(torch, np, tklt, dev, smi, seq, host_labels=None, prefix=None
         (eager,), _ = runs[False]
         graphed, keys = runs[True]
         want_kf = n_kf0 if outcome == "holds" else -1
-        want_keys = {("L",), ("C", True, True), ("D", True, cfg.map_hygiene), ("E", True)} \
+        want_keys = {("L",), ("C", True, True), ("D", True, cfg.map_hygiene), ("E", True, False)} \
             if outcome == "holds" else {("L",), ("I",)}
         same = [all(torch.equal(a, b) for a, b in zip(x["bits"], eager["bits"]))
                 for x in graphed]
@@ -3269,7 +3306,7 @@ def vip_rare_phase(torch, np, tklt, dev, smi, seq, host_labels=None, prefix=None
                            "lane1_calls": lane1, "imu_reloc_frames": reloc,
                            "working_again_frame": back[0], "ate_metric_m": ate,
                            "ate_threshold_m": 0.25 * max(span, 0.5), "median_z_error_m": z_err,
-                           "bg_norm": bg, "ms_by_branch": by_a,
+                           "bg_norm": bg, "ms_by_branch": by_a, "recovery_frame": recovery,
                            "host_reads_per_frame": step.host_syncs / (n - b0),
                            "frames_driven": [b0, n],
                            "peak_allocated_bytes": peak_a,
@@ -3282,6 +3319,65 @@ def vip_rare_phase(torch, np, tklt, dev, smi, seq, host_labels=None, prefix=None
               "card": smi}
     return record, {"vip_blackout": launches_a, "vip_preinit_blackout": launches_b,
                     "vip_first_try": launches_c}, labels
+
+
+def recovery_frame(torch, tklt, dev, cam, cfg, st_in, f, x):
+    """Phase 18a's recovery frame `f` (input `x`) from the state after the
+    last IMU_RELOC frame (`st_in`, with its generator): eager
+    (`graphs=False`) and graphed, a capturing call then a replay, each
+    from a copy of `st_in`. Their outputs and states must be bit for bit
+    equal with the same host reads and hand-kernel launches, and the
+    graphed calls must replay the recovery's re-integration through
+    `Segments.scan` (scan steps on the frame) and its BA tail as segments,
+    the replay with no capture. Returns the ms and counts of each call."""
+    from uvipslam_torch.frontend.device_vip import VipStep
+    from uvipslam_torch.frontend.tracker import WORKING
+
+    calls = {}
+    for form, graphs, n in (("eager", False, 1), ("graphed", True, 2)):
+        step = VipStep(cam, cfg, 64, device=dev, graphs=graphs)
+        seg, calls[form] = step.segments, []
+        for _ in range(n):
+            st = clone_vip_state(torch, st_in)
+            reset_launches(tklt)
+            c0 = (step.host_syncs, seg.captures, seg.scan_steps, seg.replays)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            st, out = step(st, x)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+            reads, captures, scans, replays = (a - b for a, b in zip(
+                (step.host_syncs, seg.captures, seg.scan_steps, seg.replays), c0))
+            calls[form].append(dict(ms=ms, bits=(tree_bits(torch, out), tree_bits(torch, st)),
+                                    state=int(out.state), reads=reads, captures=captures,
+                                    scan_steps=scans, replays=replays,
+                                    launches=read_launches(tklt)))
+            del st, out
+        if graphs:
+            per_key = {repr(k): v for k, v in seg.graphs_per_key().items()
+                       if k[0] in ("BA", "E", "scan")}
+        del step
+    (e,), g = calls["eager"], calls["graphed"]
+    same = [all(torch.equal(a, b) for a, b in zip(x_["bits"], e["bits"])) for x_ in g]
+    log(f"phase VIP step rare branches (a) the recovery frame {f} again from the state before "
+        f"it: eager {e['ms']:.1f} ms, graphed {g[0]['ms']:.1f} ms on its first call "
+        f"({g[0]['captures']} captures, {g[0]['scan_steps']} scan steps, {g[0]['replays']} "
+        f"segment replays), {g[1]['ms']:.1f} ms replayed ({g[1]['captures']} captures, "
+        f"{g[1]['scan_steps']} scan steps); host reads {e['reads']} / "
+        f"{[x_['reads'] for x_ in g]}, kernel launches {e['launches']} / "
+        f"{[x_['launches'] for x_ in g]} eager / graphed; bit for bit equal to eager: {same}; "
+        f"graphs per key (BA, E, scans) {per_key}")
+    if e["state"] != WORKING or not all(same) or g[1]["captures"] \
+            or any(x_["reads"] != e["reads"] or x_["launches"] != e["launches"]
+                   or x_["scan_steps"] <= 0 for x_ in g):
+        keep = ("ms", "reads", "captures", "scan_steps", "replays", "launches")
+        raise AssertionError(f"VIP step recovery frame {f}: state {e['state']}, bit for bit "
+                             f"{same}, graphed calls {[{k: x_[k] for k in keep} for x_ in g]}, "
+                             f"eager reads {e['reads']} launches {e['launches']}")
+    keep = ("ms", "reads", "captures", "scan_steps", "replays", "launches")
+    return {"frame": f, "eager": {k: e[k] for k in keep},
+            "graphed": [{k: x_[k] for k in keep} for x_ in g], "bitwise_equal": same,
+            "graphs_per_key": per_key}
 
 
 def single_vip_labels(torch, step_inputs):
@@ -3298,47 +3394,64 @@ def single_vip_labels(torch, step_inputs):
     return labels
 
 
+# phase 19's VIP fleet: streams 0 and 1 black out together (lane 1 runs
+# for both as one group), stream 2 is clean
+FLEET_RARE_KINDS = ("black", "black", "clean")
+
+
 def fleet_rare_phase(torch, np, tklt, dev, smi, seq, singles, mono, mono_reloc):
-    """Phase 19: the per-stream loops of both fleets. (a) `VipFleetStep`,
-    S = 2, RARE_FRAMES frames of phase 9's sequence: stream 0 with phase
-    18a's blackout, stream 1 clean; (b) `MonoFleetStep`, S = 2: stream 0
-    phase 8's relocalization input, stream 1 the same frames clean. Each
-    stream's generator is seeded as its single-stream run's. `singles`:
-    the single-stream labels {"black": 18a's, "clean": phase 9's}, run
-    here where missing; `mono` = `mono_inputs(...)`; `mono_reloc` =
-    phase 8's `reloc_phase` result. Returns (the record, launches by
-    path)."""
+    """Phase 19: the rare branches of both fleets. (a) `VipFleetStep`,
+    S = 3, RARE_FRAMES frames of phase 9's sequence: streams 0 and 1 with
+    phase 18a's blackout, stream 2 clean, so that on the first black frame
+    lane 1 runs over the group of two; then that lane-1 frame again from
+    the state before it, eager and graphed (a capturing call, a replay,
+    each profiled once more for its host launch calls), bit for bit equal;
+    (b) `MonoFleetStep`, S = 2: stream 0 phase 8's relocalization input,
+    stream 1 the same frames clean. Each stream's generator is seeded as
+    its single-stream run's. `singles`: the single-stream labels
+    {"black": 18a's, "clean": phase 9's}, run here where missing; `mono`
+    = `mono_inputs(...)`; `mono_reloc` = phase 8's `reloc_phase` result.
+    Returns (the record, launches by path). On a tree whose fleet runs
+    lane 1 per stream (`VipStep._vi_lane1`, a parent's), the same
+    measurements run and the segment keys of the batched lane are not
+    required."""
     import dataclasses
 
-    from uvipslam_torch.core.tree import stack_streams
+    from uvipslam_torch.core.tree import stack_streams, tree_map
     from uvipslam_torch.frontend.device_tracker import MonoFleetStep, init_state
-    from uvipslam_torch.frontend.device_vip import VipFleetStep, init_vip_state, make_bundles
+    from uvipslam_torch.frontend.device_vip import (VipFleetStep, VipStep, init_vip_state,
+                                                    make_bundles)
     from uvipslam_torch.frontend.tracker import IMU_RELOC, LOST, WORKING
 
     cam, cfg = vip_cam_cfg(seq.K)
     n, b0 = RARE_FRAMES, RARE_BLACK[0]
     bundles = make_bundles(seq, device=dev)[:n]
-    feeds = [blacked(torch, bundles, RARE_BLACK), bundles]
+    feeds = {"black": blacked(torch, bundles, RARE_BLACK), "clean": bundles}
     singles = dict(singles)
-    for key, i in (("black", 0), ("clean", 1)):
+    for key in ("black", "clean"):
         if singles.get(key) is None:
-            singles[key] = single_vip_labels(torch, (cam, cfg, feeds[i]))
+            singles[key] = single_vip_labels(torch, (cam, cfg, feeds[key]))
         singles[key] = [int(x) for x in singles[key][:n]]
+    batched = not hasattr(VipStep, "_vi_lane1")
 
     # (a) the VIP fleet
+    kinds = FLEET_RARE_KINDS
+    S = len(kinds)
     fleet = VipFleetStep(cam, cfg, 64, device=dev)
     st0 = init_vip_state(cfg, 64, 8192, cam.height, cam.width, device=dev)
-    st = stack_streams([dataclasses.replace(st0, gen=None)] * 2)
+    st = stack_streams([dataclasses.replace(st0, gen=None)] * S)
     del st0
-    gens = seeded_generators(torch, dev, 2)
-    states, anchored, ms = [[], []], [[], []], []
+    gens = seeded_generators(torch, dev, S)
+    states, anchored, ms = [[] for _ in kinds], [[] for _ in kinds], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(tklt)
     for f in range(n):
         for i, a in enumerate((st.rec_frame >= 0).tolist()):
             anchored[i].append(bool(a))
-        b = stack_streams([feeds[0][f], feeds[1][f]])
+        if f == b0:        # the lane-1 frame's input, kept for its comparison below
+            lane1_in = (tree_map(torch.clone, st), [g.get_state() for g in gens])
+        b = stack_streams([feeds[k][f] for k in kinds])
         t1 = time.perf_counter()
         st, out = fleet(st, b, gens)
         torch.cuda.synchronize()
@@ -3351,39 +3464,52 @@ def fleet_rare_phase(torch, np, tklt, dev, smi, seq, singles, mono, mono_reloc):
                                        anchored=anchored)
     reloc = [f for f, s in enumerate(states[0]) if s == IMU_RELOC]
     back = [f for f in range(reloc[0], n) if states[0][f] == WORKING] if reloc else []
-    agree = [sum(a == b for a, b in zip(states[i], singles[k])) for i, k in
-             enumerate(("black", "clean"))]
+    agree = [sum(a == b for a, b in zip(states[i], singles[k])) for i, k in enumerate(kinds)]
     differ = [[f for f in range(n) if states[i][f] != singles[k][f]]
-              for i, k in enumerate(("black", "clean"))]
+              for i, k in enumerate(kinds)]
     start0 = [None] + states[0][:-1]      # the state stream 0 starts each frame in
     in_reloc = [m for m, p in zip(ms, start0) if p == IMU_RELOC]
     rest = [m for f, (m, p) in enumerate(zip(ms, start0)) if f >= 3 and p != IMU_RELOC]
     reads_a = fleet.host_syncs
-    log(f"phase VIP fleet rare branches (a) S 2 512x640 / 400 tracks / {n} frames, stream 0 "
-        f"with frames {b0}-{RARE_BLACK[-1]} black, stream 1 clean: stream 0 IMU_RELOC on frames "
-        f"{reloc[:1] + reloc[-1:]}, WORKING again at {back[:1]}; stream 1 IMU_RELOC on "
-        f"{sum(s == IMU_RELOC for s in states[1])} frames; labels equal to the single-stream "
-        f"runs' on {agree[0]}/{n} and {agree[1]}/{n} frames (differing frames {differ[0]} and "
-        f"{differ[1]}); median {statistics.median(rest):.1f} ms per batched frame (frames 3 on, "
-        f"stream 0 not in IMU_RELOC), {statistics.median(in_reloc) if in_reloc else float('nan'):.1f} "
-        f"ms with stream 0 in IMU_RELOC ({len(in_reloc)} frames); host reads "
-        f"{reads_a / n:.2f} per batched frame ({fleet.fleet_syncs} fleet tables), kernel "
-        f"launches {launches_a} (expected {expect_a}), peak allocated {peak_a / 2**20:.1f} MiB")
-    for i in range(2):
+    per_key = fleet.segments.graphs_per_key()
+    lane_keys = {repr(k): v for k, v in per_key.items() if k[0] in ("L", "I")}
+    log(f"phase VIP fleet rare branches (a) S {S} 512x640 / 400 tracks / {n} frames, streams "
+        f"{[i for i, k in enumerate(kinds) if k == 'black']} with frames {b0}-{RARE_BLACK[-1]} "
+        f"black (lane 1 {'batched over the group' if batched else 'per stream'}), the others "
+        f"clean: stream 0 IMU_RELOC on frames {reloc[:1] + reloc[-1:]}, WORKING again at "
+        f"{back[:1]}; IMU_RELOC frames per stream {[s.count(IMU_RELOC) for s in states]}; "
+        f"labels equal to the single-stream runs' on {agree} of {n} frames (differing frames "
+        f"{differ}); streams 0 and 1 (the same inputs) with equal labels: "
+        f"{states[0] == states[1]}; median {statistics.median(rest):.1f} ms per batched frame "
+        f"(frames 3 on, stream 0 not in IMU_RELOC), "
+        f"{statistics.median(in_reloc) if in_reloc else float('nan'):.1f} ms with stream 0 in "
+        f"IMU_RELOC ({len(in_reloc)} frames); host reads {reads_a / n:.2f} per batched frame "
+        f"({fleet.fleet_syncs} fleet tables), kernel launches {launches_a} (expected "
+        f"{expect_a}), peak allocated {peak_a / 2**20:.1f} MiB; {fleet.segments.captures} "
+        f"captures for {len(per_key)} keys (at most {max(per_key.values())} for one), lane 1's "
+        f"keys {lane_keys}; landmark-table compactions {compactions(fleet)}")
+    for i in range(S):
         log(f"  stream {i} states {''.join(str(s) for s in states[i])}")
     fails = []
-    if not reloc or IMU_RELOC in states[1]:
-        fails.append("IMU_RELOC not on stream 0 alone")
+    if not reloc or [bool(IMU_RELOC in s) for s in states] != [k == "black" for k in kinds]:
+        fails.append("IMU_RELOC not on the blacked-out streams alone")
     if not back or back[0] - b0 > cfg.recovery_max_frames:
         fails.append(f"stream 0 not WORKING again within {cfg.recovery_max_frames} frames")
     if min(agree) < 0.95 * n:
         fails.append(f"labels equal to the single-stream runs' on {agree} of {n} frames")
     if min(launches_a.values()) <= 0 or launches_a != expect_a:
         fails.append(f"kernel launches {launches_a}, expected {expect_a}")
+    if batched and not any(k.startswith("('L'") for k in lane_keys):
+        fails.append(f"no segment L among the fleet's keys {sorted(per_key)}")
     if fails:
         raise AssertionError("VIP fleet rare branches: " + "; ".join(fails))
-    del st, fleet, feeds, bundles
+    comp_a = compactions(fleet)
+    del st, fleet
     mark("fleet_vip_blackout")
+    lane1 = fleet_lane1_frame(torch, tklt, dev, cam, cfg, lane1_in,
+                              stack_streams([feeds[k][b0] for k in kinds]), b0, batched)
+    del lane1_in, feeds, bundles
+    mark("fleet_vip_lane1_frame")
 
     # (b) the mono fleet
     _, cam_m, cfg_m, imgs = mono
@@ -3447,9 +3573,11 @@ def fleet_rare_phase(torch, np, tklt, dev, smi, seq, singles, mono, mono_reloc):
     if fails:
         raise AssertionError("mono fleet rare branches: " + "; ".join(fails))
     mark("fleet_mono_reloc")
-    record = {"vip": {"streams": 2, "n_frames": n, "imu_reloc_frames": reloc,
+    record = {"vip": {"streams": S, "n_frames": n, "imu_reloc_frames": reloc,
                       "working_again_frame": back[0], "labels_equal_to_single": agree,
-                      "differing_frames": differ,
+                      "differing_frames": differ, "lane1_batched": batched,
+                      "lane1_frame": lane1, "lane1_keys": lane_keys,
+                      "compactions": comp_a,
                       "median_ms_per_batched_frame": statistics.median(rest),
                       "median_ms_stream0_in_imu_reloc": statistics.median(in_reloc)
                       if in_reloc else None,
@@ -3464,6 +3592,83 @@ def fleet_rare_phase(torch, np, tklt, dev, smi, seq, singles, mono, mono_reloc):
                        "labels": ["".join(str(s) for s in x) for x in states_m]},
               "card": smi}
     return record, {"fleet_vip_blackout": launches_a, "fleet_mono_reloc": launches_m}
+
+
+def fleet_lane1_frame(torch, tklt, dev, cam, cfg, lane1_in, x, f, batched):
+    """Phase 19's lane-1 frame `f` (batched input `x`) again from the
+    fleet's state and generators before it (`lane1_in`): a fresh eager
+    fleet (`graphs=False`) once, then profiled once more; a fresh graphed
+    fleet, a capturing call, a replay, then the replay profiled. Every
+    call's output and state bit for bit equal, the same host reads and
+    hand-kernel launches, the replay with no capture. Returns the ms,
+    host launch calls (the profiled calls' trace: kernel and graph
+    launches), captures and reads of each form."""
+    from uvipslam_torch.core.tree import tree_map
+    from uvipslam_torch.frontend.device_vip import VipFleetStep
+
+    st_in, gen_states = lane1_in
+
+    def inputs():
+        gens = []
+        for g in gen_states:
+            gens.append(torch.Generator(device=dev))
+            gens[-1].set_state(g)
+        return tree_map(torch.clone, st_in), gens
+
+    calls, splits, profiled, keys = {}, {}, {}, None
+    for form, graphs, n in (("eager", False, 1), ("graphed", True, 2)):
+        fleet = VipFleetStep(cam, cfg, 64, device=dev, graphs=graphs)
+        seg, calls[form] = fleet.segments, []
+        for _ in range(n):
+            st, gens = inputs()
+            reset_launches(tklt)
+            c0 = (fleet.host_syncs, seg.captures)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            st, out = fleet(st, x, gens)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+            calls[form].append(dict(ms=ms, bits=(tree_bits(torch, out), tree_bits(torch, st)),
+                                    reads=fleet.host_syncs - c0[0], captures=seg.captures - c0[1],
+                                    launches=read_launches(tklt), states=out.state.tolist()))
+            del st, out
+        st, gens = inputs()
+        call = FleetCall(fleet, gens)
+        st, splits[form] = frame_split(torch, call, st, x, f"split_fleet_lane1_{form}.txt")
+        profiled[form] = (tree_bits(torch, call.last[1]), tree_bits(torch, st))
+        if graphs:
+            keys = {repr(k): v for k, v in seg.graphs_per_key().items()}
+        del st, fleet, call
+    (e,), g = calls["eager"], calls["graphed"]
+    same = [all(torch.equal(a, b) for a, b in zip(bits, e["bits"]))
+            for bits in [c["bits"] for c in g] + list(profiled.values())]
+    lane = {k: v for k, v in keys.items() if k.startswith(("('L'", "('I'"))}
+    log(f"phase VIP fleet rare branches (a) the lane-1 frame {f} (lane 1 "
+        f"{'batched over the group' if batched else 'per stream'}) from the state before it: "
+        f"eager {e['ms']:.1f} ms, graphed {g[0]['ms']:.1f} ms on its first call "
+        f"({g[0]['captures']} captures), {g[1]['ms']:.1f} ms replayed ({g[1]['captures']} "
+        f"captures); host launch calls eager {splits['eager']['host_launch_calls']}, "
+        f"replayed {splits['graphed']['host_launch_calls']} (device ms "
+        f"{splits['eager']['device_ms']:.2f} / {splits['graphed']['device_ms']:.2f}); host "
+        f"reads {e['reads']} / {[c['reads'] for c in g]}, kernel launches {e['launches']} / "
+        f"{[c['launches'] for c in g]} eager / graphed; labels {e['states']}; bit for bit equal "
+        f"to eager: {same}; graphs per key of lane 1 {lane}")
+    fails = []
+    if not all(same) or g[1]["captures"] or any(
+            c["reads"] != e["reads"] or c["launches"] != e["launches"] for c in g):
+        fails.append(f"graphed calls {[{k: v for k, v in c.items() if k != 'bits'} for c in g]}, "
+                     f"eager reads {e['reads']}, launches {e['launches']}, bit for bit {same}")
+    if batched and not any(k.startswith("('L'") for k in lane):
+        fails.append(f"no segment L among the graphed fleet's keys {sorted(keys)}")
+    if fails:
+        raise AssertionError(f"VIP fleet lane-1 frame {f}: " + "; ".join(fails))
+    keep = ("ms", "reads", "captures", "launches")
+    return {"frame": f, "batched": batched, "eager": {k: e[k] for k in keep},
+            "graphed": [{k: c[k] for k in keep} for c in g], "bitwise_equal": same,
+            "host_launch_calls": {k: v["host_launch_calls"] for k, v in splits.items()},
+            "device_ms": {k: v["device_ms"] for k, v in splits.items()},
+            "wall_ms_profiled": {k: v["wall_ms_profiled"] for k, v in splits.items()},
+            "graphs_per_key_lane1": lane}
 
 
 # phase 20: the VIP mode only (the mono mode's sequence, config and gates
@@ -3498,7 +3703,8 @@ def bench_phase():
         f"{ex['frames_tracked']}/{ex['n_frames']} WORKING, host reads "
         f"{ex['host_reads_per_frame']:.2f}/frame, hand-kernel launches/frame "
         f"{ex['hand_kernel_launches_per_frame']}, marginal {pl['marginal_ms_per_frame']:.2f} "
-        f"ms/frame against the second half's median {pl['second_half_median_ms']:.2f}")
+        f"ms/frame against the second half's median {pl['second_half_median_ms']:.2f}, "
+        f"landmark-table compactions {ex.get('compactions')}")
     log("  line: " + json.dumps(line))
     if not (ex["ok"] and line["value"] > 0 and pl["half_run_bitwise_equal"]
             and ex["refine_wide_calls"] == 0):
@@ -3535,6 +3741,7 @@ class FrameRecord:
         self.anchored.append(bool(getattr(st, "rec_frame", -1) >= 0))
         self.tally.append(dict(
             host_syncs=step.host_syncs, wide=tklt.refine_wide_calls,
+            compactions=compactions(step),
             launches={"extract_patches": tklt.patch_launches,
                       "anchor_refine": tklt.refine_launches},
             captures=seg.captures, replays=seg.replays, capture_seconds=seg.capture_seconds,
@@ -3583,6 +3790,10 @@ def hold_trace(profile, what):
 
 
 GRAPH_FRAMES = {"vip": 34, "mono": 30}   # phase 21: the first frames of bench VIP and mono
+# phase 21's compaction run: bench VIP's first frames at a landmark
+# capacity that the table passes 90% of (8192 in the runs above, which
+# never compact), before VIO init (frame 18) and after it (frame 26)
+COMPACT_PT_CAP, COMPACT_FRAMES = 512, 27
 MONO_PROFILE_FRAME = 12                  # phase 7 profiles the frame after its 12-frame audit
 
 
@@ -3718,7 +3929,7 @@ def graphed_records(torch, np, tklt, dev, vseq, mseq):
     return records
 
 
-def graphs_phase(torch, np, tklt, dev, smi, vseq, mseq, graphed, eager_vio_split=True):
+def graphs_phase(torch, np, tklt, dev, smi, vseq, mseq, graphed, vio_split=True):
     """Phase 21: the graphed step against the eager one. `graphed` holds
     the FrameRecords of phase 9's graphed run over bench VIP's first
     GRAPH_FRAMES["vip"] frames (VIO init at frame 22, then VI keyframes)
@@ -3736,10 +3947,10 @@ def graphs_phase(torch, np, tklt, dev, smi, vseq, mseq, graphed, eager_vio_split
     branch of both forms, the VIO-init frame's captures, scan steps and
     peak memory, and the VIO-init frame and the last pre-VIO keyframe
     frame before it under the profiler, split by span, graphed (from a
-    fresh graphed run) and eager (from the eager run's states; the eager
-    VIO-init frame, a ~2.7M-event trace read in ~30 s, only with
-    `eager_vio_split`, which a whole run leaves off). Returns the
-    record."""
+    fresh graphed run) and eager (from the eager run's states); the
+    VIO-init frame only with `vio_split`, which a whole run leaves off
+    (its traces, ~2.7M events eager and ~1M graphed, take 30-45 s each to
+    read). Returns the record."""
     from uvipslam_torch.frontend.device_tracker import build_tracker
     from uvipslam_torch.frontend.device_vip import build_vip_tracker, make_bundles
     from uvipslam_torch.frontend.tracker import WORKING
@@ -3748,8 +3959,8 @@ def graphs_phase(torch, np, tklt, dev, smi, vseq, mseq, graphed, eager_vio_split
     cam, cfg = vip_cam_cfg(vseq.K)
     _, mcam, mcfg, imgs = mono_inputs(torch, np, dev, mseq)
     cases = {
-        "vip": (lambda graphs=False: build_vip_tracker(cam, cfg, kf_cap=64, pt_cap=8192,
-                                                       device=dev, graphs=graphs),
+        "vip": (lambda graphs=False, pt_cap=8192: build_vip_tracker(
+                    cam, cfg, kf_cap=64, pt_cap=pt_cap, device=dev, graphs=graphs),
                 make_bundles(vseq, device=dev)[:GRAPH_FRAMES["vip"]],
                 orb_levels(*vseq.images.shape[1:])),
         "mono": (lambda: build_tracker(mcam, mcfg, kf_cap=64, pt_cap=8192, device=dev,
@@ -3770,7 +3981,10 @@ def graphs_phase(torch, np, tklt, dev, smi, vseq, mseq, graphed, eager_vio_split
             f_vio = branches.index("vio_init") if "vio_init" in branches else None
             f_kf = max((f for f in range(f_vio or 0) if branches[f] == "pre_vio_keyframe"),
                        default=None)
-            split_at = {f: None for f in (f_kf, f_vio) if f is not None}
+            split_at = {f: None for f in (f_kf, f_vio if vio_split else None) if f is not None}
+            if f_vio is not None and not vio_split:
+                log(f"phase graphs {name}: the VIO-init frame {f_vio} is not split by span in "
+                    f"a whole run (`--only graphs` splits it; PERF.md §5 has its split)")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -3805,10 +4019,6 @@ def graphs_phase(torch, np, tklt, dev, smi, vseq, mseq, graphed, eager_vio_split
         splits, per_key = {}, None
         if split_at:
             for f, before in split_at.items():
-                if f == f_vio and not eager_vio_split:
-                    log(f"phase graphs {name}: the eager VIO-init frame {f} is not profiled "
-                        f"in a whole run (`--only graphs` profiles it; PERF.md §5 has its split)")
-                    continue
                 log(f"phase graphs {name} split, eager, frame {f} ({branches[f]}):")
                 splits[f"eager_{f}"] = frame_split(torch, step, clone_vip_state(torch, before, dev),
                                                    feeds[f], f"split_{name}_eager_{f}.txt")[1]
@@ -3833,11 +4043,13 @@ def graphs_phase(torch, np, tklt, dev, smi, vseq, mseq, graphed, eager_vio_split
             del st_g, step_g
         last = g.tally[-1]
         forms = {"eager": dict(ms=ms, host_syncs=syncs, launches=launches, captures=0,
-                               replays=0, capture_s=0.0, peak=peak, profile=e_prof),
+                               replays=0, capture_s=0.0, peak=peak, profile=e_prof,
+                               compactions=compactions(step)),
                  "graphed": dict(ms=g.ms[:n], host_syncs=last["host_syncs"],
                                  launches=last["launches"], captures=last["captures"],
                                  replays=last["replays"], capture_s=last["capture_seconds"],
-                                 peak=last["peak"], profile=g.profile)}
+                                 peak=last["peak"], profile=g.profile,
+                                 compactions=last.get("compactions"))}
         rec = {"frames": n, "labels": "".join(str(x) for x in g.labels),
                "differing_frames": differ, "expected_launches": expect, "profile_frame": f_prof}
         kf_free = [f for f in range(2, n) if g.new_kf[f] < 0 and g.labels[f] == WORKING
@@ -3848,6 +4060,7 @@ def graphs_phase(torch, np, tklt, dev, smi, vseq, mseq, graphed, eager_vio_split
             rec[form] = dict(
                 ms_per_frame_all=sum(r["ms"]) / n, ms_keyframe_free_median=med,
                 host_reads_per_frame=r["host_syncs"] / n, launches=r["launches"],
+                compactions=r["compactions"],
                 captures=r["captures"], replays_per_frame=r["replays"] / n,
                 capture_seconds=r["capture_s"], peak_above_start_bytes=r["peak"],
                 host_launch_calls_per_frame=p["launches_per_frame"] if p else None,
@@ -3861,7 +4074,8 @@ def graphs_phase(torch, np, tklt, dev, smi, vseq, mseq, graphed, eager_vio_split
             log(f"phase graphs {name} 512x640 / 400 tracks / {n} frames, {form}: "
                 f"{x['ms_per_frame_all']:.2f} ms/frame over all frames, keyframe-free WORKING "
                 f"frames' median {med:.2f} ms; host reads {x['host_reads_per_frame']:.3f}/frame; "
-                f"kernel launches {x['launches']} (expected {expect}); captures {x['captures']} "
+                f"kernel launches {x['launches']} (expected {expect}); landmark-table "
+                f"compactions {x['compactions']}; captures {x['captures']} "
                 f"({x['capture_seconds']:.2f} s), replays {x['replays_per_frame']:.2f}/frame; "
                 f"peak allocated {x['peak_above_start_bytes'] / 2**20:.1f} MiB above the "
                 f"run's start"
@@ -3924,7 +4138,61 @@ def graphs_phase(torch, np, tklt, dev, smi, vseq, mseq, graphed, eager_vio_split
         gc.collect()
         torch.cuda.empty_cache()
         mark(f"graphs_{name}")
+    new_tracker, feeds, _ = cases["vip"]
+    record["compaction"] = compaction_run(torch, tklt, new_tracker, feeds[:COMPACT_FRAMES])
     return record
+
+
+def compaction_run(torch, tklt, new_tracker, feeds):
+    """Phase 21's compaction run: the VIP step (`new_tracker`, graphs_phase's
+    maker) over `feeds` at COMPACT_PT_CAP, graphed then eager, every
+    frame's output and state bit for bit equal, with the same host reads,
+    hand-kernel launches and compactions on the same frames, before VIO
+    init and after it (the compaction inside segment E, keyed by its
+    read). Returns the record."""
+    runs = {}
+    for graphs in (True, False):
+        st, step = new_tracker(graphs=graphs, pt_cap=COMPACT_PT_CAP)
+        reset_launches(tklt)
+        bits, comp, vios, ms = [], [], [], []
+        for x in feeds:
+            c0 = step.compactions
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            st, o = step(st, x)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            bits.append((tree_bits(torch, o), tree_bits(torch, st)))
+            comp.append(step.compactions - c0)
+            vios.append(bool(getattr(o, "vio_ok", False)))
+        runs[graphs] = dict(bits=bits, compacted=[f for f, c in enumerate(comp) if c],
+                            vios=vios, ms=ms, launches=read_launches(tklt),
+                            reads=step.host_syncs, captures=step.segments.captures,
+                            keys={repr(k): v for k, v in
+                                  step.segments.graphs_per_key().items() if k[0] == "E"})
+        del st, step
+    g, e = runs[True], runs[False]
+    differ = [f for f, (a, b) in enumerate(zip(g["bits"], e["bits"]))
+              if not all(torch.equal(x, y) for x, y in zip(a, b))]
+    before_vio = [f for f in g["compacted"] if not g["vios"][f]]
+    rec = dict(pt_cap=COMPACT_PT_CAP, frames=len(feeds), compacted_frames=g["compacted"],
+               compacted_before_vio_init=before_vio, differing_frames=differ,
+               host_reads=[g["reads"], e["reads"]], launches=[g["launches"], e["launches"]],
+               ms_per_frame=[sum(g["ms"]) / len(feeds), sum(e["ms"]) / len(feeds)],
+               captures=g["captures"], graphs_per_key_E=g["keys"])
+    log(f"phase graphs vip at pt_cap {COMPACT_PT_CAP}, {len(feeds)} frames, graphed / "
+        f"eager: compactions on frames {g['compacted']} / {e['compacted']} "
+        f"({len(before_vio)} before VIO init); outputs and states bit for bit equal on "
+        f"{len(feeds) - len(differ)}/{len(feeds)} frames; host reads {g['reads']} / "
+        f"{e['reads']}; kernel launches {g['launches']} / {e['launches']}; "
+        f"{rec['ms_per_frame'][0]:.1f} / {rec['ms_per_frame'][1]:.1f} ms per frame; "
+        f"{g['captures']} captures; graphs per key of E {g['keys']}")
+    if differ or not before_vio or len(before_vio) == len(g["compacted"]) \
+            or g["compacted"] != e["compacted"] or g["reads"] != e["reads"] \
+            or g["launches"] != e["launches"]:
+        raise AssertionError(f"graphs vip compaction run: {rec}")
+    mark("graphs_vip_compaction")
+    return rec
 
 
 def main() -> int:
@@ -4229,7 +4497,7 @@ def run_phases(torch, np, dev, smi, renders) -> int:
     # -- phase 21: the graphed step against the eager one ---------------------------
     graphs_record = graphs_phase(torch, np, tklt, dev, smi, vip_seq, seq,
                                  {"vip": vip_graphed, "mono": mono_graphed},
-                                 eager_vio_split=False)
+                                 vio_split=False)
     del vip_graphed, mono_graphed
 
     log("phase end times (s since start): " + ", ".join(f"{k} {v}" for k, v in MARKS.items()))

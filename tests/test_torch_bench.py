@@ -191,6 +191,7 @@ EXTRA_KEYS = {"ok", "frames_tracked", "n_frames", "wall_ms_per_frame", "run_wall
               "ms_per_frame", "run_medians_ms",
               "first_frame_ms", "runs_bitwise_equal", "host_reads_per_frame",
               "hand_kernel_launches_per_frame", "refine_wide_calls", "peak_allocated_mib",
+              "compactions",
               "plausibility", "profile", "device"}
 
 

@@ -626,17 +626,36 @@ def test_graphed_fleet_replays_a_group_of_another_composition(fleet_runs):
         assert all(isinstance(v, bool) or v in forms for _, v in k[1:]), k
 
 
+def _spy_reads_and_segments(fleet, log):
+    """Log the fleet's segments by name and its table reads by rows, in
+    order."""
+    read, run_seg = fleet._read, fleet._seg
+    fleet._read = lambda *flags: log.append(("read", flags[0].shape[0])) or read(*flags)
+    fleet._seg = lambda name, *a, **k: log.append(name) or run_seg(name, *a, **k)
+
+
+def _lane1_read_once(log):
+    """Lane 1 over a group of two: segment L, one read of the group's two
+    flags, then segment I."""
+    at = log.index("L")
+    return log.count("L") == 1 and log[at + 1:at + 3] == [("read", 2), "I"]
+
+
 def test_fleet_rare_branches_match_single_stream(world):
     """Three black frames send the mono stream to LOST and the VI stream
-    through the first-try lane into IMU_RELOC, the branches the fleet runs
-    per stream through the single-stream code: the fleet's labels are
-    those of single-stream runs on the same inputs with the same seeds,
-    and the graphed fleet (its plain form) gives the eager fleet's
+    and its copy (the same state, frames and seed) through the first-try
+    lane into IMU_RELOC and back through the recovery. LOST and IMU_RELOC
+    run per stream through the single-stream code; lane 1 runs over the
+    two VI streams as one group (segment L, one read of the group's two
+    flags, segment I). The fleet's labels are those of single-stream runs
+    on the same inputs with the same seeds, the copies stay equal bit for
+    bit, and the graphed fleet (its plain form) gives the eager fleet's
     outputs and states bit for bit, with the same host reads."""
     cfg, cam = world["cfg"], world["cam"]
     (sa, ba), (sb, bb) = world["runs"]
     n, f_vi = 7, VI_F
     starts = [(sb[MONO_F], bb[MONO_F:MONO_F + n]), (sa[f_vi], ba[f_vi:f_vi + n])]
+    streams = [0, 1, 1]          # the VI stream twice
 
     def black(bundle, f):
         return dataclasses.replace(bundle, img=torch.zeros_like(bundle.img)) if f < 3 else bundle
@@ -656,22 +675,97 @@ def test_fleet_rare_branches_match_single_stream(world):
         single.append(labels)
     assert tr.LOST in [s for s, _ in single[0]]
     assert tr.IMU_RELOC in [s for s, _ in single[1]]
+    assert single[1][-1] == (tr.WORKING, True)           # recovered
 
     runs = {}
     for graphs in (False, True):
         fleet = dv.VipFleetStep(cam, cfg, KF_CAP, device="cpu", graphs=graphs)
-        st = stack_streams([dataclasses.replace(s, gen=None) for s, _ in starts])
-        gens = [gen(0), gen(1)]
-        got, trees = [[], []], []
+        log = []
+        _spy_reads_and_segments(fleet, log)
+        st = stack_streams([dataclasses.replace(starts[i][0], gen=None) for i in streams])
+        gens = [gen(i) for i in streams]
+        got, trees = [[] for _ in streams], []
         for f in range(n):
-            st, out = fleet(st, stack_streams([black(bs[f], f) for _, bs in starts]), gens)
+            log.clear()
+            st, out = fleet(st, stack_streams([black(starts[i][1][f], f) for i in streams]),
+                            gens)
             trees += [out, st]
-            for i in range(2):
-                got[i].append((int(out.state[i]), bool(out.vio_ok[i])))
-        assert got == single
+            if f == 0:
+                assert _lane1_read_once(log), log
+            for j in range(len(streams)):
+                got[j].append((int(out.state[j]), bool(out.vio_ok[j])))
+        assert got == [single[i] for i in streams]
         runs[graphs] = trees, fleet.host_syncs
     assert all(_same_bits(a, b) for a, b in zip(runs[False][0], runs[True][0]))
     assert runs[False][1] == runs[True][1]
+    for tree in runs[False][0]:
+        for a in tree_leaves(tree):
+            assert torch.equal(torch.nan_to_num(a[1]), torch.nan_to_num(a[2]))
+
+
+def _lane0_fails(step):
+    """Patch a VIP step's lane 0 so that its solve holds no inlier: its
+    count zeroed on the device, which a capture records."""
+    real = step._vi_lane0
+
+    def lane0(st, b, ns_pred, pre_frame):
+        out, (_, need) = real(st, b, ns_pred, pre_frame)
+        out = out[:2] + (torch.zeros_like(out[2]),) + out[3:]
+        return out, (out[2] >= step.cfg.min_tracked, need)
+
+    step._vi_lane0 = lane0
+
+
+def test_fleet_lane1_holds_and_fails_in_one_group(world):
+    """Two VI streams on a clean frame with lane 0 made to fail and lane
+    1's gate set between their lane-1 inliers: in one group, one row holds
+    (WORKING with its forced keyframe, through K, D and E) and one fails
+    (IMU_RELOC), after segment L and one read of the group's flags. Each
+    row's label and keyframe slot are a single-stream run's with the same
+    patches, and the graphed fleet (its plain form) gives the eager
+    fleet's outputs and states bit for bit, with the same host reads."""
+    (sa, ba), (sb, bb) = world["runs"]
+    streams = [(sa[VI_F], ba[VI_F], 51), (sb[VI_F], bb[VI_F], 52)]
+
+    def single(st0, b, seed, reloc_min=None):
+        step = dv.VipStep(world["cam"], world["cfg"], KF_CAP, device="cpu")
+        _lane0_fails(step)
+        if reloc_min is not None:
+            step.reloc_min = reloc_min
+        counts, real = [], step._lane1_solve
+
+        def lane1(st, b_, pred):
+            out, holds = real(st, b_, pred)
+            counts.append(int(out[2]))
+            return out, holds
+
+        step._lane1_solve = lane1
+        _, out = step(dataclasses.replace(st0, gen=torch.Generator().manual_seed(seed)), b)
+        return (int(out.state), int(out.new_kf)), counts[0]
+
+    counts = [single(*x)[1] for x in streams]
+    assert counts[0] != counts[1], counts
+    reloc_min = max(counts)          # the stream with more inliers holds
+    want = [single(*x, reloc_min)[0] for x in streams]
+    assert sorted(w[0] for w in want) == [tr.WORKING, tr.IMU_RELOC]
+    assert sorted(w[1] >= 0 for w in want) == [False, True]        # the forced keyframe
+
+    runs = {}
+    for graphs in (False, True):
+        fleet = dv.VipFleetStep(world["cam"], world["cfg"], KF_CAP, device="cpu", graphs=graphs)
+        _lane0_fails(fleet.one)
+        fleet.one.reloc_min = reloc_min
+        log = []
+        _spy_reads_and_segments(fleet, log)
+        st, out = fleet(stack_streams([dataclasses.replace(s0, gen=None) for s0, _, _ in streams]),
+                        stack_streams([b for _, b, _ in streams]),
+                        [torch.Generator().manual_seed(seed) for _, _, seed in streams])
+        assert _lane1_read_once(log), log
+        assert [(int(out.state[i]), int(out.new_kf[i])) for i in range(2)] == want
+        runs[graphs] = (out, st), fleet
+    (e_trees, e_fleet), (g_trees, g_fleet) = runs[False], runs[True]
+    assert _same_bits(e_trees, g_trees) and e_fleet.host_syncs == g_fleet.host_syncs
+    assert ("L", ("g", "all")) in g_fleet.segments.keys
 
 
 @pytest.fixture(scope="module")

@@ -48,6 +48,7 @@ from uvipslam_torch.solver import factors as tfac
 from uvipslam_torch.solver import global_ba as tgba
 from uvipslam_torch.solver import local_ba as tlba
 from uvipslam_torch.solver import pose_opt as tpo
+from uvipslam_torch.utils.graphs import Segments
 from uvipslam_torch.vio import init as tvio
 from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
@@ -122,6 +123,25 @@ def test_preintegrate_batched_windows():
         for i, w in enumerate(wins):
             j = _tree_np(jpre.preintegrate(*(jnp.asarray(a) for a in w), 0.01, 0.1))
             _assert_preint(ttree(lambda a: a[i], t), j)
+
+
+def test_recovery_reintegration_through_scan():
+    """The IMU_RELOC recovery's re-integration: two stored windows (the
+    anchor's and the current one, of different fill) stacked and run as
+    one loop through `Segments.scan` (its plain CPU form of one captured
+    graph per sample) against the reference's `jax.vmap(preintegrate)` of
+    the two at one bias (`uvipslam_tpu/frontend/device_vip.py:932-940`),
+    at `_assert_preint`'s float32 tolerances."""
+    wins = [_imu_window(s, n_valid=n) for s, n in ((8, 40), (9, 17))]
+    stack = [np.stack(x) for x in zip(*wins)][:4]
+    bg, ba = wins[0][4], wins[0][5]
+    seg = Segments("cpu", graphs=True)
+    t = tpre.preintegrate(*(_t(a) for a in stack), _t(bg), _t(ba), 0.01, 0.1, scan=seg.scan)
+    assert seg.scan_steps == 40 and seg.keys == {("scan", "preint", (2, 40))}
+    with jax.enable_x64(False):
+        j = _tree_np(jax.vmap(jpre.preintegrate, in_axes=(0, 0, 0, 0, None, None, None, None))(
+            *(jnp.asarray(a) for a in stack), jnp.asarray(bg), jnp.asarray(ba), 0.01, 0.1))
+    _assert_preint(t, j)
 
 
 def test_preintegrate_continue_two_states_shared_window():

@@ -269,7 +269,8 @@ def test_lane1_frame_graphed_equals_eager(jax_run, torch_run, seq, monkeypatch, 
     if outcome == "holds":
         assert e_calls[1] >= e_step.reloc_min and int(e_out.state) == ttr.WORKING
         assert int(e_out.new_kf) == int(src.map.n_kf)
-        assert {("L",), ("C", True, True), ("D", True, True), ("E", True)} <= g_step.segments.keys
+        assert ({("L",), ("C", True, True), ("D", True, True), ("E", True, False)}
+                <= g_step.segments.keys)
     else:
         assert int(e_out.state) == ttr.IMU_RELOC and int(e_out.new_kf) == -1
         assert {("L",), ("I",)} <= g_step.segments.keys
@@ -472,7 +473,7 @@ def test_graphed_step_through_pre_vio_keyframe_and_vio_init(seq, jax_run, torch_
             assert torch.equal(x.contiguous().view(-1).view(torch.uint8),
                                y.contiguous().view(-1).view(torch.uint8)), (tree, name)
     assert e_step.host_syncs == g_step.host_syncs
-    assert {("D", False, True), ("E", False), ("R",)} <= g_step.segments.keys
+    assert {("D", False, True), ("E", False, False), ("R",)} <= g_step.segments.keys
     assert e_step.segments.scan_steps == 0 < g_step.segments.scan_steps
 
 

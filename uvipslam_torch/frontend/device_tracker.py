@@ -12,7 +12,8 @@ conditions are ready together: per frame the state (1), then in
 INITIALIZING the (ok, stale) pair, in NOT_INITIALIZED the go flag, in
 WORKING the (lost, need_kf) pair, in LOST the accept flag, and on
 keyframe frames the compaction flag of the map hygiene.
-`MonoStep.host_syncs` counts them.
+`MonoStep.host_syncs` counts them, and `MonoStep.compactions` the
+compactions that the last flag asked for.
 
 The reference compiles the whole step into one program (`jax.jit`). Its
 counterpart here is `MonoStep(graphs=...)` (on by default on a CUDA
@@ -24,18 +25,19 @@ captured graph must not consume the generator), the propagation and the
 pose + local-map solve up to the (lost, need_kf) read; C, the solve
 taken with the refill and refresh, and on a keyframe-free frame the ring
 and the output; on a keyframe frame D, triangulation, the keyframe, the
-window BA and the hygiene up to the compaction read (the compaction runs
-eagerly when it is due), and E, the keyframe's bookkeeping, the ring and
-the output. With `graphs=False` the same segments are called eagerly, so
-both forms compose the frame alike; the graphed frame launches the same
-kernels on the same inputs and gives the eager step's outputs and states
-bit for bit, with the same host reads. NOT_INITIALIZED, INITIALIZING,
-LOST and a WORKING frame that turns LOST stay eager after A: they are
-rare, their two-view and relocalization draw from the generator inside,
-and each would be graphs of its own. `MonoFleetStep` replays its batched
-frames' stages as graphs in the same way (`Fleet`: the counterpart of the
-reference's `jax.jit(vmap(scan(step)))`), its groups' rows entering as
-data, NOT_INITIALIZED, INITIALIZING and LOST eager.
+window BA and the hygiene up to the compaction read, and E (compact), the
+compaction when the read asked for it (the reference's `lax.cond`), the
+keyframe's bookkeeping, the ring and the output. With `graphs=False` the
+same segments are called eagerly, so both forms compose the frame alike;
+the graphed frame launches the same kernels on the same inputs and gives
+the eager step's outputs and states bit for bit, with the same host
+reads. NOT_INITIALIZED, INITIALIZING, LOST and a WORKING frame that
+turns LOST stay eager after A: they are rare, their two-view and
+relocalization draw from the generator inside, and each would be graphs
+of its own. `MonoFleetStep` replays its batched frames' stages as graphs
+in the same way (`Fleet`: the counterpart of the reference's
+`jax.jit(vmap(scan(step)))`), its groups' rows entering as data, the
+compaction inside its E, NOT_INITIALIZED, INITIALIZING and LOST eager.
 
 Each phase runs inside a `torch.profiler.record_function` span named
 `step.<phase>` (propagate, refill, two_view_init, pose_localmap,
@@ -176,10 +178,11 @@ def init_state(cfg: TrackerConfig, kf_cap: int, pt_cap: int, height: int, width:
 class MonoStep:
     """The per-frame step of the device mono tracker (no weights, so no
     nn.Module): `st, out = step(st, img)`. Counts its host reads in
-    `host_syncs`. `graphs` (default: on for a CUDA device, off on the
-    CPU) replays the WORKING frames' segments as captured graphs
-    (`self.segments`, a `utils.graphs.Segments`); off, the same segments
-    run eagerly; `graphs=True` on the CPU runs their plain form."""
+    `host_syncs` and the landmark-table compactions in `compactions`.
+    `graphs` (default: on for a CUDA device, off on the CPU) replays the
+    WORKING frames' segments as captured graphs (`self.segments`, a
+    `utils.graphs.Segments`); off, the same segments run eagerly;
+    `graphs=True` on the CPU runs their plain form."""
 
     def __init__(self, cam: CameraModel, cfg: TrackerConfig, device="cuda",
                  graphs: bool | None = None):
@@ -191,6 +194,7 @@ class MonoStep:
         self.scale_sigmas = torch.tensor(cfg.scale_sigmas, dtype=torch.float32).to(self.device)
         self.K = torch.as_tensor(cam.K).to(self.device)
         self.host_syncs = 0
+        self.compactions = 0
         self.zero_preint = PreintState.zero((), device=self.device)
 
     # -- host reads ----------------------------------------------------
@@ -389,8 +393,17 @@ class MonoStep:
         return st, compact
 
     def _compact(self, st: TrackerState):
+        """The landmark table compacted and the tracks' associations
+        remapped (`hygiene_compact`), inside segment E."""
         m, t = hygiene_compact(st.map, st.tracks)
         return dataclasses.replace(st, map=m, tracks=t)
+
+    def _compaction_due(self, flag: torch.Tensor) -> bool:
+        """The compaction read after the map hygiene (none without it),
+        counted in `compactions` when it asks for one."""
+        compact = self.cfg.map_hygiene and self._read_bool(flag)
+        self.compactions += compact
+        return compact
 
     def _kf_finish(self, st: TrackerState):
         t = st.tracks
@@ -458,9 +471,10 @@ class MonoStep:
         st = self._working_apply(st, ml, img)
         return st if need else self._ring_and_out(st, pyr)
 
-    def _kf_end(self, st: TrackerState, pyr):
-        """Segment E: the keyframe's bookkeeping, the ring and the output."""
-        return self._ring_and_out(self._kf_finish(st), pyr)
+    def _kf_end(self, st: TrackerState, pyr, compact: bool = False):
+        """Segment E: the compaction when `compact`, the keyframe's
+        bookkeeping, the ring and the output."""
+        return self._ring_and_out(self._kf_finish(self._compact(st) if compact else st), pyr)
 
     def __call__(self, st: TrackerState, img: torch.Tensor):
         """One frame. The RANSAC minimal samples draw from `st.gen`. A
@@ -484,9 +498,8 @@ class MonoStep:
         if need:
             with record_function("step.keyframe"):
                 st, compact = seg.run(("D",), self._kf_front, st)
-                if self.cfg.map_hygiene and self._read_bool(compact):
-                    st = self._compact(st)
-                st = seg.run(("E",), self._kf_end, st, pyr)
+                c = self._compaction_due(compact)
+                st = seg.run(("E", c), lambda *a: self._kf_end(*a, compact=c), st, pyr)
         st, out = st
         return dataclasses.replace(st, gen=gen), out
 
@@ -544,6 +557,7 @@ class Fleet:
         self.graphs = self.device.type == "cuda" if graphs is None else bool(graphs)
         self.segments = Segments(self.device, graphs=self.graphs)
         self.fleet_syncs = 0
+        self.compactions = 0              # rows compacted (the fleet runs every BA)
         self._ix_cache: dict = {}
 
     @property
@@ -600,6 +614,13 @@ class Fleet:
         key = (name, *sorted(static.items()), *sorted((k, _form(v)) for k, v in ix.items()))
         return self.segments.run(key, lambda *t: fn(*t[:-1], ix=t[-1], **static), *trees, ix)
 
+    def _row_scan(self, key: tuple, *args, **kwargs):
+        """`segments.scan` for a loop of a per-stream branch run on one
+        stream's row outside any segment (the recovery's re-integration):
+        key + the word "row", apart from the lifted scans' keys, which end
+        in "streams"."""
+        return self.segments.scan(tuple(key) + ("row",), *args, **kwargs)
+
     def _ring(self, st, pyr, ix=None):
         """The ring and the output of every stream (segment R, or the end
         of the frame's last segment)."""
@@ -623,8 +644,9 @@ class MonoFleetStep(Fleet):
     WORKING solve, up to its (lost, need) read, which follows the eager
     NOT_INITIALIZED and INITIALIZING branches; C, the solves taken (LOST
     for the others) and the keyframe streams' front up to the compaction
-    read; E, after the eager compaction, the keyframes' bookkeeping and
-    the scatters; the ring and the output end C or E when no LOST stream
+    read; E, the compaction of the rows whose read asked for it, the
+    keyframes' bookkeeping and the scatters; the ring and the output end C
+    or E when no LOST stream
     follows, else run as R after the eager relocalizations. The frame's
     images are taken as one contiguous copy (a no-op for a contiguous
     tensor), so the graphs see one layout."""
@@ -677,9 +699,12 @@ class MonoFleetStep(Fleet):
         return self._ring(st, pyr) if ring else (st, None)
 
     def _kf_end(self, st: TrackerState, sub, new, k_new, pyr, ix, ring: bool):
-        """Segment E: the keyframes' bookkeeping, the rows scattered back
-        through the live and WORKING streams, and with `ring` the ring and
-        the output."""
+        """Segment E: the keyframe rows `ix["full"]` compacted, every
+        keyframe's bookkeeping, the rows scattered back through the live
+        and WORKING streams, and with `ring` the ring and the output."""
+        if ix["full"] is not None:
+            k_new = put(k_new, ix["full"], over_streams(self.one._compact,
+                                                        take(k_new, ix["full"])))
         k_new = over_streams(self.one._kf_finish, k_new)
         st = put(st, ix["work"], put(sub, ix["live"], put(new, ix["kf"], k_new)))
         return self._ring(st, pyr) if ring else (st, None)
@@ -736,12 +761,11 @@ class MonoFleetStep(Fleet):
                 with record_function("step.keyframe"):
                     sub, new, k_new, compact = seg("C", self._accept, st, ml, imgs, pyr, ix=ix,
                                                    ring=False)
-                    if cfg.map_hygiene:
-                        full = [i for i, f in zip(kf, self._read(compact)) if f[0]]
-                        if full:
-                            k_new = self._put(k_new, full, over_streams(
-                                one._compact, self._take(k_new, full, kf)), kf)
-                    st, out = seg("E", self._kf_end, st, sub, new, k_new, pyr, ix=ix, ring=ring)
+                    full = ([i for i, f in zip(kf, self._read(compact)) if f[0]]
+                            if cfg.map_hygiene else [])
+                    self.compactions += len(full)
+                    st, out = seg("E", self._kf_end, st, sub, new, k_new, pyr,
+                                  ix=dict(ix, full=sel(full, kf)), ring=ring)
 
         for i in group(LOST):
             r, _ = one._lost(self._row(st, i, gens[i]), imgs[i])

@@ -45,11 +45,11 @@ that pick its path:
 - C (vio_ok, need): the solve taken; without a keyframe also the ring and
   the output;
 - D (vio_ok, hygiene), a keyframe: the keyframe and the window BA (mono
-  before VIO init, VI after) up to the compaction read (the compaction
-  runs eagerly when it is due); then after VIO init E (True): the
-  keyframe's bookkeeping, the ring and the output; before it E (False):
-  the bookkeeping up to the VIO-init trigger read, the VIO init when the
-  trigger fires, and R: the ring and the output;
+  before VIO init, VI after) up to the compaction read; then E (vio_ok,
+  compact), the compaction when the read asked for it (the reference's
+  `lax.cond`) and the keyframe's bookkeeping, after VIO init with the
+  ring and the output; before it E ends at the VIO-init trigger read, the
+  VIO init runs when the trigger fires, and R: the ring and the output;
 - L, when lane 0 fails after VIO init: lane 1, the VI solve on the
   first-try associations, up to its read. Holding, its solve is taken
   with a forced keyframe through the VI keyframe frame's segments C
@@ -61,25 +61,38 @@ straight-line parts, whose loops, the reference's `lax.scan`s (the
 full-map BA's LM iterations, the gyro bias's, both preintegrations'),
 replay one captured graph per iteration through `segments.scan`.
 
+The other branches run eagerly after A (NOT_INITIALIZED, INITIALIZING,
+LOST, IMU_RELOC, a mono frame that loses track): their two-view and
+relocalization draw from the generator inside. Where such a branch ends
+in a window BA with a pose adoption (INITIALIZING's bootstrap, the
+IMU_RELOC recovery's re-anchor), that tail runs as segments: BA (vio_ok,
+hygiene), the BA, the adoption and the hygiene up to the compaction
+read, then E (vio_ok, compact) as above and before VIO init R. The
+recovery re-integrates its two stored IMU windows through
+`segments.scan` as well, so of the recovery frame only the two-view and
+its straight-line body (the landmarks, the two keyframes, the ring rows)
+run eagerly, with the VIO init's straight-line parts.
+
 With `graphs=False` the same segments are called eagerly and the loops
 run their plain form, so both forms compose the frame alike; the graphed
 frame launches the same kernels on the same inputs and gives the eager
-step's outputs and states bit for bit, with the same host reads. These
-stay eager, after A: NOT_INITIALIZED, INITIALIZING, LOST and IMU_RELOC
-(rare; their two-view and relocalization draw from the generator
-inside), a mono frame that loses track, the compaction, and the VIO
-init's straight-line parts.
+step's outputs and states bit for bit, with the same host reads.
+`compactions` counts the landmark-table compactions beside `host_syncs`.
 
 `VipFleetStep(graphs=...)` is the counterpart of the reference's batched
 replay, `jax.jit(vmap(scan(step)))`: a batched frame's stages over the
 stream groups replay captured graphs cut at the fleet's host reads, the
-group index tensors riding in the inputs (`device_tracker.Fleet`); the
-per-stream branches stay eager as in the single step (lane 1 among
-them), and so do the VIO init's straight-line parts, run once for the
-streams whose trigger fired (`over_streams`), while its loops replay one
-graph per iteration for that group: the fleet's `one` step runs them
-through the fleet's `segments.lifted_scan`, the counterpart of the
-reference's `vmap(scan(...))`.
+group index tensors riding in the inputs (`device_tracker.Fleet`),
+lane 1 among them (segment L over the VI streams whose lane 0 failed, one
+read of the group's flags, then one segment for both outcomes); the
+per-stream branches (NOT_INITIALIZED's, INITIALIZING's, LOST's and
+IMU_RELOC's) stay eager as in the single step, the recovery's
+re-integration replayed through the fleet's `segments.scan`, and so do
+the VIO init's straight-line parts, run once for the streams whose
+trigger fired (`over_streams`), while its loops replay one graph per
+iteration for that group: the fleet's `one` step runs them through the
+fleet's `segments.lifted_scan`, the counterpart of the reference's
+`vmap(scan(...))`.
 """
 
 from __future__ import annotations
@@ -244,7 +257,8 @@ class _Ctl:
 
 class VipStep:
     """The per-frame step of the device VIP tracker:
-    `st, out = step(st, bundle)`. Counts its host reads in `host_syncs`.
+    `st, out = step(st, bundle)`. Counts its host reads in `host_syncs`
+    and the landmark-table compactions in `compactions`.
     `graphs` (default: on for a CUDA device, off on the CPU) replays the
     WORKING frames' segments and the VIO init's loops as captured graphs
     (`self.segments`, a `utils.graphs.Segments`, and its `scan`); off,
@@ -278,6 +292,7 @@ class VipStep:
         self.ft_min = max(20, round(0.15 * cfg.n_tracks))
         self.reloc_min = max(10, round(0.0625 * cfg.n_tracks))   # >= 25/400 inliers
         self.host_syncs = 0
+        self.compactions = 0
 
     # -- host reads ----------------------------------------------------
     def _read(self, *flags: torch.Tensor):
@@ -288,6 +303,13 @@ class VipStep:
 
     def _read_bool(self, flag: torch.Tensor) -> bool:
         return bool(self._read(flag))
+
+    def _compaction_due(self, hygiene: bool, flag: torch.Tensor) -> bool:
+        """The compaction read after the map hygiene (none without it),
+        counted in `compactions` when it asks for one."""
+        compact = hygiene and self._read_bool(flag)
+        self.compactions += compact
+        return compact
 
     # -- helpers -------------------------------------------------------
     def _undistort(self, tracks: Tracks) -> Tracks:
@@ -598,7 +620,8 @@ class VipStep:
             t_vel=self.zero3, ring_R=put_row(st.ring_R, slot0, self.eye3),
             ring_t=put_row(st.ring_t, slot0, self.zero3),
             ring_frame=put_row(st.ring_frame, slot0, st.init_frame_id))
-        # pose adoption, mono BA and the WORKING transition: stage D
+        # pose adoption, mono BA and the WORKING transition: the tail's
+        # segments (the fleet's D and E)
         return st, WORKING, _Ctl(want_ba=True, adopt=k1)
 
     def _need_kf(self, st, n_in, forced=None):
@@ -680,15 +703,6 @@ class VipStep:
         output."""
         return self._ring_and_out(self._imu_reloc(st, b, ns_pred), pyr)
 
-    def _vi_lane1(self, st, b, ns_pred, Rcw_pred, tcw_pred, pre_frame):
-        """Lane 1 of one stream as a fleet runs it, per failed stream: the
-        solve, its read, then the solve taken with a forced keyframe, or
-        IMU_RELOC. Returns (state, label, ctl)."""
-        out, holds = self._lane1_solve(st, b, (ns_pred, Rcw_pred, tcw_pred, pre_frame))
-        if self._lane1_holds(holds):
-            return self._vi_apply(st, out), WORKING, self._kf_ctl(True, trigger=False)
-        return self._imu_reloc(st, b, ns_pred), IMU_RELOC, _Ctl()
-
     def _dead_reckon(self, st, b, ns_pred):
         p = ns_pred.p.clone()
         p[2] = torch.where(b.depth_valid, b.depth, ns_pred.p[2])
@@ -708,7 +722,11 @@ class VipStep:
             R_vel=self.eye3, t_vel=self.zero3, H_prior=self.H0, state=_i32(WORKING, self.device))
         return self._zero_kf_accumulators(st), WORKING, _Ctl()
 
-    def _recovery(self, st, b, ns_pred, rec, cand_tv, has_anchor: bool):
+    def _recovery(self, st, b, ns_pred, rec, cand_tv, has_anchor: bool, scan=None):
+        """IMU_RELOC: dead reckoning, the anchor's capture, and the
+        re-anchor on the two-view reconstruction `rec` once it holds (its
+        two stored IMU windows re-integrated through `scan`, by default
+        `self.scan`). Returns (state, label, ctl)."""
         cfg, dev = self.cfg, self.device
         st = self._dead_reckon(st, b, ns_pred)
         t = st.tracks
@@ -756,7 +774,7 @@ class VipStep:
                              torch.stack([st.rec_acc, st.kf_acc]),
                              torch.stack([st.rec_dt, st.kf_dt]),
                              torch.stack([st.rec_mask, st.kf_mask]), st.ns.bg, st.ns.ba,
-                             cfg.gyr_noise_sd, cfg.acc_noise_sd)
+                             cfg.gyr_noise_sd, cfg.acc_noise_sd, scan=scan or self.scan)
         m, k0 = m.add_keyframe(st.rec_ns, st.rec_time, st.rec_frame, t.birth_xy_und, t.desc,
                                t.level, t.angle, cand_tv, feat_pt, st.rec_depth,
                                st.rec_depth_valid, tree_map(lambda a: a[0], pre_2),
@@ -773,7 +791,7 @@ class VipStep:
             st, map=m, tracks=dataclasses.replace(t, pt_id=feat_pt),
             ring_R=put_row(st.ring_R, slot, Ra), ring_t=put_row(st.ring_t, slot, ta),
             ring_frame=put_row(st.ring_frame, slot, st.rec_frame))
-        # VI BA, k1 adoption and the WORKING transition: stage D
+        # VI BA, k1 adoption and the WORKING transition: the tail's segments
         return st, WORKING, _Ctl(want_ba=True, adopt=k1)
 
     # -- shared stages C and D -----------------------------------------
@@ -819,6 +837,9 @@ class VipStep:
         return st, compact
 
     def _compact(self, st):
+        """The landmark table compacted and the tracks' associations
+        remapped (`hygiene_compact`): sorts and gathers over `pt_cap`, run
+        inside segment E when the compaction read asks for it."""
         m, t = hygiene_compact(st.map, st.tracks)
         return dataclasses.replace(st, map=m, tracks=t)
 
@@ -834,28 +855,19 @@ class VipStep:
         t_span = row(m.kf_time, torch.clamp(m.n_kf - 1, min=0)) - m.kf_time[0]
         return (m.n_kf >= cfg.vio_init_min_kfs) & (t_span >= cfg.vio_init_min_time)
 
-    def _kf_trigger(self, st):
-        """Segment E before VIO init: the keyframe's bookkeeping and the
-        VIO-init trigger flag."""
-        st = self._ba_finish(st)
+    def _kf_trigger(self, st, compact: bool = False):
+        """Segment E before VIO init: the compaction when `compact`, the
+        keyframe's bookkeeping and the VIO-init trigger flag."""
+        st = self._ba_finish(self._compact(st) if compact else st)
         return st, self._trigger_flag(st)
-
-    def _ba_and_adopt(self, st, ctl: _Ctl, vio_ok: bool):
-        """Stage D of one stream after an eager branch: BA and adoption,
-        hygiene with its compaction. (The VIO-init trigger follows only a
-        WORKING frame's pre-VIO keyframe, which `__call__` runs as
-        segments.)"""
-        st, compact = self._ba_front(st, ctl.adopt, vio_ok, ctl.want_hyg)
-        if ctl.want_hyg and self._read_bool(compact):
-            st = self._compact(st)
-        return self._ba_finish(st)
 
     # ------------------------------------------------------------------
     def _branch(self, st, b, s: int, vio_ok: bool, has_anchor: bool, ns_pred, Rcw_pred,
-                tcw_pred, pre_frame):
+                tcw_pred, pre_frame, scan=None):
         """One stream's state branch other than WORKING, with the stages
-        only it runs (the two-view reconstruction, the relocalization).
-        Returns (state, label, ctl)."""
+        only it runs (the two-view reconstruction, the relocalization);
+        `scan` runs the recovery's loop (default `self.scan`). Returns
+        (state, label, ctl)."""
         rec = cand_tv = None
         if s == INITIALIZING or (s == IMU_RELOC and has_anchor):
             rec, cand_tv = self._two_view(st, s)
@@ -867,7 +879,7 @@ class VipStep:
             with record_function("step.relocalize"):
                 ml = relocalize_pose(st.tracks, st.map, st.gen, self.cam, self.scale_sigmas)
             return self._lost(st, ml)
-        return self._recovery(st, b, ns_pred, rec, cand_tv, has_anchor)
+        return self._recovery(st, b, ns_pred, rec, cand_tv, has_anchor, scan=scan)
 
     def _start(self, st, b: FrameBundle):
         """Segment A: the frame's images and its inertial prediction
@@ -891,16 +903,27 @@ class VipStep:
         st = self._finish_tracks(st, tracks)
 
         st, _, ctl = self._branch(st, b, s, vio_ok, has_anchor, *pred)
-        return self._finish(st, b, pyr, ctl, vio_ok)
+        return self._finish(st, pyr, ctl, vio_ok)
 
-    def _finish(self, st, b, pyr, ctl: _Ctl, vio_ok: bool):
-        """The eager keyframe, BA and ring stages the branch asked for."""
-        if ctl.want_kf:
-            with record_function("step.keyframe"):
-                st, ctl.adopt = self._create_kf(st, b, vio_ok)
-        if ctl.want_ba:
-            st = self._ba_and_adopt(st, ctl, vio_ok)
-        return self._ring_and_out(st, pyr)
+    def _finish(self, st, pyr, ctl: _Ctl, vio_ok: bool):
+        """The end of an eager branch: the ring and the output, after the
+        window BA with the adoption of keyframe `ctl.adopt` when the branch
+        asks for one. That tail runs as segments: BA (vio_ok, hygiene) up
+        to the compaction read, E (vio_ok, compact) and before VIO init R,
+        as a keyframe frame's D, E and R."""
+        if not ctl.want_ba:
+            return self._ring_and_out(st, pyr)
+        seg, gen, hyg = self.segments, st.gen, ctl.want_hyg
+        st, compact = seg.run(("BA", vio_ok, hyg),
+                              lambda *a: self._ba_front(*a, vio_ok=vio_ok, hygiene=hyg),
+                              dataclasses.replace(st, gen=None), ctl.adopt)
+        c = self._compaction_due(hyg, compact)
+        if vio_ok:
+            st, out = seg.run(("E", True, c), lambda *a: self._kf_end(*a, compact=c), st, pyr)
+        else:
+            st, _ = seg.run(("E", False, c), lambda *a: self._kf_trigger(*a, compact=c), st)
+            st, out = seg.run(("R",), self._ring_and_out, st, pyr)
+        return dataclasses.replace(st, gen=gen), out
 
     # -- the WORKING frame's segments (see the module docstring) ----------
     def _working_body(self, st, b, pyr, pred, u, vio_ok: bool):
@@ -935,9 +958,10 @@ class VipStep:
             st, k = self._create_kf(st, b, vio_ok)
         return self._ba_front(st, k, vio_ok, hygiene)
 
-    def _kf_end(self, st, pyr):
-        """Segment E: the keyframe's bookkeeping, the ring and the output."""
-        return self._ring_and_out(self._ba_finish(st), pyr)
+    def _kf_end(self, st, pyr, compact: bool = False):
+        """Segment E after VIO init: the compaction when `compact`, the
+        keyframe's bookkeeping, the ring and the output."""
+        return self._ring_and_out(self._ba_finish(self._compact(st) if compact else st), pyr)
 
     def __call__(self, st: VipTrackerState, b: FrameBundle):
         """One frame bundle. RANSAC minimal samples draw from `st.gen`. A
@@ -963,7 +987,7 @@ class VipStep:
         held, need = self._read(*flags)
         held, need = (bool(held), bool(need)) if vio_ok else (not held, bool(need))
         if not held and not vio_ok:
-            return self._finish(self._state(st, LOST), b, pyr, _Ctl(), vio_ok)
+            return self._finish(self._state(st, LOST), pyr, _Ctl(), vio_ok)
         if not held:
             # lane 1 up to its read; holding, its solve is taken with a
             # forced keyframe through the VI keyframe frame's segments C-E
@@ -982,14 +1006,13 @@ class VipStep:
         hyg = cfg.map_hygiene
         st, compact = seg.run(("D", vio_ok, hyg),
                               lambda *a: self._keyframe(*a, vio_ok=vio_ok, hygiene=hyg), st, bf)
-        if hyg and self._read_bool(compact):
-            st = self._compact(st)
+        c = self._compaction_due(hyg, compact)
         if vio_ok:
-            st, out = seg.run(("E", True), self._kf_end, st, pyr)
+            st, out = seg.run(("E", True, c), lambda *a: self._kf_end(*a, compact=c), st, pyr)
             return dataclasses.replace(st, gen=gen), out
         # the pre-VIO keyframe: the trigger read, the VIO init (eager, its
         # loops replayed by `segments.scan`) when it fires, then the ring
-        st, fire = seg.run(("E", False), self._kf_trigger, st)
+        st, fire = seg.run(("E", False, c), lambda *a: self._kf_trigger(*a, compact=c), st)
         if self._read_bool(fire):
             with record_function("step.vio_init"):
                 st_ok, ok = self._try_init_vio(st)
@@ -1011,10 +1034,13 @@ class VipFleetStep(Fleet):
     the streams that take it (their rows gathered, the single-stream
     stage mapped over the stream dimension by `tree.over_streams`, the
     rows scattered back). Each branch decision is one read of an [n, k]
-    table for its n streams. The rare, heavy branches run per stream
-    through `VipStep`'s own code on that stream's row: the two-view
-    reconstruction of INITIALIZING, the relocalization of LOST, the
-    first-try lane after a failed VI solve and IMU_RELOC's recovery.
+    table for its n streams. The rare branches that draw from a stream's
+    generator run per stream through `VipStep`'s own code on that
+    stream's row: the two-view reconstruction of INITIALIZING, the
+    relocalization of LOST and IMU_RELOC's recovery (whose re-integration
+    replays the fleet's `segments.scan`, keyed apart from the lifted
+    scans: `_row_scan`). Lane 1, the first-try lane after a failed VI
+    solve, draws nothing and runs batched over the streams that take it.
 
     Stream i of a fleet computes what a single `VipStep` run computes on
     stream i's inputs with generator i: same branches, same draws in the
@@ -1030,14 +1056,19 @@ class VipFleetStep(Fleet):
       init, VI lane 0 after it), up to their reads, which follow the eager
       NOT_INITIALIZED and INITIALIZING branches;
     - C: the solves taken (LOST for the mono streams that lost track);
+    - L: lane 1 of the VI streams whose lane 0 failed (the first-try
+      associations and the VI solve), up to one read of the group's
+      holding flags; I: the holding rows take the lane's solve (a forced
+      keyframe follows) and the failing ones dead-reckon into IMU_RELOC;
     - K: the keyframes, both inertial modes, after the eager per-stream
-      branches (lane 1, LOST, IMU_RELOC);
+      branches (LOST, IMU_RELOC);
     - D per (vio, hygiene, trigger) group: the window BA and adoption up
-      to the compaction read; E, after the eager compaction: the
-      bookkeeping, the scatter and the VIO-init trigger flags (the VIO
-      init runs eagerly over the streams that fire, its loops through
-      the lifted scans, `one.scan`);
-    - the ring and the output end C or the last E when nothing eager
+      to the compaction read; E: the compaction of the rows whose read
+      asked for it (the reference's `lax.cond`), the bookkeeping, the
+      scatter and the VIO-init trigger flags (the VIO init runs eagerly
+      over the streams that fire, its loops through the lifted scans,
+      `one.scan`);
+    - the ring and the output end C, I or the last E when nothing eager
       follows, else run as R.
 
     The frame's bundle is taken as contiguous copies (a no-op for
@@ -1134,11 +1165,38 @@ class VipFleetStep(Fleet):
         return over_streams(self.one._ba_front, take(st, ix["g"]), take(adopt, ix["g"]),
                             vio_ok=vio_ok, hygiene=hygiene)
 
+    def _lane1(self, st, b, pred, ix):
+        """Segment L: lane 1 of the VI streams `ix["g"]` whose lane 0
+        failed: the first-try associations and the VI solve on them, with
+        the flags of the group's one read (the solve holds)."""
+        g = ix["g"]
+        return over_streams(self.one._lane1_solve, take(st, g), take(b, g), take(pred, g))
+
+    def _lane1_end(self, st, sol, b, ns_pred, pyr, ix, ring: bool):
+        """Segment I: of lane 1's group `ix["g"]`, the rows `ix["hold"]`
+        take the lane's solve `sol` (their forced keyframe follows in K, D
+        and E) and the rows `ix["fail"]` dead-reckon into IMU_RELOC;
+        returns (state, None), or with `ring` (state, output)."""
+        one, g = self.one, ix["g"]
+        sub = take(st, g)
+        if ix["hold"] is not None:
+            h = ix["hold"]
+            sub = put(sub, h, over_streams(one._vi_apply, take(sub, h), take(sol, h)))
+        if ix["fail"] is not None:
+            f = ix["fail"]
+            sub = put(sub, f, over_streams(one._imu_reloc, take(sub, f), take(take(b, g), f),
+                                           take(take(ns_pred, g), f)))
+        st = put(st, g, sub)
+        return self._ring(st, pyr) if ring else (st, None)
+
     def _ba_end(self, st, sub, pyr, ix, trigger: bool, ring: bool):
-        """Segment E: the BA's bookkeeping of the rows `sub`, scattered
-        back at `ix["g"]`; returns (state, the VIO-init trigger flags when
-        `trigger`, the output when `ring`)."""
+        """Segment E: of the rows `sub` (the group `ix["g"]` after D), the
+        rows `ix["full"]` compacted, then every row's bookkeeping,
+        scattered back at `ix["g"]`; returns (state, the VIO-init trigger
+        flags when `trigger`, the output when `ring`)."""
         one = self.one
+        if ix["full"] is not None:
+            sub = put(sub, ix["full"], over_streams(one._compact, take(sub, ix["full"])))
         sub = over_streams(one._ba_finish, sub)
         st = put(st, ix["g"], sub)
         fire = over_streams(one._trigger_flag, sub) if trigger else None
@@ -1242,12 +1300,26 @@ class VipFleetStep(Fleet):
                                   lost=sel(lost, g_mono), vi=sel(g_vi, every),
                                   good=sel(good, g_vi)), ring=ring)
 
-        # lane 1 per failed VI stream, LOST and IMU_RELOC per stream
-        for i in failed:
-            settle(i, one._vi_lane1(*rows(i)))
+        # lane 1 over the failed VI streams: L up to the group's one read,
+        # then I for both outcomes (the ring joins I when nothing eager
+        # follows)
+        if failed:
+            g1 = sel(failed, every)
+            sol1, holds = seg("L", self._lane1, st, bf, pred, ix=dict(g=g1))
+            dec = self._read(holds)
+            hold = [i for i, d in zip(failed, dec) if d[0]]
+            for i in hold:
+                ctl[i] = one._kf_ctl(True, trigger=False)
+            ring = not (group(lambda i: s[i] in (LOST, IMU_RELOC))
+                        or any(c.want_ba for c in ctl.values()))
+            st, out = seg("I", self._lane1_end, st, sol1, bf, ns_pred, pyr,
+                          ix=dict(g=g1, hold=sel(hold, failed),
+                                  fail=sel([i for i in failed if i not in hold], failed)),
+                          ring=ring)
+        # LOST and IMU_RELOC per stream
         for i in group(lambda i: s[i] in (LOST, IMU_RELOC)):
             r, b_i, *p = rows(i)
-            settle(i, one._branch(r, b_i, s[i], vio[i], anchor[i], *p))
+            settle(i, one._branch(r, b_i, s[i], vio[i], anchor[i], *p, scan=self._row_scan))
 
         # K: keyframes, grouped by the inertial mode
         kf = [group(lambda i: ctl[i].want_kf and vio[i] == v) for v in (False, True)]
@@ -1265,13 +1337,10 @@ class VipFleetStep(Fleet):
             trig = trig and not v
             ix = dict(g=sel(g, every))
             sub, compact = seg("D", self._ba_front, st, adopt, ix=ix, vio_ok=v, hygiene=hyg)
-            if hyg:
-                full = [i for i, f in zip(g, self._read(compact)) if f[0]]
-                if full:
-                    sub = self._put(sub, full, over_streams(one._compact,
-                                                            self._take(sub, full, g)), g)
-            st, fire, out = seg("E", self._ba_end, st, sub, pyr, ix=ix, trigger=trig,
-                                ring=n == len(keys) - 1 and not trig)
+            full = [i for i, f in zip(g, self._read(compact)) if f[0]] if hyg else []
+            self.compactions += len(full)
+            st, fire, out = seg("E", self._ba_end, st, sub, pyr, ix=dict(ix, full=sel(full, g)),
+                                trigger=trig, ring=n == len(keys) - 1 and not trig)
             if trig:
                 fire = [i for i, f in zip(g, self._read(fire)) if f[0]]
                 if fire:
