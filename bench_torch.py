@@ -63,15 +63,12 @@ window BA.
   for bit (a gate), and, as a statistic, the marginal ms/frame of the
   median timed run over the half run against the median ms/frame of its
   second half, and whether their ratio lies within [0.5, 2];
-- `dispatch_rtt_ms` (mono): the median of 10 launches of a trivial op,
-  each followed by a synchronize (null on the CPU);
 - `profile`: one more run under torch.profiler over one keyframe-free VI
   frame (VIP) or keyframe-free WORKING frame (mono): the host's launch
   calls (`host_launch_calls_per_frame`: kernel launches plus CUDA graph
   launches, the latter also alone) apart from the kernels the device ran
-  (`device_kernels_per_frame`), `device_ms_per_frame`,
-  `device_idle_share` = 1 - device / ms_per_frame; null when skipped, on
-  the CPU, or where the trace lacks its records;
+  (`device_kernels_per_frame`), `device_ms_per_frame`; null when
+  skipped, on the CPU, or where the trace lacks its records;
 - `device`: the card's name and power limit as nvidia-smi prints them
   ("cpu" on the CPU).
 
@@ -199,25 +196,6 @@ def device_name(device) -> str:
     return nvidia_smi_line() if device.type == "cuda" else "cpu"
 
 
-def dispatch_rtt_ms(device):
-    """The median host clock of 10 launches of a trivial op, each followed
-    by a synchronize (bench.py's no-op dispatch RTT); None on the CPU."""
-    import torch
-
-    if device.type != "cuda":
-        return None
-    x = torch.zeros(8, device=device)
-    x = x + 1.0
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        x = x + 1.0
-        torch.cuda.synchronize()
-        out.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(out)
-
-
 def dispatch_form(extra) -> str:
     """How the line's steps dispatched their WORKING frames."""
     return "WORKING frames as CUDA graphs" if extra["graphed"] else "eager"
@@ -233,7 +211,7 @@ def profile_frame(mode, run) -> int | None:
                  and (mode == "mono" or (v[f - 1] and v[f]))), None)
 
 
-def profile_window(mode, new_tracker, feeds, run, ms_per_frame, device):
+def profile_window(mode, new_tracker, feeds, run, device):
     """One more run up to the profile frame, then that frame under
     torch.profiler; None on the CPU, without such a frame, or where the
     trace lacks the records a profile reads."""
@@ -255,7 +233,6 @@ def profile_window(mode, new_tracker, feeds, run, ms_per_frame, device):
                 graph_launches_per_frame=p["graph_launches_per_frame"],
                 device_kernels_per_frame=p["device_kernels_per_frame"],
                 device_ms_per_frame=p["device_ms_per_frame"],
-                device_idle_share=1.0 - p["device_ms_per_frame"] / ms_per_frame,
                 hand_kernels=p["hand_kernels"])
 
 
@@ -306,7 +283,7 @@ def measure(mode, new_tracker, feeds, reps, device, init_frame_of, profile=True)
          f"{statistics.median(meds):.2f} ms; marginal {plaus['marginal_ms_per_frame']:.2f} "
          f"ms/frame over the half run")
     ms_per_frame = statistics.median(meds)
-    prof = profile_window(mode, new_tracker, feeds, runs[0], ms_per_frame, device) \
+    prof = profile_window(mode, new_tracker, feeds, runs[0], device) \
         if profile else None
     extra = dict(wall_ms_per_frame=wall_ms_per_frame, run_wall_ms=walls,
                  ms_per_frame=ms_per_frame, run_medians_ms=meds,
@@ -384,8 +361,7 @@ def run_mono(n_frames=MONO_FRAMES, reps=REPS, device="cuda", H=None, W=None,
     run = m["run"]
     gate = mono_gate(run.states, centres(run.Rs, run.ts), seq.positions_w)
     extra = {k: gate[k] for k in ("frames_tracked", "n_frames", "ate_m", "ate_threshold_m")}
-    extra.update(m["extra"], dispatch_rtt_ms=dispatch_rtt_ms(device),
-                 device=device_name(device))
+    extra.update(m["extra"], device=device_name(device))
     where = "" if device.type == "cuda" else ", CPU: plain versions"
     metric = (f"PyTorch/CUDA port: mono tracking+local-BA fps ({kw['H']}x{kw['W']}, 400 feats, "
               f"synthetic Aqualoc-like, per-frame dispatch, {dispatch_form(extra)}{where})")

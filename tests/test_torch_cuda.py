@@ -587,11 +587,13 @@ def _bits(tree):
                       for t in tree_leaves(tree)])
 
 
-def _graph_runs(mode, device):
+def _graph_runs(mode, device, record=False):
     """The parity sequences of tests/test_torch_vip.py (40 frames, VIO init
     and VI keyframes) and tests/test_torch_step.py (20 frames) at 120x160
-    on the card, eager and graphed: per form the per-frame outputs and
-    states, the step and the hand-kernel counters."""
+    on the card, eager and graphed (and with `record` graphed again with
+    the step's recorder timing its replays, stopped after the run): per
+    form the per-frame outputs and states, the step and the hand-kernel
+    counters."""
     import numpy as np
 
     from uvipslam_torch.frontend import device_tracker, device_vip
@@ -616,8 +618,11 @@ def _graph_runs(mode, device):
                              height=120)
     build = device_vip.build_vip_tracker if mode == "vip" else device_tracker.build_tracker
     runs = {}
-    for form, graphs in (("eager", False), ("graphed", None)):
+    forms = (("eager", False), ("graphed", None)) + ((("recorded", None),) if record else ())
+    for form, graphs in forms:
         st, step = build(cam, cfg, 16, 1024, device=device, graphs=graphs)
+        if form == "recorded":
+            step.spans.start(events=True)
         before = (klt.patch_launches, klt.refine_launches, klt.refine_wide_calls)
         outs, states = [], []
         for x in feeds:
@@ -627,6 +632,8 @@ def _graph_runs(mode, device):
         torch.cuda.synchronize()
         counts = tuple(a - b for a, b in zip(
             (klt.patch_launches, klt.refine_launches, klt.refine_wide_calls), before))
+        if form == "recorded":
+            step.records = step.spans.stop()
         runs[form] = (outs, states, step, counts)
     return runs
 
@@ -700,6 +707,32 @@ def test_graphed_vip_step_through_vio_init_equals_eager_on_card(cuda_device):
     plain = ba(None)
     assert torch.equal(ba(seg.scan), plain) and torch.equal(ba(seg.scan), plain)
     assert seg.scan_steps - steps == 2 * (256 + 2 * 8)     # preintegration + 2 rounds of 8
+
+
+@pytest.mark.cuda
+def test_recorder_timing_replays_changes_nothing_on_card(cuda_device):
+    """The graphed VIP step through its VIO init with the recorder on and
+    every replay timed by events (outside the graphs) against the same
+    run with it off: every frame's output and state bit for bit, the same
+    host reads, launches, captures and graphs per key; each replay has a
+    device time, and the captures' span matches `capture_seconds`."""
+    runs = _graph_runs("vip", cuda_device, record=True)
+    (g_outs, g_states, g_step, g_counts) = runs["graphed"]
+    (r_outs, r_states, r_step, r_counts) = runs["recorded"]
+    for f in range(len(g_outs)):
+        assert torch.equal(_bits(g_outs[f]), _bits(r_outs[f])), f
+        assert torch.equal(_bits(g_states[f]), _bits(r_states[f])), f
+    assert g_step.host_syncs == r_step.host_syncs and g_counts == r_counts
+    gs, rs = g_step.segments, r_step.segments
+    assert gs.captures == rs.captures and gs.graphs_per_key() == rs.graphs_per_key()
+    assert gs.replays == rs.replays and gs.scan_steps == rs.scan_steps > 0
+    replays = [x for x in r_step.records if x.name.startswith("step.graph.")
+               and x.name != "step.graph.capture"]
+    assert len(replays) == rs.replays + rs.scan_steps
+    assert all(x.device_ns is not None and x.device_ns > 0 for x in replays)
+    tot = r_step.spans.totals()
+    assert tot["step.call"]["count"] == len(r_outs)
+    assert abs(tot["step.graph.capture"]["host_ns"] / 1e9 - rs.capture_seconds) < 1e-3
 
 
 @pytest.mark.cuda

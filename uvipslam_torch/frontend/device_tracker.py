@@ -39,10 +39,11 @@ in the same way (`Fleet`: the counterpart of the reference's
 `jax.jit(vmap(scan(step)))`), its groups' rows entering as data, the
 compaction inside its E, NOT_INITIALIZED, INITIALIZING and LOST eager.
 
-Each phase runs inside a `torch.profiler.record_function` span named
-`step.<phase>` (propagate, refill, two_view_init, pose_localmap,
+Each phase runs inside a span of the step's `spans` (`utils.spans`)
+named `step.<phase>` (propagate, refill, two_view_init, pose_localmap,
 refill_refresh, keyframe, relocalize), so a profiler trace splits a
-frame's host and device time by phase.
+frame's host and device time by phase; a call runs in `step.call` and
+a host read's wait in `step.read`, which the recorder times too.
 
 LOST relocalizes as the reference's `branch_lost` does: a fresh
 detection, BoW retrieval and PnP RANSAC (`loop.reloc.relocalize_frame`),
@@ -55,7 +56,6 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch.profiler import record_function
 
 from uvipslam_torch.core import lie
 from uvipslam_torch.core.lie import mm, mv
@@ -77,6 +77,7 @@ from uvipslam_torch.ops.clahe import clahe
 from uvipslam_torch.ops.klt import build_flow_pyramid
 from uvipslam_torch.ops.twoview import draw_uniform, initialize_two_view
 from uvipslam_torch.utils.graphs import Segments
+from uvipslam_torch.utils.spans import Spans, spanned
 
 RING = 64
 
@@ -182,7 +183,9 @@ class MonoStep:
     `graphs` (default: on for a CUDA device, off on the CPU) replays the
     WORKING frames' segments as captured graphs (`self.segments`, a
     `utils.graphs.Segments`); off, the same segments run eagerly;
-    `graphs=True` on the CPU runs their plain form."""
+    `graphs=True` on the CPU runs their plain form. `spans` (a
+    `utils.spans.Spans`, shared with the segments) names and, while
+    recording, times the step's spans."""
 
     def __init__(self, cam: CameraModel, cfg: TrackerConfig, device="cuda",
                  graphs: bool | None = None):
@@ -190,7 +193,8 @@ class MonoStep:
         self.cfg = cfg
         self.device = step_device(device)
         self.graphs = self.device.type == "cuda" if graphs is None else bool(graphs)
-        self.segments = Segments(self.device, graphs=self.graphs)
+        self.spans = Spans()
+        self.segments = Segments(self.device, graphs=self.graphs, spans=self.spans)
         self.scale_sigmas = torch.tensor(cfg.scale_sigmas, dtype=torch.float32).to(self.device)
         self.K = torch.as_tensor(cam.K).to(self.device)
         self.host_syncs = 0
@@ -201,7 +205,7 @@ class MonoStep:
     def _read(self, *flags: torch.Tensor):
         """One host sync for a batch of device flags -> Python values."""
         self.host_syncs += 1
-        vals = torch.stack([f.reshape(()).to(torch.int64) for f in flags]).tolist()
+        vals = self.spans.read(torch.stack([f.reshape(()).to(torch.int64) for f in flags]))
         return vals if len(vals) > 1 else vals[0]
 
     def _read_bool(self, flag: torch.Tensor) -> bool:
@@ -257,7 +261,7 @@ class MonoStep:
         return dataclasses.replace(st, state=torch.full_like(st.state, label))
 
     def _not_init_detect(self, st: TrackerState, img):
-        with record_function("step.refill"):
+        with self.spans("step.refill"):
             tracks = self._undistort(self._refill(st.tracks, img, st.frame_id))
         st = dataclasses.replace(st, tracks=tracks)
         return st, torch.sum(tracks.valid) >= self.cfg.min_init_tracks
@@ -282,7 +286,7 @@ class MonoStep:
         cfg = self.cfg
         t = self._undistort(st.tracks)
         cand = t.valid & (t.birth_frame == st.init_frame_id)
-        with record_function("step.two_view_init"):
+        with self.spans("step.two_view_init"):
             rec = initialize_two_view(st.gen, t.birth_xy_und, t.xy_und, cand, self.K,
                                       sigma=1.0)
         n_cand = torch.sum(cand)
@@ -346,7 +350,7 @@ class MonoStep:
         t = self._undistort(st.tracks)
         Rp = mm(st.R_vel, st.Rcw)
         tp = mv(st.R_vel, st.tcw) + st.t_vel
-        with record_function("step.pose_localmap"):
+        with self.spans("step.pose_localmap"):
             R1, t1, _, n_in, t2 = _pose_and_localmap(t, st.map, Rp, tp, cam.fx, cam.fy,
                                                      cam.cx, cam.cy, self.scale_sigmas)
         since = st.frame_id - st.last_kf_frame
@@ -360,7 +364,7 @@ class MonoStep:
         Rcw = lie.normalize_rotation(R1)
         Rinv, tinv = lie.se3_inverse(st.Rcw, st.tcw)
         R_vel, t_vel = lie.se3_compose(R1, t1, Rinv, tinv)
-        with record_function("step.refill_refresh"):
+        with self.spans("step.refill_refresh"):
             tracks = self._refill(t2, img, st.frame_id)
             tracks = self._undistort(refresh_descriptors(tracks, img))
         newborn = tracks.birth_frame == st.frame_id
@@ -423,7 +427,7 @@ class MonoStep:
         return relocalize_pose(fresh, st.map, st.gen, self.cam, self.scale_sigmas)
 
     def _lost(self, st: TrackerState, img):
-        with record_function("step.relocalize"):
+        with self.spans("step.relocalize"):
             R, t, n, tr = self._relocalize(st, img)
         if not self._read_bool(n >= max(self.cfg.min_tracked, 15)):
             return st, LOST
@@ -444,7 +448,7 @@ class MonoStep:
         """A frame that starts in another state than WORKING, after A
         (eager)."""
         if state == INITIALIZING:
-            with record_function("step.propagate"):
+            with self.spans("step.propagate"):
                 u = draw_uniform(st.gen, 200, self.cfg.n_tracks, self.device)
                 st = dataclasses.replace(st, tracks=self._propagate(st, pyr, u))
 
@@ -460,7 +464,7 @@ class MonoStep:
     def _working_body(self, st: TrackerState, pyr, u):
         """Segment B: propagation and the WORKING solve with its (lost,
         need-keyframe) flags."""
-        with record_function("step.propagate"):
+        with self.spans("step.propagate"):
             st = dataclasses.replace(st, tracks=self._propagate(st, pyr, u))
         ml, flags = self._working_solve(st)
         return st, ml, flags
@@ -476,6 +480,7 @@ class MonoStep:
         bookkeeping, the ring and the output."""
         return self._ring_and_out(self._kf_finish(self._compact(st) if compact else st), pyr)
 
+    @spanned("step.call")
     def __call__(self, st: TrackerState, img: torch.Tensor):
         """One frame. The RANSAC minimal samples draw from `st.gen`. A
         WORKING frame runs segments A-E, replayed from captured graphs
@@ -496,7 +501,7 @@ class MonoStep:
         need = bool(need)
         st = seg.run(("C", need), lambda *a: self._accept(*a, need=need), st, ml, img, pyr)
         if need:
-            with record_function("step.keyframe"):
+            with self.spans("step.keyframe"):
                 st, compact = seg.run(("D",), self._kf_front, st)
                 c = self._compaction_due(compact)
                 st = seg.run(("E", c), lambda *a: self._kf_end(*a, compact=c), st, pyr)
@@ -555,7 +560,8 @@ class Fleet:
         self.one = one                    # the single-stream step: constants and stages
         self.cfg, self.device = one.cfg, one.device
         self.graphs = self.device.type == "cuda" if graphs is None else bool(graphs)
-        self.segments = Segments(self.device, graphs=self.graphs)
+        self.spans = one.spans             # one recorder for the fleet and its `one` step
+        self.segments = Segments(self.device, graphs=self.graphs, spans=self.spans)
         self.fleet_syncs = 0
         self.compactions = 0              # rows compacted (the fleet runs every BA)
         self._ix_cache: dict = {}
@@ -568,7 +574,7 @@ class Fleet:
     def _read(self, *flags: torch.Tensor) -> list:
         """One host sync for an [n] column per flag -> n rows of ints."""
         self.fleet_syncs += 1
-        return torch.stack([f.to(torch.int64) for f in flags], dim=-1).tolist()
+        return self.spans.read(torch.stack([f.to(torch.int64) for f in flags], dim=-1))
 
     def _ix(self, ids) -> torch.Tensor:
         """Device index tensor of a stream subset (cached: a subset seen
@@ -668,7 +674,7 @@ class MonoFleetStep(Fleet):
         one = self.one
         ml = flags = None
         if ix["prop"] is not None:
-            with record_function("step.propagate"):
+            with self.spans("step.propagate"):
                 sub = over_streams(one._propagate, take(st, ix["prop"]), take(pyr, ix["prop"]), u)
             st = dataclasses.replace(st, tracks=put(st.tracks, ix["prop"], sub))
         if ix["work"] is not None:
@@ -691,7 +697,7 @@ class MonoFleetStep(Fleet):
             new = over_streams(one._working_apply, take(sub, ix["live"]), take(ml, ix["live"]),
                                take(imgs, ix["live_all"]))
             if ix["kf"] is not None:
-                with record_function("step.keyframe"):
+                with self.spans("step.keyframe"):
                     k_new, compact = over_streams(one._kf_front, take(new, ix["kf"]))
                 return sub, new, k_new, compact
             sub = put(sub, ix["live"], new)
@@ -709,6 +715,7 @@ class MonoFleetStep(Fleet):
         st = put(st, ix["work"], put(sub, ix["live"], put(new, ix["kf"], k_new)))
         return self._ring(st, pyr) if ring else (st, None)
 
+    @spanned("step.call")
     def __call__(self, st: TrackerState, imgs: torch.Tensor, gens):
         one, cfg, dev, seg, sel = self.one, self.cfg, self.device, self._seg, self._sel
         S = st.state.shape[0]
@@ -758,7 +765,7 @@ class MonoFleetStep(Fleet):
             if not kf:
                 st, out = seg("C", self._accept, st, ml, imgs, pyr, ix=ix, ring=ring)
             else:
-                with record_function("step.keyframe"):
+                with self.spans("step.keyframe"):
                     sub, new, k_new, compact = seg("C", self._accept, st, ml, imgs, pyr, ix=ix,
                                                    ring=False)
                     full = ([i for i, f in zip(kf, self._read(compact)) if f[0]]

@@ -27,7 +27,9 @@ device scalars; each decision is one counted host read (`host_syncs`),
 batched where the conditions are ready together: per frame (state,
 vio_ok, recovery anchor set), then the branch's own decision, and on
 keyframe frames the VIO-init trigger and the hygiene compaction flag.
-Each stage runs in a `torch.profiler.record_function` span `step.<stage>`.
+Each stage runs in a span `step.<stage>` of the step's `spans`
+(`utils.spans`: named in a torch.profiler trace, timed by its recorder),
+a call in `step.call` and a host read's wait in `step.read`.
 
 The reference's step is one jitted program per frame bundle. Its
 counterpart here is `VipStep(graphs=...)` (on by default on a CUDA
@@ -101,7 +103,6 @@ import dataclasses
 import math
 
 import torch
-from torch.profiler import record_function
 
 from uvipslam_torch.core import lie
 from uvipslam_torch.core.lie import mm, mv
@@ -129,6 +130,7 @@ from uvipslam_torch.ops.klt import build_flow_pyramid
 from uvipslam_torch.ops.twoview import draw_uniform, initialize_two_view
 from uvipslam_torch.solver.global_ba import global_ba_visual
 from uvipslam_torch.utils.graphs import Segments
+from uvipslam_torch.utils.spans import Spans, spanned
 from uvipslam_torch.vio import init as vio_init
 
 
@@ -263,7 +265,9 @@ class VipStep:
     WORKING frames' segments and the VIO init's loops as captured graphs
     (`self.segments`, a `utils.graphs.Segments`, and its `scan`); off,
     the same segments and the plain loops run eagerly; `graphs=True` on
-    the CPU runs their plain form."""
+    the CPU runs their plain form. `spans` (a `utils.spans.Spans`, shared
+    with the segments) names and, while recording, times the step's
+    spans."""
 
     def __init__(self, cam: CameraModel, cfg: VipConfig, kf_cap: int, device="cuda",
                  graphs: bool | None = None):
@@ -272,7 +276,8 @@ class VipStep:
         self.kf_cap = kf_cap
         self.device = dev = step_device(device)
         self.graphs = dev.type == "cuda" if graphs is None else bool(graphs)
-        self.segments = Segments(dev, graphs=self.graphs)
+        self.spans = Spans()
+        self.segments = Segments(dev, graphs=self.graphs, spans=self.spans)
         # the VIO init's loops (a fleet gives its `one` step its lifted scan)
         self.scan = self.segments.scan
         f32 = dict(dtype=torch.float32)
@@ -298,7 +303,7 @@ class VipStep:
     def _read(self, *flags: torch.Tensor):
         """One host sync for a batch of device flags -> Python values."""
         self.host_syncs += 1
-        vals = torch.stack([f.reshape(()).to(torch.int64) for f in flags]).tolist()
+        vals = self.spans.read(torch.stack([f.reshape(()).to(torch.int64) for f in flags]))
         return vals if len(vals) > 1 else vals[0]
 
     def _read_bool(self, flag: torch.Tensor) -> bool:
@@ -388,13 +393,13 @@ class VipStep:
         Rcb, gravity = self.Rcb, self.gravity
         # full-map BA first: the windowed BA lets mono scale drift across
         # the init window; slots fill in insertion order, so 24 suffice
-        with record_function("step.vio_init.global_ba"):
+        with self.spans("step.vio_init.global_ba"):
             m = global_ba_visual(st.map, cam.fx, cam.fy, cam.cx, cam.cy, self.scale_sigmas,
                                  kf_window=min(24, self.kf_cap), n_iters=5, p_active=2048,
                                  scan=scan)
         # gyro bias over keyframe pairs (body rotations Rwb = Rwc Rcb)
         pair_mask = m.kf_valid & (m.kf_prev >= 0)
-        with record_function("step.vio_init.gyro_bias"):
+        with self.spans("step.vio_init.gyro_bias"):
             bg = vio_init.estimate_gyro_bias(mm(m.kf_ns.R, Rcb), m.kf_preint.dR,
                                              m.kf_preint.J_R_bg, pair_mask, scan=scan)
         has_depth = m.kf_valid & m.kf_depth_valid
@@ -418,7 +423,7 @@ class VipStep:
         # keyframes
         sel, vvalid, s_omg, s_acc, s_dt, s_mask = vio_init.build_strided_inertial(
             m.kf_valid, m.kf_imu_omg, m.kf_imu_acc, m.kf_imu_dt, m.kf_imu_mask, 4)
-        with record_function("step.vio_init.preint_strided"):
+        with self.spans("step.vio_init.preint_strided"):
             prev_ = preintegrate(s_omg, s_acc, s_dt, s_mask, bg, self.zero3, cfg.gyr_noise_sd,
                                  cfg.acc_noise_sd, scan=scan)
         vk = torch.arange(sel.shape[0], device=dev)
@@ -439,7 +444,7 @@ class VipStep:
         s = torch.where(ok, s, torch.ones_like(s))
         # every keyframe window re-integrated at both biases (velocity
         # recovery and the VI BA's preintegration edges)
-        with record_function("step.vio_init.preint_all"):
+        with self.spans("step.vio_init.preint_all"):
             pre2 = preintegrate(m.kf_imu_omg, m.kf_imu_acc, m.kf_imu_dt, m.kf_imu_mask, bg,
                                 ba_est, cfg.gyr_noise_sd, cfg.acc_noise_sd, scan=scan)
 
@@ -532,7 +537,7 @@ class VipStep:
         tracks = st.tracks
         anchor = st.rec_frame if s == IMU_RELOC else st.init_frame_id
         cand_tv = tracks.valid & (tracks.birth_frame == anchor)
-        with record_function("step.two_view_init"):
+        with self.spans("step.two_view_init"):
             rec = initialize_two_view(st.gen, tracks.birth_xy_und, tracks.xy_und, cand_tv,
                                       self.K, sigma=1.0)
         return rec, cand_tv
@@ -674,7 +679,7 @@ class VipStep:
         keyframe)."""
         cam, cfg = self.cam, self.cfg
         ns_pred, Rcw_pred, tcw_pred, pre_frame = pred
-        with record_function("step.first_try"):
+        with self.spans("step.first_try"):
             ft_pid, ft_nm = first_try_associations(
                 st.tracks, st.map, torch.clamp(st.last_kf_slot, 0, self.kf_cap - 1),
                 Rcw_pred, tcw_pred, cam.fx, cam.fy, cam.cx, cam.cy,
@@ -682,7 +687,7 @@ class VipStep:
             ft_gate = (ft_nm >= self.ft_min) & (st.last_kf_slot >= 0) & cfg.reloc_first_try
             tracks_ft = dataclasses.replace(
                 st.tracks, pt_id=torch.where(ft_gate, ft_pid, torch.full_like(ft_pid, -1)))
-        with record_function("step.vi_track"):
+        with self.spans("step.vi_track"):
             out = self._vi_solve(st, tracks_ft, b, ns_pred, pre_frame)
         return out, out[2] >= self.reloc_min
 
@@ -818,10 +823,10 @@ class VipStep:
         flag (returned beside the state)."""
         cam = self.cam
         if vio_ok:
-            with record_function("step.vi_ba"):
+            with self.spans("step.vi_ba"):
                 m = self._vi_ba(st.map)
         else:
-            with record_function("step.local_ba"):
+            with self.spans("step.local_ba"):
                 m = self._mono_ba(st.map)
         ns_k = _nav_row(m.kf_ns, k)
         Rcw, tcw = self._cam_pose(ns_k) if vio_ok else _ns_to_cam_pose(ns_k)
@@ -876,7 +881,7 @@ class VipStep:
         if s == INITIALIZING:
             return self._initializing(st, b, rec, cand_tv)
         if s == LOST:
-            with record_function("step.relocalize"):
+            with self.spans("step.relocalize"):
                 ml = relocalize_pose(st.tracks, st.map, st.gen, self.cam, self.scale_sigmas)
             return self._lost(st, ml)
         return self._recovery(st, b, ns_pred, rec, cand_tv, has_anchor, scan=scan)
@@ -885,7 +890,7 @@ class VipStep:
         """Segment A: the frame's images and its inertial prediction
         `pred` = (ns_pred, Rcw_pred, tcw_pred, pre_frame)."""
         b, pyr = self._images(b)
-        with record_function("step.preintegrate"):
+        with self.spans("step.preintegrate"):
             st, pre_frame, ns_pred, Rcw_pred, tcw_pred = self._preintegrate(st, b)
         return st, b, pyr, (ns_pred, Rcw_pred, tcw_pred, pre_frame)
 
@@ -894,11 +899,11 @@ class VipStep:
         (eager)."""
         tracks = st.tracks
         if s in (INITIALIZING, IMU_RELOC):
-            with record_function("step.propagate"):
+            with self.spans("step.propagate"):
                 u = draw_uniform(st.gen, 200, self.cfg.n_tracks, self.device)
                 tracks = self._propagate(st, pyr, *pred[1:3], u)
         if s in (NOT_INITIALIZED, LOST) or (s == IMU_RELOC and not has_anchor):
-            with record_function("step.refill_refresh"):
+            with self.spans("step.refill_refresh"):
                 tracks = self._detect(dataclasses.replace(st, tracks=tracks), b.img)
         st = self._finish_tracks(st, tracks)
 
@@ -931,16 +936,16 @@ class VipStep:
         lane 0, or the mono seed solve before VIO init) with the flags of
         its host read: (ok, need) or (lost, need)."""
         ns_pred, Rcw_pred, tcw_pred, pre_frame = pred
-        with record_function("step.propagate"):
+        with self.spans("step.propagate"):
             tracks = self._propagate(st, pyr, Rcw_pred, tcw_pred, u)
-        with record_function("step.refill_refresh"):
+        with self.spans("step.refill_refresh"):
             tracks = self._detect(dataclasses.replace(st, tracks=tracks), b.img)
         st = self._finish_tracks(st, tracks)
         if vio_ok:
-            with record_function("step.vi_track"):
+            with self.spans("step.vi_track"):
                 sol, flags = self._vi_lane0(st, b, ns_pred, pre_frame)
         else:
-            with record_function("step.pose_localmap"):
+            with self.spans("step.pose_localmap"):
                 sol = self._mono_seed_solve(st)
             flags = self._mono_flags(st, sol)
         return st, sol, flags
@@ -954,7 +959,7 @@ class VipStep:
     def _keyframe(self, st, b, vio_ok: bool, hygiene: bool):
         """Segment D: the keyframe and the window BA (mono before VIO init,
         VI after it) up to the map hygiene's compaction flag."""
-        with record_function("step.keyframe"):
+        with self.spans("step.keyframe"):
             st, k = self._create_kf(st, b, vio_ok)
         return self._ba_front(st, k, vio_ok, hygiene)
 
@@ -963,6 +968,7 @@ class VipStep:
         keyframe's bookkeeping, the ring and the output."""
         return self._ring_and_out(self._ba_finish(self._compact(st) if compact else st), pyr)
 
+    @spanned("step.call")
     def __call__(self, st: VipTrackerState, b: FrameBundle):
         """One frame bundle. RANSAC minimal samples draw from `st.gen`. A
         WORKING frame runs segments A-E, replayed from captured graphs
@@ -1014,7 +1020,7 @@ class VipStep:
         # loops replayed by `segments.scan`) when it fires, then the ring
         st, fire = seg.run(("E", False, c), lambda *a: self._kf_trigger(*a, compact=c), st)
         if self._read_bool(fire):
-            with record_function("step.vio_init"):
+            with self.spans("step.vio_init"):
                 st_ok, ok = self._try_init_vio(st)
             if self._read_bool(ok):
                 st = st_ok
@@ -1087,7 +1093,7 @@ class VipFleetStep(Fleet):
         """Segment A: every stream's images and inertial prediction."""
         one = self.one
         b, pyr = over_streams(one._images, b)
-        with record_function("step.preintegrate"):
+        with self.spans("step.preintegrate"):
             st, pre_frame, ns_pred, Rcw_pred, tcw_pred = over_streams(one._preintegrate, st, b)
         return st, b, pyr, (ns_pred, Rcw_pred, tcw_pred, pre_frame)
 
@@ -1102,12 +1108,12 @@ class VipFleetStep(Fleet):
         ns_pred, Rcw_pred, tcw_pred, pre_frame = pred
         tracks = st.tracks
         if ix["prop"] is not None:
-            with record_function("step.propagate"):
+            with self.spans("step.propagate"):
                 sub = over_streams(one._propagate, *(take(t, ix["prop"]) for t in
                                                      (st, pyr, Rcw_pred, tcw_pred)), u)
                 tracks = put(tracks, ix["prop"], sub)
         if ix["det"] is not None:
-            with record_function("step.refill_refresh"):
+            with self.spans("step.refill_refresh"):
                 tracks = put(tracks, ix["det"], over_streams(
                     one._detect, take(dataclasses.replace(st, tracks=tracks), ix["det"]),
                     take(b.img, ix["det"])))
@@ -1115,11 +1121,11 @@ class VipFleetStep(Fleet):
         mono = vi = None
         if ix["mono"] is not None:
             sub = take(st, ix["mono"])
-            with record_function("step.pose_localmap"):
+            with self.spans("step.pose_localmap"):
                 ml = over_streams(one._mono_seed_solve, sub)
             mono = ml, over_streams(one._mono_flags, sub, ml)
         if ix["vi"] is not None:
-            with record_function("step.vi_track"):
+            with self.spans("step.vi_track"):
                 vi = over_streams(one._vi_lane0, take(st, ix["vi"]), take(b, ix["vi"]),
                                   take(ns_pred, ix["vi"]), take(pre_frame, ix["vi"]))
         return st, mono, vi
@@ -1204,6 +1210,7 @@ class VipFleetStep(Fleet):
         return st, fire, out
 
     # ------------------------------------------------------------------
+    @spanned("step.call")
     def __call__(self, st: VipTrackerState, b: FrameBundle, gens):
         one, cfg, dev, seg, sel = self.one, self.cfg, self.device, self._seg, self._sel
         S = st.state.shape[0]
@@ -1229,7 +1236,7 @@ class VipFleetStep(Fleet):
         g_vi = group(lambda i: s[i] == WORKING and vio[i])
         u = None
         if g_prop:
-            with record_function("step.propagate"):
+            with self.spans("step.propagate"):
                 u = torch.stack([draw_uniform(gens[i], 200, cfg.n_tracks, dev) for i in g_prop])
         st, mono, vi = seg("B", self._body, st, bf, pyr, pred, u,
                            ix=dict(prop=sel(g_prop, every), det=sel(g_det, every),
@@ -1324,7 +1331,7 @@ class VipFleetStep(Fleet):
         # K: keyframes, grouped by the inertial mode
         kf = [group(lambda i: ctl[i].want_kf and vio[i] == v) for v in (False, True)]
         if kf[0] or kf[1]:
-            with record_function("step.keyframe"):
+            with self.spans("step.keyframe"):
                 st, adopt = seg("K", self._keyframes, st, dataclasses.replace(bf, img=None), adopt,
                                 ix=dict(kf0=sel(kf[0], every), kf1=sel(kf[1], every)))
         # D and E: BA, adoption, hygiene, the VIO-init trigger, grouped by
@@ -1344,7 +1351,7 @@ class VipFleetStep(Fleet):
             if trig:
                 fire = [i for i, f in zip(g, self._read(fire)) if f[0]]
                 if fire:
-                    with record_function("step.vio_init"):
+                    with self.spans("step.vio_init"):
                         st_ok, ok = over_streams(one._try_init_vio, self._take(st, fire, every))
                     done = [i for i, f in zip(fire, self._read(ok)) if f[0]]
                     if done:

@@ -8,12 +8,13 @@ pushed back into the step's state together with the re-anchored pose,
 a reset motion model and, in VIP mode, the corrected NavState and a
 fresh frame-to-frame prior.
 
-Spans for a profiler: `stream.process` around a frame, and the closer's
-`loop.detect`, `loop.sim3`, `loop.essential_graph`, `loop.fuse`,
-`loop.global_ba`. The closing pass's loops (the essential graph's and the
-full-map BA's LM iterations, the NavState BA's preintegration) run
-through the step's own `Segments.scan`: replayed graphs when the step is
-graphed (the default on the card), the plain loops otherwise.
+Spans of the step's `spans` (`utils.spans`): `stream.process` around a
+frame, and the closer's `loop.detect`, `loop.sim3`,
+`loop.essential_graph`, `loop.fuse`, `loop.global_ba`. The closing
+pass's loops (the essential graph's and the full-map BA's LM iterations,
+the NavState BA's preintegration) run through the step's own
+`Segments.scan`: replayed graphs when the step is graphed (the default
+on the card), the plain loops otherwise.
 """
 
 from __future__ import annotations
@@ -22,7 +23,6 @@ import dataclasses
 import time
 
 import torch
-from torch.profiler import record_function
 
 from uvipslam_torch.core.tree import tree_map
 from uvipslam_torch.frontend.device_tracker import step_device
@@ -84,7 +84,7 @@ class DeviceStream:
         """Feed one frame (image for mono, FrameBundle for VIP). Returns
         the device StepOut / VipStepOut."""
         self.frame_id += 1
-        with record_function("stream.process"):
+        with self.step.spans("stream.process"):
             self.st, out = self.step(self.st, x)
             self.host_syncs += 1
             k = int(out.new_kf)

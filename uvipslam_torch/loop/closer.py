@@ -31,7 +31,6 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from uvipslam_torch.core import lie
 from uvipslam_torch.core.lie import mm, mv
@@ -357,6 +356,7 @@ class LoopCloser:
         self.device = step_device(device)
         self.segments = Segments(self.device, graphs=self.device.type == "cuda") \
             if segments is None else segments
+        self.spans = self.segments.spans      # the stream's step's, with its segments
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
         f32 = dict(dtype=torch.float32, device=self.device)
@@ -476,7 +476,7 @@ class LoopCloser:
         status = {"loop": False, "candidates": 0}
         self.last_timing = {}
         t = time.perf_counter()
-        with record_function("loop.detect"):
+        with self.spans("loop.detect"):
             out = self._detect(m, query_kf, status)
         t = self._tick(m, "detect", t)
         if out is None:
@@ -486,7 +486,7 @@ class LoopCloser:
         mt = (self.min_total_matches if self.min_total_matches is not None
               else max(15, round(0.1 * m.n_feat)))
         for c in accepted:
-            with record_function("loop.sim3"):
+            with self.spans("loop.sim3"):
                 grp = sorted(self._covis_group(m, int(c)))
                 ok, s, R, tr, n_in, n_total = compute_loop_sim3(
                     m, query_kf, c, self.gen, self.fx, self.fy, self.cx, self.cy,
@@ -495,14 +495,14 @@ class LoopCloser:
             t = self._tick(m, "sim3", t)
             if not ok:
                 continue
-            with record_function("loop.essential_graph"):
+            with self.spans("loop.essential_graph"):
                 m = close_loop(m, query_kf, c, s, R, tr, Rcb=self.Rcb, tcb=self.tcb,
                                Rbc=self.Rbc, tbc=self.tbc, scan=self.segments.scan)
             t = self._tick(m, "essential_graph", t)
-            with record_function("loop.fuse"):
+            with self.spans("loop.fuse"):
                 m = fuse_duplicates(m)
             t = self._tick(m, "fuse", t)
-            with record_function("loop.global_ba"):
+            with self.spans("loop.global_ba"):
                 m = self.post_ba(m)
             t = self._tick(m, "global_ba", t)
             self.last_loop_frame = fq

@@ -49,9 +49,15 @@ alone. `Segments.run(key, fn, *trees)` runs one:
   Python, so these counts are the capture's times the replays; a
   profiler trace of a replay is what holds them against the kernels the
   device ran. `captures`, `replays` and `capture_seconds` count the rest.
-- Each replay runs inside a `record_function` span
-  `step.graph.<segment>`; the `step.<stage>` spans inside a graph are
-  recorded only while it is captured.
+- The step's spans (`utils.spans`; `Segments.spans`, which the step
+  shares): each replay runs in a span `step.graph.<segment>`, its host
+  work before the replay in `graph.prep`, its copies in and out in
+  `graph.copy`, and each capture with its warm-up in `step.graph.capture`
+  (the span of `capture_seconds`). The `step.<stage>` spans inside a
+  graph open only while it is captured (or its CPU plain form runs), and
+  the recorder counts them toward the capture (or the replay). With the
+  recorder timing replays, each replay on the card runs between two
+  timing events recorded outside the graph.
 - `Segments(device, graphs=False)` is the eager form: `run` calls
   `fn(*trees)` and nothing else, so a step composes its frame of the same
   segments either way.
@@ -148,9 +154,9 @@ import dataclasses
 import time
 
 import torch
-from torch.profiler import record_function
 
 from uvipslam_torch.ops import klt
+from uvipslam_torch.utils.spans import Spans, spanned
 
 ALIGN_BYTES = 512          # the CUDA caching allocator's block alignment
 # (holder, attribute) of each counter that a replay advances by its capture's change
@@ -315,10 +321,12 @@ class Segments:
     module docstring): `graphs` maps (key, layout) to a graph, `keys` the
     keys met, `buffers` the pool of static input buffers by layout. With
     `graphs=False`, `run` calls the function and `scan` (and
-    `lifted_scan`'s lifted loop) runs its plain loop."""
+    `lifted_scan`'s lifted loop) runs its plain loop. `spans` (default
+    one of its own) is the step's `utils.spans.Spans`."""
 
-    def __init__(self, device, graphs: bool = True):
+    def __init__(self, device, graphs: bool = True, spans: Spans | None = None):
         self.device = torch.device(device)
+        self.spans = Spans() if spans is None else spans
         self.enabled = graphs
         self.cuda = self.device.type == "cuda"
         self.graphs: dict = {}
@@ -387,23 +395,29 @@ class Segments:
         captured at its first call; returns fresh outputs."""
         if not self.enabled:
             return fn(*trees)
-        flat = _leaves(trees)
-        spec = (key, tuple(_layout(t) for t in flat))
-        g = self.graphs.get(spec)
+        sp = self.spans
+        with sp("graph.prep"):
+            flat = _leaves(trees)
+            spec = (key, tuple(_layout(t) for t in flat))
+            g = self.graphs.get(spec)
         captured = g is None
         if captured:
             static_in = self._static(flat)
             _copy(static_in, flat)
             g = self._capture(spec, fn, static_in, _rebuild(trees, static_in))
         try:
-            _copy(g.static_in, flat)
+            with sp("graph.copy"):
+                _copy(g.static_in, flat)
             self._launch(f"step.graph.{key[0]}", g, run_plain=not captured)
-            fresh = [_like(t, self.device) for t in g.static_new]
-            _copy(fresh, g.static_new)
+            with sp("graph.copy"):
+                fresh = [_like(t, self.device) for t in g.static_new]
+                _copy(fresh, g.static_new)
+                out = _rebuild(g.out, [flat[j] if kind == "in" else fresh[j]
+                                       for kind, j in g.source])
         except Exception as e:
             raise SegmentError(f"segment {key!r}: replay failed: {e}") from e
         self.replays += 1
-        return _rebuild(g.out, [flat[j] if kind == "in" else fresh[j] for kind, j in g.source])
+        return out
 
     def scan(self, key: tuple, body, carry, xs=None, length: int | None = None, consts=(),
              ys: bool = False):
@@ -423,29 +437,32 @@ class Segments:
         if n == 0:
             return plain_scan(key, body, carry, xs, length, consts, ys)
         skey = ("scan",) + tuple(key)
-        span = f"step.graph.scan.{key[0]}"
-        # trap 2: xs step-major and contiguous, copied once, so that every
-        # step's slice has one layout, that of the static slice
-        xs_c = _map(lambda t: t.contiguous(), xs)
-        fixed = (_map(lambda t: t[0], xs_c), consts)
-        flat_fixed = _leaves(fixed)
-        n_x = len(_leaves(fixed[0]))
-        fspec = (skey, tuple(_layout(t) for t in flat_fixed))
-        shared = self._scan_sets.get(fspec)
-        if shared is None:
-            shared = self._scan_sets[fspec] = self._static(flat_fixed)
-        src = _leaves(carry)
-        spec = (skey, (tuple(_layout(t) for t in src), fspec[1]))
+        span, sp = f"step.graph.scan.{key[0]}", self.spans
+        with sp("graph.prep"):
+            # trap 2: xs step-major and contiguous, copied once, so that
+            # every step's slice has one layout, that of the static slice
+            xs_c = _map(lambda t: t.contiguous(), xs)
+            fixed = (_map(lambda t: t[0], xs_c), consts)
+            flat_fixed = _leaves(fixed)
+            n_x = len(_leaves(fixed[0]))
+            fspec = (skey, tuple(_layout(t) for t in flat_fixed))
+            shared = self._scan_sets.get(fspec)
+            if shared is None:
+                shared = self._scan_sets[fspec] = self._static(flat_fixed)
+            src = _leaves(carry)
+            spec = (skey, (tuple(_layout(t) for t in src), fspec[1]))
         out_ys = []
         try:
             # trap 1: the constants are copied in at every call
-            _copy(shared, flat_fixed)
+            with sp("graph.copy"):
+                _copy(shared, flat_fixed)
             for k in range(n):
-                dst, srcs = [], []
-                if k > 0:       # step 0's slice came in with the constants
-                    dst += shared[:n_x]
-                    srcs += _leaves(_map(lambda t, k=k: t[k], xs_c))
-                g = self.graphs.get(spec)
+                with sp("graph.prep"):
+                    dst, srcs = [], []
+                    if k > 0:       # step 0's slice came in with the constants
+                        dst += shared[:n_x]
+                        srcs += _leaves(_map(lambda t, k=k: t[k], xs_c))
+                    g = self.graphs.get(spec)
                 captured = g is None
                 if captured:
                     _copy(dst, srcs)
@@ -457,23 +474,26 @@ class Segments:
                                       (_rebuild(carry, static_c),) + _rebuild(fixed, shared))
                     g.then = self._scan_then(spec, g, len(src), ys)
                     g.private = len(src)
-                else:
-                    for d, t in zip(g.static_in, src):
-                        if d is not t:
-                            dst.append(d)
-                            srcs.append(t)
-                _copy(dst, srcs)
+                with sp("graph.copy"):
+                    if not captured:
+                        for d, t in zip(g.static_in, src):
+                            if d is not t:
+                                dst.append(d)
+                                srcs.append(t)
+                    _copy(dst, srcs)
                 self._launch(span, g, run_plain=not captured)
                 self.scan_steps += 1
                 out = [g.static_in[j] if kind == "in" else g.static_new[j]
                        for kind, j in g.source]
                 src, spec = out[:len(src)], g.then
                 if ys:
-                    fresh = [_like(t, self.device) for t in out[len(src):]]
-                    _copy(fresh, out[len(src):])
-                    out_ys.append(_rebuild(g.out[1], fresh))
-            fresh = [_like(t, self.device) for t in src]
-            _copy(fresh, src)
+                    with sp("graph.copy"):
+                        fresh = [_like(t, self.device) for t in out[len(src):]]
+                        _copy(fresh, out[len(src):])
+                        out_ys.append(_rebuild(g.out[1], fresh))
+            with sp("graph.copy"):
+                fresh = [_like(t, self.device) for t in src]
+                _copy(fresh, src)
         except SegmentError:
             raise
         except Exception as e:
@@ -509,9 +529,11 @@ class Segments:
                                f"for {n_carry}")
         return (spec[0], (tuple(_layout(t) for t in out[:n_carry]), spec[1][1]))
 
+    @spanned("step.graph.capture")
     def _capture(self, spec, fn, static_in, static_trees) -> _Graph:
         """fn captured over the static input buffers `static_in` (the
-        leaves of `static_trees`, which fn takes)."""
+        leaves of `static_trees`, which fn takes), in a span
+        `step.graph.capture`."""
         t0 = time.perf_counter()
         key = spec[0]
         if _has_generator(static_trees):
@@ -520,6 +542,7 @@ class Segments:
         counters = list(COUNTERS)
         before = _counters(counters)
         self._inside += 1
+        self.spans.held += 1
         try:
             if self.cuda:
                 graph, out, delta = self._cuda_capture(key, fn, static_trees, counters)
@@ -533,6 +556,7 @@ class Segments:
             raise SegmentError(f"segment {key!r}: capture failed: {e}") from e
         finally:
             self._inside -= 1
+            self.spans.held -= 1
             _set_counters(counters, before)
         ids = {id(t): j for j, t in enumerate(static_in)}
         source, static_new, at = [], [], {}
@@ -594,19 +618,21 @@ class Segments:
         the counters advanced by its capture's change. `run_plain=False`
         right after a CPU capture, whose call left this call's results in
         the static outputs already."""
-        with record_function(span):
+        with self.spans(span):
             if g.graph is not None:
-                g.graph.replay()
+                self.spans.device(g.graph.replay)
             elif run_plain:
                 # what the plain form's call counts is replaced by the
                 # capture's change, as a replay counts
                 counters = list(dict.fromkeys(COUNTERS + g.counters))
                 before = _counters(counters)
                 self._inside += 1
+                self.spans.held += 1
                 try:
                     res = _leaves(g.fn(*g.static_trees))
                 finally:
                     self._inside -= 1
+                    self.spans.held -= 1
                     _set_counters(counters, before)
                 _copy([g.static_new[k] for kind, k in g.source if kind == "new"],
                       [r for (kind, _), r in zip(g.source, res) if kind == "new"])
